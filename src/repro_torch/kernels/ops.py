@@ -1,0 +1,84 @@
+"""Dispatch over the kernels (port of ``repro/kernels/ops.py``).
+
+``impl`` picks the implementation: ``"auto"`` (the default) launches the
+CUDA kernel for a CUDA tensor and runs the plain PyTorch version for a CPU
+tensor; ``"ref"`` runs the plain version wherever the tensor lies (the
+oracle the kernels are held against); ``"kernel"`` demands the CUDA kernel
+and raises on a CPU tensor.  No path quietly gives way to another: a failed
+build or launch raises.
+
+``NmKernelConfig`` is the serving-side choice: the engine threads it from
+``ServeConfig`` through ``model_builder`` into ``layers.dense``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.sparsity import NmCompressed
+from repro_torch.kernels import hessian_accum, nm_spmm, ref
+
+Tensor = torch.Tensor
+
+IMPLS = ("auto", "ref", "kernel")
+
+
+@dataclasses.dataclass(frozen=True)
+class NmKernelConfig:
+    """How ``layers.dense`` runs an NmCompressed matmul."""
+
+    impl: str = "auto"
+
+    def __post_init__(self):
+        if self.impl not in IMPLS:
+            raise ValueError(f"unknown impl {self.impl!r}; known: {IMPLS}")
+
+
+def use_kernel(t: Tensor, impl: str) -> bool:
+    """Whether ``impl`` runs the CUDA kernel on tensor ``t``."""
+    if impl in ("auto", ""):
+        return t.is_cuda
+    if impl == "ref":
+        return False
+    if impl == "kernel":
+        if not t.is_cuda:
+            raise ValueError("impl='kernel' needs a CUDA tensor; the CUDA "
+                             f"kernels do not run on {t.device}")
+        return True
+    raise ValueError(f"unknown impl {impl!r}; known: {IMPLS}")
+
+
+def nm_matmul(x: Tensor, packed: NmCompressed, *, impl: str = "",
+              cfg: NmKernelConfig | None = None) -> Tensor:
+    """y = x @ Wᵀ for n:m compressed W (c, b); x (..., b) → y (..., c)."""
+    cfg = cfg if cfg is not None else NmKernelConfig()
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if use_kernel(x2, impl or cfg.impl):
+        y = nm_spmm.nm_matmul_cuda(x2, packed.values, packed.indices,
+                                   n=packed.n, m=packed.m, b=packed.b,
+                                   idx_bits=packed.idx_bits)
+    else:
+        y = ref.nm_matmul_ref(x2, packed.values, packed.indices, packed.n,
+                              packed.m, packed.b, packed.idx_bits)
+    return y.reshape(*lead, -1)
+
+
+def hessian_update(x: Tensor, valid: "Tensor | None", xtx: Tensor,
+                   count: Tensor, skipped: Tensor) -> None:
+    """The fused accumulator update (kernels/hessian_accum.py), in place:
+    K1 on a CUDA tensor, its plain version on a CPU tensor."""
+    if x.is_cuda:
+        hessian_accum.hessian_update_cuda(x, valid, xtx, count, skipped)
+    else:
+        hessian_accum.hessian_update_plain(x, valid, xtx, count, skipped)
+
+
+def hessian_xtx(x: Tensor) -> Tensor:
+    """H = 2·XᵀX for token-major activations x (..., b): K1 on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.is_cuda:
+        return hessian_accum.hessian_xtx_cuda(x2)
+    return ref.hessian_ref(x2)
