@@ -11,20 +11,31 @@ non-zero without the final result line):
 2. kernels — hold each kernel against its plain PyTorch version on the card:
              K1 (Hessian update) fp32/bf16 at b ∈ {2048, 5632}, a masked-rows
              batch and a NaN batch that must be skipped; K2 (n:m matmul) at
-             the serving shapes for idx_bits 4/8, fp32/bf16, plus odd shapes.
-3. prune   — the main path: Thanos 2:4 prunes tinyllama-1.1b at full width
+             the serving shapes for idx_bits 4/8, fp32/bf16, plus odd shapes;
+             then the MoE path's shapes: K1 at (1024, 4096) and at the
+             expert capacity buffers (80, 2048) / (80, 768) with a random
+             row mask, K2 at qwen3-moe's attention shapes, K3 (stacked
+             expert matmul) at both full-width expert leaves and odd shapes.
+3. prune   — the dense path: Thanos 2:4 prunes tinyllama-1.1b at full width
              and depth from a seeded random init (K1 carries the Hessians).
 4. serve   — compress the pruned linears and serve 4 requests through the
              continuous-batching engine, compressed-resident (K2 carries
              every pruned linear); then hold the kernel path's first-step
              logits against the same params decompressed and served dense.
+4m. moe    — the MoE path: qwen3-moe-30b-a3b at full width, depth cut to
+             MOE_LAYERS layers, Thanos 2:4 prunes every expert slice on its
+             routed tokens (K1), every expert stack packs into one stacked
+             leaf, and the engine serves the phase-4 request set (K3 for
+             the expert stacks, K2 for attention); exact launch counts and
+             the first-step logits against the decompressed params.
 5. times   — each kernel at each main-path shape: kernel, plain version and
              one library call, beside the bound the card's peaks give.
 
-Kernel launch counts are zeroed just before phase 3 and read just after
-phase 4's serve; the comparison and timing launches are not counted.  The
-line before the last is the kernels JSON; the last line is the device
-JSON.  Results are also written to ``chiprun_out/chip_smoke.json``.
+Kernel launch counts are zeroed just before each path (phases 3 and 4m) and
+read just after its serve; the comparison and timing launches are not
+counted.  The line before the last is the kernels JSON; the last line is
+the device JSON.  Results are also written to
+``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -42,6 +53,17 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (dense): HBM bytes/s and operations/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+# 48 layers hold 61 GB of bf16 weights before a compressed copy and give
+# ~18 000 expert solves; 4 layers keep every width and the phase short
+MOE_LAYERS = 4
+# x (C, b) → W (E, c, b) of the two full-width expert leaves: gate/up, down
+MOE_LEAVES = [(128, 8, 768, 2048), (128, 8, 2048, 768)]
+MOE_ATTN = [(4096, 2048), (512, 2048), (2048, 4096)]      # K2, (c, b)
+# K1: (tokens, b, row mask): attention inputs, expert capacity buffers
+MOE_K1 = [(1024, 2048, False), (1024, 4096, False), (80, 2048, True),
+          (80, 768, True)]
 
 
 def fail(msg: str) -> None:
@@ -114,6 +136,385 @@ def errs(got, want) -> tuple[float, float]:
     d = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
     return d, d / scale if scale else d
+
+
+def nm_mask3(w, n: int, m: int):
+    """n:m magnitude mask of a stacked (E, c, b) weight (1.0 = pruned)."""
+    import torch
+
+    from repro_torch.core.masks import nm_mask
+
+    E, c, b = w.shape
+    ones = torch.ones((b,), device=w.device)
+    return nm_mask(w.reshape(E * c, b).float(), ones, n, m).reshape(E, c, b)
+
+
+def moe_kernel_checks(gen, dev) -> dict:
+    """Phase 2 at the MoE path's shapes: K1 with the capacity buffers' row
+    masks, K2 at qwen3-moe's attention shapes, K3 at the full-width expert
+    leaves and odd shapes.  → errors and bf16 operands for phase 5."""
+    import torch
+
+    from repro_torch.core.masks import nm_mask
+    from repro_torch.core.sparsity import pack_nm, pack_nm_stacked
+    from repro_torch.kernels import hessian_accum as K1, nm_spmm as K2
+
+    out: dict = {"k1": {}, "k2": {}, "k3": {}, "packs2": {}, "packs3": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        for tok, b, masked in MOE_K1:
+            x = torch.randn((tok, b), generator=gen, device=dev).to(dtype)
+            valid = (torch.rand((tok,), generator=gen, device=dev) < 0.6
+                     if masked else None)
+            if masked:
+                x[~valid] = torch.nan             # garbage in unrouted rows
+            acc_k = [torch.zeros((b, b), device=dev),
+                     torch.zeros((), device=dev), torch.zeros((), device=dev)]
+            acc_p = [t.clone() for t in acc_k]
+            for _ in range(2):
+                K1.hessian_update_cuda(x, valid, *acc_k)
+                K1.hessian_update_plain(x, valid, *acc_p)
+            torch.cuda.synchronize()
+            e = errs(acc_k[0], acc_p[0])
+            rows = 2.0 * (float(valid.sum()) if masked else tok)
+            check(torch.allclose(acc_k[0], acc_p[0], rtol=1e-3, atol=2e-2)
+                  and float(acc_k[1]) == float(acc_p[1]) == rows
+                  and float(acc_k[2]) == 0.0,
+                  f"K1 ({tok}, {b}) {dtype} masked={masked}: err {e[0]:.3g}"
+                  f", count {float(acc_k[1])} vs {rows}")
+            out["k1"][(tok, b, str(dtype))] = e
+    for (c, b) in MOE_ATTN:
+        for dtype in (torch.float32, torch.bfloat16):
+            w = (torch.randn((c, b), generator=gen, device=dev)
+                 / math.sqrt(b)).to(dtype)
+            mask = nm_mask(w.float(), torch.ones((b,), device=dev), 2, 4)
+            for B in (1, 4):
+                x = torch.randn((B, b), generator=gen, device=dev).to(dtype)
+                for bits in (4, 8):
+                    pk = pack_nm(w, mask, 2, 4, idx_bits=bits)
+                    y_k = K2.nm_matmul_cuda(x, pk.values, pk.indices, n=2,
+                                            m=4, b=b, idx_bits=bits)
+                    y_p = K2.nm_matmul_plain(x, pk.values, pk.indices, 2, 4,
+                                             b, bits)
+                    torch.cuda.synchronize()
+                    e = errs(y_k, y_p)
+                    tol = ((1e-4, 1e-4) if dtype == torch.float32
+                           else (2e-2, 1e-2))
+                    check(torch.allclose(y_k.float(), y_p.float(),
+                                         rtol=tol[0], atol=tol[1]),
+                          f"K2 c={c} b={b} B={B} {dtype} idx{bits}: max abs "
+                          f"err {e[0]:.3g}")
+                    out["k2"][(B, c, b, str(dtype), bits)] = e
+                    if dtype == torch.bfloat16 and bits == 4:
+                        out["packs2"][(c, b)] = (pk, w.masked_fill(
+                            mask > 0.5, 0))
+    # full-width leaves, then odd shapes: ragged rows, C < 8 and C > 8
+    # (two row chunks), b not a multiple of 8, keep = 3 (scalar path)
+    cases = [(E, C, c, b, 2, 4) for E, C, c, b in MOE_LEAVES]
+    cases += [(5, 3, 37, 96, 2, 4), (5, 3, 37, 96, 5, 8),
+              (3, 17, 33, 100, 2, 4)]
+    n3, worst3 = 0, {torch.float32: (0.0, 0.0), torch.bfloat16: (0.0, 0.0)}
+    for (E, C, c, b, n, m) in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            w = (torch.randn((E, c, b), generator=gen, device=dev)
+                 / math.sqrt(b)).to(dtype)
+            mask = nm_mask3(w, n, m)
+            x = torch.randn((E, C, b), generator=gen, device=dev).to(dtype)
+            for bits in (4, 8):
+                pk = pack_nm_stacked(w, mask, n, m, idx_bits=bits)
+                y_k = K2.nm_matmul_stacked_cuda(x, pk.values, pk.indices,
+                                                n=n, m=m, b=b, idx_bits=bits)
+                y_p = K2.nm_matmul_stacked_plain(x, pk.values, pk.indices, n,
+                                                 m, b, bits)
+                torch.cuda.synchronize()
+                e = errs(y_k, y_p)
+                # K2's tolerances: fp32 sum order; bf16 one output rounding
+                tol = ((1e-4, 1e-4) if dtype == torch.float32
+                       else (2e-2, 1e-2))
+                check(y_k.shape == (E, C, c) and y_k.dtype == dtype and
+                      torch.allclose(y_k.float(), y_p.float(), rtol=tol[0],
+                                     atol=tol[1]),
+                      f"K3 E={E} C={C} c={c} b={b} {n}:{m} {dtype} "
+                      f"idx{bits}: max abs err {e[0]:.3g}")
+                out["k3"][(E, C, c, b, str(dtype), bits)] = e
+                worst3[dtype] = max(worst3[dtype], e)
+                n3 += 1
+                if dtype == torch.bfloat16 and bits == 4 and \
+                        (E, C, c, b) in MOE_LEAVES:
+                    out["packs3"][(E, C, c, b)] = pk
+            del w, mask, x
+    print(f"kernels: MoE shapes: hessian_xtx {len(out['k1'])} and nm_matmul "
+          f"{len(out['k2'])} checks ok; nm_matmul_stacked (cuda) vs plain: "
+          f"{n3} checks ok; max abs/rel err fp32 "
+          f"{worst3[torch.float32][0]:.3g}/{worst3[torch.float32][1]:.3g} "
+          f"(rtol 1e-4 / atol 1e-4), bf16 {worst3[torch.bfloat16][0]:.3g}/"
+          f"{worst3[torch.bfloat16][1]:.3g} (rtol 2e-2 / atol 1e-2)")
+    return out
+
+
+def moe_phase(dev) -> dict:
+    """Phase 4m: prune → stacked compress → serve qwen3-moe-30b-a3b at full
+    width, depth cut to MOE_LAYERS, through the functions ``prune_arch``
+    composes; exact K1/K2/K3 launch counts over the path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import PruneConfig
+    from repro_torch.core.masks import check_nm
+    from repro_torch.core.schedule import prune_model
+    from repro_torch.core.sparsity import NmStackedCompressed
+    from repro_torch.data.pipeline import calibration_batches, heldout_loss
+    from repro_torch.kernels import hessian_accum as K1, nm_spmm as K2
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model_builder import ModelAdapter, build_model
+    from repro_torch.serve.compressed import (compress_params,
+                                              compressed_bytes,
+                                              decompress_params)
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+
+    full = get_config(MOE_ARCH)
+    cfg = full.replace(num_layers=MOE_LAYERS)
+    L = cfg.num_layers
+    print(f"phase moe: {MOE_ARCH} at full width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads, head_dim "
+          f"{cfg.head_dim}, {cfg.num_experts} experts top-"
+          f"{cfg.num_experts_per_tok}, moe_d_ff {cfg.moe_d_ff}, vocab "
+          f"{cfg.vocab_size}, qk_norm {cfg.qk_norm}), {cfg.dtype}; depth cut "
+          f"{full.num_layers} → {L} layers")
+    kernels = (K1.hessian_update_cuda, K2.nm_matmul_cuda,
+               K2.nm_matmul_stacked_cuda)
+    for fn in kernels:
+        fn.launches = 0
+        fn.by_shape.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    dense_loss = heldout_loss(model, params, cfg)
+    batches = calibration_batches(cfg, num_samples=16, seq_len=128, batch=8,
+                                  device=dev)
+    t1 = time.perf_counter()
+    pruned, report = prune_model(
+        params, ModelAdapter(model), batches,
+        PruneConfig("thanos", "nm", n=2, m=4, block_size=64))
+    torch.cuda.synchronize()
+    t_prune = time.perf_counter() - t1
+    pruned_loss = heldout_loss(model, pruned, cfg)
+    t_phase = time.perf_counter() - t0
+    del params
+    per_block = 4 + 3 * cfg.num_experts
+    check(len(report.masks) == per_block * L,
+          f"{len(report.masks)} pruned linears, expected {per_block * L}")
+    check(all(check_nm(mk.T, 2, 4) for mk in report.masks.values()),
+          "a pruned linear breaks 2:4")
+    check(all(r.fallback == "" for r in report.layers),
+          "a layer fell back to magnitude pruning")
+    check(abs(report.mean_sparsity() - 0.5) < 1e-9,
+          f"sparsity {report.mean_sparsity()}")
+    check(math.isfinite(dense_loss) and math.isfinite(pruned_loss),
+          "non-finite held-out loss")
+    k1_expect = per_block * len(batches) * L
+    check(K1.hessian_update_cuda.launches == k1_expect,
+          f"K1 launches {K1.hessian_update_cuda.launches}, expected "
+          f"{k1_expect}")
+    damp = sum(r.damp_attempts for r in report.layers)
+    print(f"phase moe prune: thanos 2:4 B=64 on {len(batches)} × 8 × 128 "
+          f"tokens: {len(report.layers)} linears ({3 * cfg.num_experts * L} "
+          f"expert slices) in {t_prune:.1f} s (phase {t_phase:.1f} s), "
+          f"dense loss {dense_loss:.4f}, pruned loss {pruned_loss:.4f}, "
+          f"damping escalations {damp}, K1 launches "
+          f"{K1.hessian_update_cuda.launches} (expect {k1_expect})")
+
+    comp = compress_params(pruned, report.masks, 2, 4, strict=True)
+    del pruned, report
+    stacks = [comp["blocks"][i]["moe"][nm]["w"] for i in range(L)
+              for nm in ("gate", "up", "down")]
+    check(all(isinstance(s, NmStackedCompressed) and s.E == cfg.num_experts
+              and (s.n, s.m, s.idx_bits) == (2, 4, 4) for s in stacks),
+          "an expert stack is not one NmStackedCompressed leaf of E = 128")
+    cb, db = compressed_bytes(comp)
+    check(cb / db == 0.625, f"compressed ratio {cb / db}")
+    engine = ServingEngine(model, comp, ServeConfig(batch_slots=4,
+                                                    max_len=16 + 12 + 8))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=16) for _ in range(4)]
+    for uid, p in enumerate(prompts):
+        engine.submit(Request(uid, p, max_new=12))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    by_shape = {fn.__name__: dict(fn.by_shape) for fn in kernels}
+    st = engine.stats
+    steps = st["prefill_tokens"] + st["decode_steps"]
+    ntok = sum(len(r.out) for r in done)
+    check(len(done) == 4 and all(r.done and len(r.out) == 12 for r in done)
+          and all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+          "MoE served requests incomplete or out of vocabulary")
+    expect = {"hessian_update_cuda": k1_expect,
+              "nm_matmul_cuda": 4 * L * steps,
+              "nm_matmul_stacked_cuda": 3 * L * steps}
+    check(launches == expect, f"MoE launches {launches}, expected {expect}")
+    print(f"phase moe serve: {len(stacks)} expert stacks as stacked leaves "
+          f"of E = {cfg.num_experts}; compressed {cb / db:.4f} of dense bf16 "
+          f"bytes ({cb / 2**20:.1f} MiB vs {db / 2**20:.1f} MiB); 4 "
+          f"requests, {ntok} tokens in {t_serve:.2f} s "
+          f"({ntok / t_serve:.1f} tok/s, {st['decode_steps']} decode steps, "
+          f"{st['prefills']} prefills, {steps} model steps); launches "
+          f"{launches} (expect {expect})")
+    print(f"  req 0: {done[0].out}")
+
+    # first-step logits, K3/K2 path vs the same params decompressed, with
+    # each MoE layer's top-k routing recorded on both paths
+    routes: list = []
+    route_fn = moe_mod.moe_ffn
+
+    def recording(p, x, mcfg, **kw):
+        xt = x.reshape(-1, x.shape[-1])
+        probs = torch.softmax((xt @ p["router"]["w"]).float(), dim=-1)
+        ids = torch.topk(probs, mcfg.num_experts_per_tok, dim=-1).indices
+        routes.append(torch.sort(ids, dim=-1).values)
+        return route_fn(p, x, mcfg, **kw)
+
+    dense = decompress_params(comp)
+    tok = torch.tensor([[int(p[0])] for p in prompts], device=dev)
+    moe_mod.moe_ffn = recording
+    try:
+        with torch.no_grad():
+            lg_k, _ = model.decode_step(comp, model.init_cache(4, 8), tok, 0)
+            lg_d, _ = model.decode_step(dense, model.init_cache(4, 8), tok, 0)
+    finally:
+        moe_mod.moe_ffn = route_fn
+    torch.cuda.synchronize()
+    e = errs(lg_k, lg_d)
+    agree = float((lg_k.argmax(-1) == lg_d.argmax(-1)).float().mean())
+    rk, rd = torch.stack(routes[:L]), torch.stack(routes[L:])
+    route_sets = float((rk == rd).all(-1).float().mean())
+    print(f"  first-step logits, K3/K2 path vs decompressed dense: max abs "
+          f"err {e[0]:.4g}, rel {e[1]:.4g} (limit 5e-2), argmax agree "
+          f"{agree:.2f}; top-{cfg.num_experts_per_tok} expert sets equal in "
+          f"{route_sets:.3f} of (layer, token) routings")
+    # bf16 through MOE_LAYERS layers, summed in another order: max abs
+    # error within 5e-2 of the logits' max magnitude
+    check(bool(torch.isfinite(lg_k).all()) and e[1] <= 5e-2,
+          f"MoE compressed vs dense logits: max abs err {e[0]:.3g} "
+          f"(rel {e[1]:.3g}); routing sets equal {route_sets:.3f}")
+    return {"layers": L, "layers_full": full.num_layers,
+            "dense_loss": dense_loss, "pruned_loss": pruned_loss,
+            "prune_seconds": t_prune, "phase_seconds": t_phase,
+            "damp_escalations": damp, "ratio": cb / db, "tokens": ntok,
+            "serve_seconds": t_serve, "tok_per_s": ntok / t_serve,
+            "stats": st, "steps": steps, "launches": launches,
+            "by_shape": by_shape, "logits_max_abs_err": e[0],
+            "logits_rel_err": e[1], "argmax_agree": agree,
+            "routing_sets_equal": route_sets}
+
+
+def moe_times(gen, dev, chk: dict, moe: dict) -> list:
+    """Phase 5 rows at the MoE path's shapes (bf16, 4-bit indices): K1 at
+    its capacity-buffer and attention shapes, K2 at the attention shapes,
+    K3 at the two expert leaves."""
+    import torch
+
+    from repro_torch.core.sparsity import unpack_nm_stacked
+    from repro_torch.kernels import hessian_accum as K1, nm_spmm as K2
+
+    bf16 = torch.bfloat16
+    main = moe["by_shape"]
+    rows = []
+
+    def row(name, shape, source, replaces, launches, err, ms, eager, plain,
+            lib, nbytes, ops):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bfloat16"]
+        rows.append({
+            "name": name, "shape": shape, "path": MOE_ARCH, "route": "cuda",
+            "source": source, "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "eager_ms": eager,
+            "plain_ms": plain, "bound_ms": 1e3 * max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": lib})
+
+    for tok, b, masked in MOE_K1:
+        x = torch.randn((tok, b), generator=gen, device=dev).to(bf16)
+        valid = (torch.rand((tok,), generator=gen, device=dev) < 0.6
+                 if masked else None)
+        xm = x.float() if valid is None else torch.where(
+            valid[:, None], x.float(), 0.0)
+        acc = [torch.zeros((b, b), device=dev), torch.zeros((), device=dev),
+               torch.zeros((), device=dev)]
+        rows_used = tok if valid is None else int(valid.sum())
+        key = (tok, b, str(bf16))
+        row("hessian_xtx", f"x ({tok}, {b}) bf16"
+            + (" + row mask" if valid is not None else ""),
+            "src/repro_torch/kernels/csrc/hessian_xtx.cu",
+            "src/repro/kernels/hessian_accum.py:66",
+            main["hessian_update_cuda"].get(key, 0), chk["k1"][key][0],
+            device_ms(lambda: K1.hessian_update_cuda(x, valid, *acc), 10),
+            eager_ms(lambda: K1.hessian_update_cuda(x, valid, *acc), 10),
+            device_ms(lambda: K1.hessian_update_plain(x, valid, *acc), 10),
+            device_ms(lambda: torch.addmm(acc[0], xm.T, xm), 10),
+            x.numel() * 2 + (tok if valid is not None else 0) + 2 * b * b * 4,
+            2 * rows_used * b * b)
+    for (c, b), (pk, wd) in chk["packs2"].items():
+        per = pk.values.numel() * 2 + pk.indices.numel()
+        copies = max(1, math.ceil(128 * 2**20 / per))   # stream from HBM
+        vals = [pk.values.clone() for _ in range(copies)]
+        idxs = [pk.indices.clone() for _ in range(copies)]
+        dens = [wd.clone() for _ in range(max(1, math.ceil(
+            128 * 2**20 / (wd.numel() * 2))))]
+        for B in (1, 4):
+            x = torch.randn((B, b), generator=gen, device=dev).to(bf16)
+            ring = itertools.cycle(range(copies))
+            dring = itertools.cycle(range(len(dens)))
+
+            def kern():
+                i = next(ring)
+                K2.nm_matmul_cuda(x, vals[i], idxs[i], n=2, m=4, b=b,
+                                  idx_bits=4)
+
+            def plain():
+                i = next(ring)
+                K2.nm_matmul_plain(x, vals[i], idxs[i], 2, 4, b, 4)
+
+            reps = copies * max(1, 64 // copies)
+            key = (B, c, b, str(bf16), 4)
+            row("nm_matmul", f"B={B} W ({c}, {b}) 2:4 bf16",
+                "src/repro_torch/kernels/csrc/nm_spmm.cu",
+                "src/repro/kernels/nm_spmm.py:135",
+                main["nm_matmul_cuda"].get(key, 0), chk["k2"][key][0],
+                device_ms(kern, reps), eager_ms(kern, 200),
+                device_ms(plain, reps),
+                device_ms(lambda: torch.matmul(x, dens[next(dring)].T),
+                          len(dens) * max(1, 64 // len(dens))),
+                per + 2 * B * b + 2 * B * c, 2 * B * c * pk.values.shape[1])
+        del vals, idxs, dens
+    for (E, C, c, b), pk in chk["packs3"].items():
+        # one leaf is ≥ 250 MB, far past the 50 MB L2: every launch streams
+        # it from HBM without rotating copies
+        x = torch.randn((E, C, b), generator=gen, device=dev).to(bf16)
+        wd = unpack_nm_stacked(pk)                       # (E, c, b)
+
+        def kern():
+            K2.nm_matmul_stacked_cuda(x, pk.values, pk.indices, n=2, m=4,
+                                      b=b, idx_bits=4)
+
+        key = (E, C, c, b, str(bf16), 4)
+        per = pk.values.numel() * 2 + pk.indices.numel()
+        row("nm_matmul_stacked", f"x ({E}, {C}, {b}) W ({E}, {c}, {b}) "
+            "2:4 bf16", "src/repro_torch/kernels/csrc/nm_spmm.cu",
+            "src/repro/kernels/ops.py:151-161 (loops the pallas_call of "
+            "src/repro/kernels/nm_spmm.py:135)",
+            main["nm_matmul_stacked_cuda"].get(key, 0), chk["k3"][key][0],
+            device_ms(kern, 20), eager_ms(kern, 50),
+            device_ms(lambda: K2.nm_matmul_stacked_plain(
+                x, pk.values, pk.indices, 2, 4, b, 4), 2),
+            device_ms(lambda: torch.bmm(x, wd.transpose(-1, -2)), 20),
+            per + 2 * E * C * b + 2 * E * C * c,
+            2 * E * C * c * pk.values.shape[-1])
+        del wd
+    return rows
 
 
 def main() -> None:
@@ -252,6 +653,7 @@ def main() -> None:
           f"{worst2[torch.float32][1]:.3g} (rtol 1e-4 / atol 1e-4), bf16 "
           f"{worst2[torch.bfloat16][0]:.3g}/{worst2[torch.bfloat16][1]:.3g} "
           f"(rtol 2e-2 / atol 1e-2)")
+    moe_chk = moe_kernel_checks(gen, dev)
 
     # ---- 3. main path: prune ----------------------------------------------
     for fn in (K1.hessian_update_cuda, K2.nm_matmul_cuda):
@@ -346,6 +748,11 @@ def main() -> None:
     del pruned, comp, dense, engine, model
     torch.cuda.empty_cache()
 
+    # ---- 4m. MoE path: prune → stacked compress → serve --------------------
+    moe = moe_phase(dev)
+    results["moe"] = {k: v for k, v in moe.items() if k != "by_shape"}
+    torch.cuda.empty_cache()
+
     # ---- 5. times at the main-path shapes ---------------------------------
     entries = []
     for b in (2048, 5632):
@@ -419,10 +826,12 @@ def main() -> None:
                 "bound_by": "bytes" if t_b >= t_o else "operations",
                 "library_ms": lib_ms})
         del vals, idxs, dens
+    entries += moe_times(gen, dev, moe_chk, moe)
     torch.cuda.synchronize()
     print(f"phase times on {results['gpu']} (name, power limit):")
     for e in entries:
-        print(f"  {e['name']:12s} {e['shape']:28s} launches {e['launches']:6d}"
+        print(f"  {e['name']:17s} {e['shape']:40s} launches "
+              f"{e['launches']:6d}"
               f"  kernel {e['ms']:.4f} ms (eager {e['eager_ms']:.4f})  "
               f"plain {e['plain_ms']:.4f} ms  "
               f"library {e['library_ms']:.4f} ms  bound {e['bound_ms']:.4f} "

@@ -1,13 +1,14 @@
-"""Architecture registry of the port (dense Llama only so far)."""
+"""Architecture registry of the port (dense Llama and qwen3-moe so far)."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import ModelConfig
 
-ARCHS: tuple[str, ...] = ("tinyllama-1.1b",)
+ARCHS: tuple[str, ...] = ("tinyllama-1.1b", "qwen3-moe-30b-a3b")
 
-_MODULES = {"tinyllama-1.1b": "tinyllama_1_1b"}
+_MODULES = {"tinyllama-1.1b": "tinyllama_1_1b",
+            "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b"}
 
 
 def get_config(arch: str, *, reduced: bool = False) -> ModelConfig:

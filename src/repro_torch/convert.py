@@ -2,11 +2,12 @@
 
 ``params_from_numpy(tree)`` takes the JAX tree after
 ``jax.tree.map(np.asarray, params)`` — nested dicts with integer block keys,
-numpy leaves, and ``NmCompressed`` nodes whose children are numpy arrays —
-and returns the port's tree on ``device`` (CUDA unless the caller passes
-``device="cpu"``) with the same paths and the same (in, out) kernel
-layout.  It recognises a compressed node by its fields (values, indices,
-n, m, b, idx_bits), so it never imports the JAX package.
+numpy leaves, and ``NmCompressed`` / ``NmStackedCompressed`` nodes whose
+children are numpy arrays — and returns the port's tree on ``device`` (CUDA
+unless the caller passes ``device="cpu"``) with the same paths and the same
+(in, out) kernel layout.  It recognises a compressed node by its fields
+(values, indices, n, m, b, idx_bits; a stacked one also has E), so it never
+imports the JAX package.
 
 bfloat16: JAX hands out ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` refuses; they cross as their raw uint16 bits.  int8
@@ -17,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.sparsity import NmCompressed
+from repro_torch.core.sparsity import NmCompressed, NmStackedCompressed
 from repro_torch.device import resolve_device
 
 
@@ -42,9 +43,12 @@ def params_from_numpy(tree, device="cuda"):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if _is_compressed(tree):
-        idx = tensor_from_numpy(np.asarray(tree.indices).view(np.uint8),
-                                device)
-        return NmCompressed(values=tensor_from_numpy(tree.values, device),
-                            indices=idx, n=int(tree.n), m=int(tree.m),
-                            b=int(tree.b), idx_bits=int(tree.idx_bits))
+        kw = dict(values=tensor_from_numpy(tree.values, device),
+                  indices=tensor_from_numpy(
+                      np.asarray(tree.indices).view(np.uint8), device),
+                  n=int(tree.n), m=int(tree.m), b=int(tree.b),
+                  idx_bits=int(tree.idx_bits))
+        if hasattr(tree, "E"):
+            return NmStackedCompressed(E=int(tree.E), **kw)
+        return NmCompressed(**kw)
     return tensor_from_numpy(tree, device)

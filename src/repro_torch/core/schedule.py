@@ -35,16 +35,33 @@ def get_path(tree, path: Path):
 
 def set_path(tree, path: Path, value):
     """Functionally replace a leaf of nested dicts; untouched subtrees are
-    shared."""
+    shared.  An integer element indexes the leading axis of a stacked
+    tensor leaf (expert slice e of an (E, in, out) kernel as
+    (..., 'w', e)); that leaf is copied, not written in place."""
     if not path:
         return value
     head, rest = path[0], path[1:]
-    if not isinstance(tree, dict):
-        raise TypeError(f"set_path reached a {type(tree).__name__} at "
-                        f"{head!r}; stacked leaves are not ported yet")
-    new = dict(tree)
+    if isinstance(tree, dict):
+        new = dict(tree)
+    else:
+        new = tree.clone()
     new[head] = set_path(tree[head], rest, value)
     return new
+
+
+def _write_layer(params, path: Path, value, owned: set):
+    """``set_path`` for the prune loop: an expert slice is written in place
+    into this run's own copy of its stack, made at the stack's first slice
+    — one copy per stack, not one per slice (a full-width expert stack is
+    hundreds of MB and has 128 slices)."""
+    if not isinstance(path[-1], int):
+        return set_path(params, path, value)
+    base = path[:-1]
+    if base not in owned:
+        params = set_path(params, base, get_path(params, base).clone())
+        owned.add(base)
+    get_path(params, base)[path[-1]] = value
+    return params
 
 
 class BlockwiseAdapter(Protocol):
@@ -103,6 +120,7 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
     data_aware = method_spec(cfg.method).data_aware
     reports: list[LayerReport] = []
     masks: dict[Path, Tensor] = {}
+    owned: set[Path] = set()          # expert stacks copied by this run
 
     with torch.no_grad():
         for i in range(adapter.num_blocks(params)):
@@ -111,10 +129,15 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
             for carry in carries:
                 _, caps = adapter.block_apply(params, i, carry, capture=True)
                 for path, x in caps.items():
+                    # MoE expert slices tape (activations, row validity):
+                    # only routed capacity rows count as samples
+                    valid = None
+                    if isinstance(x, tuple):
+                        x, valid = x
                     if path not in accs:
                         accs[path] = HessianAccumulator.init(x.shape[-1],
                                                              x.device)
-                    accs[path].update(x)
+                    accs[path].update(x, valid)
 
             # ---- prune every linear in the block --------------------------
             for path in adapter.block_linear_paths(params, i):
@@ -130,8 +153,9 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
                 res, guard = prune_layer_guarded(     # paper layout (out, in)
                     kernel.T, h, cfg, on_singular=on_singular,
                     max_escalations=max_escalations, path=path_str(path))
-                params = set_path(params, path,
-                                  res.weights.T.contiguous().to(kernel.dtype))
+                params = _write_layer(
+                    params, path, res.weights.T.contiguous().to(kernel.dtype),
+                    owned)
                 masks[path] = res.mask.T.contiguous()       # (in, out)
                 rep = LayerReport(
                     path=path, sparsity=float(res.mask.mean()),

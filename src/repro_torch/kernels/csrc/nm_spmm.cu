@@ -20,6 +20,27 @@
 // up to MAXB activation rows accumulated per pass over the weights.  The
 // ragged edges (c not a multiple of the rows per block, B not a multiple
 // of MAXB) are masked here; nothing is padded by the caller.
+//
+// K3: the stacked expert matmul y[e] = x[e] · W_eᵀ over one stacked leaf
+// (entry point nm_matmul_stacked, kernel nm_stacked_kernel).  Replaces
+// repro/kernels/ops.py::nm_matmul_stacked, whose Pallas branch launches
+// _nm_kernel once per expert; here it is ONE launch with the expert on
+// blockIdx.z.  values (E, c, L), indices (E, c, idx_stride) and x (E, C, b)
+// are addressed by expert stride; y is (E, C, c).
+//
+// Bound on the H100: the MoE decode streams every expert of the leaf (128
+// experts at 2048×768, ≈ 252 MB of values + indices) for at most a few
+// routed rows, so K3 is bound by those bytes over 3.35 TB/s (≈ 75 µs).  At
+// C = 8 capacity rows K2's per-weight gather of B activations from global
+// memory would issue 8 scattered loads per kept weight, which costs more
+// than the weight stream itself.  So each block first stages its expert's
+// MAXB activation rows in shared memory, column-major (the MAXB values of
+// one column side by side, rows ≥ C zero-filled), so ONE 16-byte (bf16) or
+// two (fp32) shared loads give a kept weight's activations for all rows.
+// Column slots are XOR-swizzled by the column's 16-block so the lanes of a
+// warp, which read 16 columns apart, fall in different banks.  The weight
+// stream is K2's: a warp per output row (RPW rows per warp), 16-byte value
+// loads with their index bytes, fp32 sums, ragged rows masked here.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -159,6 +180,132 @@ void launch(const void* x, const void* vals, const void* idx, void* y, int vec,
   }
 }
 
+// ---- K3 -------------------------------------------------------------------
+constexpr int RPW = 4;  // output rows per warp in K3: WARPS·RPW rows a block
+
+__device__ __forceinline__ int xslot(int col) { return col ^ ((col >> 4) & 7); }
+
+// The MAXB activations of one staged column, as fp32.
+__device__ __forceinline__ void load_xcol(const __nv_bfloat16* xs, int slot,
+                                          float (&xv)[MAXB]) {
+  static_assert(MAXB == 8, "one 16-byte load holds 8 bf16 rows");
+  const uint4 raw = *reinterpret_cast<const uint4*>(xs + slot * MAXB);
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < MAXB; ++i) xv[i] = __bfloat162float(h[i]);
+}
+__device__ __forceinline__ void load_xcol(const float* xs, int slot,
+                                          float (&xv)[MAXB]) {
+  const float4 a = *reinterpret_cast<const float4*>(xs + slot * MAXB);
+  const float4 b = *reinterpret_cast<const float4*>(xs + slot * MAXB + 4);
+  xv[0] = a.x; xv[1] = a.y; xv[2] = a.z; xv[3] = a.w;
+  xv[4] = b.x; xv[5] = b.y; xv[6] = b.z; xv[7] = b.w;
+}
+
+template <typename T, int IDX_BITS, int P>
+__global__ void __launch_bounds__(WARPS * 32)
+nm_stacked_kernel(const T* __restrict__ x, const T* __restrict__ vals,
+                  const uint8_t* __restrict__ idx, T* __restrict__ y, int C,
+                  int c, int b, int m, int keep, int L, int idx_stride) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);  // [slot(col)][MAXB]
+  const int e = blockIdx.z;
+  const int r0 = blockIdx.y * MAXB;
+  const int nr = min(MAXB, C - r0);
+  const int bp = (b + 7) & ~7;  // the swizzle stays inside 8-column groups
+
+  // stage x[e, r0:r0+nr, :] (coalesced along b), zeros past nr and b
+  const T* xe = x + (static_cast<int64_t>(e) * C + r0) * b;
+  for (int r = 0; r < MAXB; ++r) {
+    for (int col = threadIdx.x; col < bp; col += blockDim.x) {
+      T* dst = xs + xslot(col) * MAXB + r;
+      if (r < nr && col < b) {
+        *dst = xe[static_cast<int64_t>(r) * b + col];
+      } else {
+        store(dst, 0.0f);
+      }
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const T* ve = vals + static_cast<int64_t>(e) * c * L;
+  const uint8_t* ie = idx + static_cast<int64_t>(e) * c * idx_stride;
+  T* ye = y + (static_cast<int64_t>(e) * C + r0) * c;
+  const int row0 = static_cast<int>(blockIdx.x) * WARPS * RPW;
+  const int row_end = min(c, row0 + WARPS * RPW);
+  for (int row = row0 + warp; row < row_end; row += WARPS) {
+    const T* vrow = ve + static_cast<int64_t>(row) * L;
+    const uint8_t* irow = ie + static_cast<int64_t>(row) * idx_stride;
+    float acc[MAXB];
+#pragma unroll
+    for (int i = 0; i < MAXB; ++i) acc[i] = 0.0f;
+
+    for (int j0 = lane * P; j0 < L; j0 += 32 * P) {
+      float w[P];
+      int pos[P];
+      load_chunk<T, IDX_BITS, P>(vrow, irow, j0, w, pos);
+      int grp = j0 / keep;
+      int r = j0 - grp * keep;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const bool ok = pos[p] < m;  // a position outside its group adds 0
+        const int col = ok ? grp * m + pos[p] : 0;
+        const float wp = ok ? w[p] : 0.0f;
+        float xv[MAXB];
+        load_xcol(xs, xslot(col), xv);
+#pragma unroll
+        for (int i = 0; i < MAXB; ++i) acc[i] = fmaf(wp, xv[i], acc[i]);
+        if (++r == keep) {
+          r = 0;
+          ++grp;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MAXB; ++i) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+    }
+    // every lane holds every sum: lane i writes row r0 + i
+#pragma unroll
+    for (int i = 0; i < MAXB; ++i)
+      if (lane == i && i < nr) store(ye + static_cast<int64_t>(i) * c + row, acc[i]);
+  }
+}
+
+template <typename T, int IDX_BITS, int P>
+int launch_stacked_p(const void* x, const void* vals, const void* idx, void* y,
+                     int E, int C, int c, int b, int m, int keep, int L,
+                     int idx_stride, cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(MAXB) * ((b + 7) & ~7) * sizeof(T);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nm_stacked_kernel<T, IDX_BITS, P>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((c + WARPS * RPW - 1) / (WARPS * RPW), (C + MAXB - 1) / MAXB,
+                  E);
+  nm_stacked_kernel<T, IDX_BITS, P><<<grid, WARPS * 32, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(vals),
+      static_cast<const uint8_t*>(idx), static_cast<T*>(y), C, c, b, m, keep,
+      L, idx_stride);
+  return 0;
+}
+
+template <typename T, int IDX_BITS>
+int launch_stacked(const void* x, const void* vals, const void* idx, void* y,
+                   int vec, int E, int C, int c, int b, int m, int keep, int L,
+                   int idx_stride, cudaStream_t s) {
+  return vec ? launch_stacked_p<T, IDX_BITS, 8>(x, vals, idx, y, E, C, c, b, m,
+                                                keep, L, idx_stride, s)
+             : launch_stacked_p<T, IDX_BITS, 1>(x, vals, idx, y, E, C, c, b, m,
+                                                keep, L, idx_stride, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, values and y share it).
@@ -183,5 +330,38 @@ extern "C" int nm_matmul(const void* x, const void* vals, const void* idx,
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3.  dtype / idx_bits / vec as for nm_matmul (vec also needs the expert
+// strides c·L and c·idx_stride to keep 16-byte alignment, which L % 8 == 0
+// gives).  Shared memory: MAXB·⌈b/8⌉·8 elements of x's dtype a block; the
+// caller keeps it within 227 KB.  Returns cudaGetLastError().
+extern "C" int nm_matmul_stacked(const void* x, const void* vals,
+                                 const void* idx, void* y, int dtype,
+                                 int idx_bits, int vec, int E, int C, int c,
+                                 int b, int m, int keep, int L, int idx_stride,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E <= 0 || C <= 0 || c <= 0) return static_cast<int>(cudaGetLastError());
+  if (E > 65535 || (C + MAXB - 1) / MAXB > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err;
+  if (dtype == 0 && idx_bits == 4) {
+    err = launch_stacked<float, 4>(x, vals, idx, y, vec, E, C, c, b, m, keep,
+                                   L, idx_stride, s);
+  } else if (dtype == 0 && idx_bits == 8) {
+    err = launch_stacked<float, 8>(x, vals, idx, y, vec, E, C, c, b, m, keep,
+                                   L, idx_stride, s);
+  } else if (dtype == 1 && idx_bits == 4) {
+    err = launch_stacked<__nv_bfloat16, 4>(x, vals, idx, y, vec, E, C, c, b, m,
+                                           keep, L, idx_stride, s);
+  } else if (dtype == 1 && idx_bits == 8) {
+    err = launch_stacked<__nv_bfloat16, 8>(x, vals, idx, y, vec, E, C, c, b, m,
+                                           keep, L, idx_stride, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,7 @@
 """K2: the n:m compressed-weight matmul y = x·Wᵀ (port of
-``repro/kernels/nm_spmm.py``).
+``repro/kernels/nm_spmm.py``), and K3: the same product over a stacked
+expert leaf, y[e] = x[e]·W_eᵀ (port of ``repro/kernels/ops.py::
+nm_matmul_stacked``), as one launch per leaf.
 
 ``nm_matmul_cuda`` launches the hand-written kernel in ``csrc/nm_spmm.cu``
 (see the note there: what it replaces, what bounds it on the H100 and what
@@ -9,10 +11,14 @@ dtype, where the kernel sums in fp32 — so the two agree within a tolerance,
 not bitwise.  The Pallas wrapper's tile chooser and pad/slice do not carry
 over: the kernel masks its own ragged edges.
 
-Layout (g = b/m groups, keep = m − n):
+Layout (g = b/m groups, keep = m − n; K3 adds a leading expert axis E):
     values  (c, g·keep)      x's dtype
     indices (c, g·keep)      uint8, idx_bits = 8
             (c, ⌈g·keep/2⌉)  uint8, idx_bits = 4, low nibble first
+
+K3's plain version is ``ref.nm_matmul_stacked_ref`` (``nm_matmul_stacked_
+plain``).  K3 stages each expert's activation rows in shared memory, which
+bounds b: 8·⌈b/8⌉·8 elements of x's dtype must fit in 227 KB.
 """
 from __future__ import annotations
 
@@ -23,51 +29,69 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import nm_matmul_ref as nm_matmul_plain
+from repro_torch.kernels.ref import \
+    nm_matmul_stacked_ref as nm_matmul_stacked_plain
 
 Tensor = torch.Tensor
 
-__all__ = ["nm_matmul_cuda", "nm_matmul_plain"]
+__all__ = ["nm_matmul_cuda", "nm_matmul_plain", "nm_matmul_stacked_cuda",
+           "nm_matmul_stacked_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_LIMIT = 227 * 1024      # bytes of shared memory a block may use
+_MAXB = 8                     # activation rows per pass (MAXB in the source)
 
 
-def _fn():
-    fn = _build.load("nm_spmm").nm_matmul
+def _fn(name: str):
+    fn = getattr(_build.load("nm_spmm"), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+        ints = 10 if name == "nm_matmul" else 11
+        fn.argtypes = [p, p, p, p] + [i] * ints + [p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _check_layout(x: Tensor, values: Tensor, indices: Tensor, n: int, m: int,
                   b: int, idx_bits: int) -> int:
+    """Shapes of one 2-D (lead = ()) or stacked (lead = (E,)) call → L."""
     keep = m - n
     gk = (b // m) * keep
-    if x.dim() != 2 or x.shape[1] != b:
-        raise ValueError(f"x must be (B, {b}), got {tuple(x.shape)}")
-    if b % m or values.dim() != 2 or values.shape[1] != gk:
+    lead = values.shape[:-2]
+    if x.dim() != 2 + len(lead) or x.shape[:-2] != lead or x.shape[-1] != b:
+        raise ValueError(f"x must be {(*lead, 'B', b)}, got "
+                         f"{tuple(x.shape)}")
+    if b % m or values.shape[-1] != gk:
         raise ValueError(f"bad compressed layout {tuple(values.shape)} for "
                          f"b={b} {n}:{m}")
     width = (gk + 1) // 2 if idx_bits == 4 else gk
-    if idx_bits not in (4, 8) or indices.shape != (values.shape[0], width):
+    if idx_bits not in (4, 8) or \
+            indices.shape != (*values.shape[:-1], width):
         raise ValueError(f"bad index layout {tuple(indices.shape)} for "
                          f"idx_bits={idx_bits}")
     return gk
 
 
-def nm_matmul_cuda(x: Tensor, values: Tensor, indices: Tensor, *, n: int,
-                   m: int, b: int, idx_bits: int = 8) -> Tensor:
-    """Launch K2 on the current stream: x (B, b) → y (B, c) in x's dtype."""
-    L = _check_layout(x, values, indices, n, m, b, idx_bits)
+def _check_operands(x: Tensor, values: Tensor, indices: Tensor,
+                    what: str) -> None:
     if x.dtype not in _DTYPES or values.dtype != x.dtype:
-        raise ValueError(f"K2 takes float32/bfloat16 x with values of the "
-                         f"same dtype, got {x.dtype} and {values.dtype}")
+        raise ValueError(f"{what} takes float32/bfloat16 x with values of "
+                         f"the same dtype, got {x.dtype} and {values.dtype}")
     if indices.dtype not in (torch.uint8, torch.int8):
         raise ValueError(f"indices must be 8-bit, got {indices.dtype}")
     if not (x.is_cuda and values.device == x.device
             and indices.device == x.device):
-        raise ValueError("K2 needs x, values and indices on one CUDA device")
+        raise ValueError(f"{what} needs x, values and indices on one CUDA "
+                         "device")
+
+
+def nm_matmul_cuda(x: Tensor, values: Tensor, indices: Tensor, *, n: int,
+                   m: int, b: int, idx_bits: int = 8) -> Tensor:
+    """Launch K2 on the current stream: x (B, b) → y (B, c) in x's dtype."""
+    if values.dim() != 2:
+        raise ValueError(f"K2 takes 2-D values, got {tuple(values.shape)}")
+    L = _check_layout(x, values, indices, n, m, b, idx_bits)
+    _check_operands(x, values, indices, "K2")
     x = x.contiguous()
     values = values.contiguous()
     indices = indices.contiguous().view(torch.uint8)
@@ -78,9 +102,10 @@ def nm_matmul_cuda(x: Tensor, values: Tensor, indices: Tensor, *, n: int,
     vec = int(L % 8 == 0 and all(t.data_ptr() % 16 == 0
                                  for t in (values, indices)))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _fn()(x.data_ptr(), values.data_ptr(), indices.data_ptr(),
-                   y.data_ptr(), _DTYPES[x.dtype], idx_bits, vec, B, c, b, m,
-                   m - n, L, indices.shape[1], stream)
+    status = _fn("nm_matmul")(
+        x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
+        _DTYPES[x.dtype], idx_bits, vec, B, c, b, m, m - n, L,
+        indices.shape[1], stream)
     _build.check(status, "nm_matmul")
     nm_matmul_cuda.launches += 1
     nm_matmul_cuda.by_shape[(B, c, b, str(x.dtype), idx_bits)] += 1
@@ -89,4 +114,44 @@ def nm_matmul_cuda(x: Tensor, values: Tensor, indices: Tensor, *, n: int,
 
 nm_matmul_cuda.launches = 0
 nm_matmul_cuda.by_shape = collections.Counter()
+
+
+def nm_matmul_stacked_cuda(x: Tensor, values: Tensor, indices: Tensor, *,
+                           n: int, m: int, b: int,
+                           idx_bits: int = 8) -> Tensor:
+    """Launch K3 on the current stream, one launch for the whole stack:
+    x (E, C, b) → y (E, C, c) in x's dtype."""
+    if values.dim() != 3:
+        raise ValueError(f"K3 takes stacked (E, c, L) values, got "
+                         f"{tuple(values.shape)}")
+    L = _check_layout(x, values, indices, n, m, b, idx_bits)
+    _check_operands(x, values, indices, "K3")
+    smem = _MAXB * -(-b // 8) * 8 * x.element_size()
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"K3 stages x in shared memory: b={b} in {x.dtype} "
+                         f"needs {smem} bytes > {_SMEM_LIMIT}")
+    E, C = x.shape[0], x.shape[1]
+    x = x.contiguous()
+    values = values.contiguous()
+    indices = indices.contiguous().view(torch.uint8)
+    c = values.shape[1]
+    y = torch.empty((E, C, c), dtype=x.dtype, device=x.device)
+    if E == 0 or C == 0 or c == 0:
+        return y
+    vec = int(L % 8 == 0 and all(t.data_ptr() % 16 == 0
+                                 for t in (values, indices)))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = _fn("nm_matmul_stacked")(
+        x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
+        _DTYPES[x.dtype], idx_bits, vec, E, C, c, b, m, m - n, L,
+        indices.shape[2], stream)
+    _build.check(status, "nm_matmul_stacked")
+    nm_matmul_stacked_cuda.launches += 1
+    nm_matmul_stacked_cuda.by_shape[(E, C, c, b, str(x.dtype),
+                                     idx_bits)] += 1
+    return y
+
+
+nm_matmul_stacked_cuda.launches = 0
+nm_matmul_stacked_cuda.by_shape = collections.Counter()
 

@@ -16,7 +16,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.sparsity import NmCompressed
+from repro_torch.core.sparsity import NmCompressed, NmStackedCompressed
 from repro_torch.kernels import hessian_accum, nm_spmm, ref
 
 Tensor = torch.Tensor
@@ -63,6 +63,22 @@ def nm_matmul(x: Tensor, packed: NmCompressed, *, impl: str = "",
         y = ref.nm_matmul_ref(x2, packed.values, packed.indices, packed.n,
                               packed.m, packed.b, packed.idx_bits)
     return y.reshape(*lead, -1)
+
+
+def nm_matmul_stacked(x: Tensor, packed: NmStackedCompressed, *,
+                      impl: str = "",
+                      cfg: NmKernelConfig | None = None) -> Tensor:
+    """Batched expert matmul over one stacked compressed leaf:
+    x (E, C, b) → y (E, C, c), y[e] = x[e] @ W_eᵀ — K3 (one launch for
+    the stack) on a CUDA tensor, the plain version on a CPU tensor."""
+    cfg = cfg if cfg is not None else NmKernelConfig()
+    if use_kernel(x, impl or cfg.impl):
+        return nm_spmm.nm_matmul_stacked_cuda(
+            x, packed.values, packed.indices, n=packed.n, m=packed.m,
+            b=packed.b, idx_bits=packed.idx_bits)
+    return ref.nm_matmul_stacked_ref(x, packed.values, packed.indices,
+                                     packed.n, packed.m, packed.b,
+                                     packed.idx_bits)
 
 
 def hessian_update(x: Tensor, valid: "Tensor | None", xtx: Tensor,

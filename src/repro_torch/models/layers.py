@@ -1,9 +1,10 @@
 """Shared NN layers — plain functions on tensors, tape-instrumented for
 Alg.-3 calibration (port of ``repro/models/layers.py``).
 
-Every prunable linear goes through ``dense()``, which records its input on
-the capture tape when one is threaded.  Params are nested dicts; kernels
-are stored (in, out).
+Every prunable linear goes through ``dense()`` (or ``stacked_dense()`` for
+an (E, in, out) expert stack), which records its input on the capture tape
+when one is threaded.  Params are nested dicts; kernels are stored (in,
+out).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.sparsity import NmCompressed
+from repro_torch.core.sparsity import NmCompressed, NmStackedCompressed
 from repro_torch.kernels import ops as kops
 
 Tensor = torch.Tensor
@@ -42,9 +43,11 @@ def nm_kernel_scope(cfg):
 # --------------------------------------------------------------------------
 # initializers (explicit torch.Generator; values differ from JAX's threefry)
 # --------------------------------------------------------------------------
-def he_init(gen: torch.Generator, shape, dtype, device) -> Tensor:
+def he_init(gen: torch.Generator, shape, dtype, device,
+            fan_in: int | None = None) -> Tensor:
     w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (w * (2.0 / shape[0]) ** 0.5).to(dtype)
+    fan = fan_in if fan_in is not None else shape[0]
+    return (w * (2.0 / fan) ** 0.5).to(dtype)
 
 
 def linear_params(gen, d_in: int, d_out: int, *, bias: bool = False,
@@ -53,6 +56,12 @@ def linear_params(gen, d_in: int, d_out: int, *, bias: bool = False,
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
     return p
+
+
+def stacked_linear_params(gen, n: int, d_in: int, d_out: int,
+                          dtype=torch.float32, device="cpu") -> dict:
+    """n stacked expert kernels (n, d_in, d_out), fan-in d_in."""
+    return {"w": he_init(gen, (n, d_in, d_out), dtype, device, fan_in=d_in)}
 
 
 def embedding_params(gen, vocab: int, d: int, dtype=torch.float32,
@@ -87,6 +96,27 @@ def dense(p: dict, x: Tensor, tape: Tape = None, path: Path = ()) -> Tensor:
     if "b" in p:
         y = y + p["b"]
     return y.reshape(*x.shape[:-1], -1)
+
+
+def stacked_dense(p: dict, x: Tensor, tape: Tape = None, path: Path = (),
+                  valid: "Tensor | None" = None) -> Tensor:
+    """Batched expert matmul: x (E, C, d_in) @ W (E, d_in, d_out).
+
+    An ``NmStackedCompressed`` kernel is consumed compressed through
+    ``kernels/ops.nm_matmul_stacked`` (K3 on the card, one launch for the
+    stack).  The tape records expert e's input under (path, 'w', e); with
+    ``valid`` (E, C) bool — the capacity rows holding routed tokens — the
+    entry is the pair (x[e], valid[e]), so each expert's Hessian counts only
+    its routed tokens.
+    """
+    w = p["w"]
+    if isinstance(w, NmStackedCompressed):
+        return kops.nm_matmul_stacked(x, w, cfg=_NM_KERNEL)
+    if tape is not None:
+        for e in range(w.shape[0]):
+            tape[path + ("w", e)] = (x[e] if valid is None
+                                     else (x[e], valid[e]))
+    return torch.einsum("ecd,edf->ecf", x, w)
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Model factory + the generic Alg.-3 pruning adapter (port of
-``repro/models/model_builder.py``; dense family only so far)."""
+``repro/models/model_builder.py``; the dense and MoE families so far)."""
 from __future__ import annotations
 
 from typing import Any
@@ -9,7 +9,7 @@ from repro_torch.models.transformer import TransformerLM
 
 def build_model(cfg, *, device="cuda"):
     """Build the family's model on ``device``."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(f"family {cfg.family!r} is not ported yet")
     return TransformerLM(cfg, device=device)
 

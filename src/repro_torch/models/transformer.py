@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM — the dense path (tinyllama) of
-``repro/models/transformer.py``.
+"""Decoder-only transformer LM — the dense (tinyllama) and MoE (qwen3-moe)
+GQA paths of ``repro/models/transformer.py``.
 
 Model protocol, as in the JAX package:
     init(gen)                                   → params
@@ -19,15 +19,16 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 Tensor = torch.Tensor
 
 
 class TransformerLM:
     def __init__(self, cfg, *, device="cuda"):
-        if cfg.family != "dense" or cfg.uses_mla or cfg.num_experts:
-            raise ValueError(f"{cfg.name}: the port runs dense GQA models "
-                             "only so far")
+        if cfg.family not in ("dense", "moe") or cfg.uses_mla:
+            raise ValueError(f"{cfg.name}: the port runs dense and MoE GQA "
+                             "models only so far")
         if cfg.norm != "rmsnorm":
             raise ValueError(f"{cfg.name}: norm {cfg.norm!r} is not ported")
         self.cfg = cfg
@@ -49,15 +50,20 @@ class TransformerLM:
                                                 cfg.vocab_size, dtype=dt,
                                                 device=dev)
         for i in range(cfg.num_layers):
-            params["blocks"][i] = {
+            blk = {
                 "ln1": L.rmsnorm_params(cfg.d_model, dt, dev),
                 "ln2": L.rmsnorm_params(cfg.d_model, dt, dev),
                 "attn": A.gqa_params(gen, cfg, dt, dev),
-                "mlp": {n: L.linear_params(gen, di, do, dtype=dt, device=dev)
-                        for n, di, do in (("gate", cfg.d_model, cfg.d_ff),
-                                          ("up", cfg.d_model, cfg.d_ff),
-                                          ("down", cfg.d_ff, cfg.d_model))},
             }
+            if cfg.layer_is_moe(i):
+                blk["moe"] = M.moe_params(gen, cfg, dt, dev)
+            else:
+                blk["mlp"] = {
+                    n: L.linear_params(gen, di, do, dtype=dt, device=dev)
+                    for n, di, do in (("gate", cfg.d_model, cfg.d_ff),
+                                      ("up", cfg.d_model, cfg.d_ff),
+                                      ("down", cfg.d_ff, cfg.d_model))}
+            params["blocks"][i] = blk
         return params
 
     # ------------------------------------------------------------- helpers
@@ -71,7 +77,11 @@ class TransformerLM:
     def _window(self, i: int) -> int:
         return 0 if self.cfg.layer_is_global(i) else self.cfg.sliding_window
 
-    def _mlp(self, blk, x, tape, path):
+    def _ffn(self, i, blk, x, tape, path):
+        """Layer i's feed-forward: the MoE FFN or the dense gated MLP."""
+        if self.cfg.layer_is_moe(i):
+            return M.moe_ffn(blk["moe"], x, self.cfg, tape=tape,
+                             path=path + ("moe",))
         act = L.act_fn(self.cfg.act)
         mlp = blk["mlp"]
         h = act(L.dense(mlp["gate"], x, tape, path + ("mlp", "gate"))) * \
@@ -105,13 +115,16 @@ class TransformerLM:
                              window=self._window(i), tape=tape,
                              path=path + ("attn",))
         h = h + attn
-        ff = self._mlp(blk, L.rmsnorm(blk["ln2"], h), tape, path)
+        ff = self._ffn(i, blk, L.rmsnorm(blk["ln2"], h), tape, path)
         return {"h": h + ff, "positions": pos}
 
     def block_linear_paths(self, params, i: int) -> list[tuple]:
         path = ("blocks", i)
-        return ([path + ("attn", n, "w") for n in ("wq", "wk", "wv", "wo")]
-                + [path + ("mlp", n, "w") for n in ("gate", "up", "down")])
+        attn = [path + ("attn", n, "w") for n in ("wq", "wk", "wv", "wo")]
+        if self.cfg.layer_is_moe(i):
+            return attn + M.moe_linear_paths(params["blocks"][i]["moe"],
+                                             path + ("moe",))
+        return attn + [path + ("mlp", n, "w") for n in ("gate", "up", "down")]
 
     # ------------------------------------------------------------- forward
     def forward(self, params, batch, tape=None) -> Tensor:
@@ -151,5 +164,5 @@ class TransformerLM:
                                           L.rmsnorm(blk["ln1"], h), pos,
                                           cache[i], theta=self._theta(i))
             h = h + attn
-            h = h + self._mlp(blk, L.rmsnorm(blk["ln2"], h), None, ())
+            h = h + self._ffn(i, blk, L.rmsnorm(blk["ln2"], h), None, ())
         return self._head(params, h), cache

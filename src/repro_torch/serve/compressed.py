@@ -1,11 +1,13 @@
 """n:m compressed parameter trees for the decode path (port of
-``repro/serve/compressed.py`` for 2-D kernels).
+``repro/serve/compressed.py`` for a global (n, m) cell).
 
 ``compress_params`` swaps every masked (in, out) kernel for an
 ``NmCompressed`` leaf (values + nibble-packed indices), which the serving
-engine keeps resident and streams through K2.  ``decompress_params`` is the
-inverse: not on the serve path, it is the oracle the engine is held
-against.  A mask that cannot be packed is a residency downgrade — warned
+engine keeps resident and streams through K2; MoE expert stacks — masks
+keyed (..., 'w', e) — pack into one ``NmStackedCompressed`` leaf per stack,
+streamed through K3.  ``decompress_params`` is the inverse: not on the
+serve path, it is the oracle the engine is held against.  A mask that
+cannot be packed is a residency downgrade — warned
 (``CompressionDowngrade``), raised under ``strict=True``, never silent.
 """
 from __future__ import annotations
@@ -13,8 +15,12 @@ from __future__ import annotations
 import warnings
 from typing import Any
 
+import torch
+
 from repro_torch.core.schedule import get_path, path_str, set_path
-from repro_torch.core.sparsity import NmCompressed, pack_nm, unpack_nm
+from repro_torch.core.sparsity import (NmCompressed, NmStackedCompressed,
+                                       pack_nm, pack_nm_stacked, unpack_nm,
+                                       unpack_nm_stacked)
 
 # kernels consumed as reshaped raw weights (MLA's absorbed decode), which
 # can never stream the compressed form
@@ -37,14 +43,17 @@ def compress_params(params, masks: dict[tuple, Any], n: int, m: int, *,
 
     Masks are keyed by param path (mask 1.0 = pruned, stored (in, out) like
     the kernel); n:m groups run along the input dim, so each kernel is
-    packed in the paper's (out, in) layout.
+    packed in the paper's (out, in) layout.  Expert slices (an integer
+    tail into a stacked (E, in, out) kernel) are grouped by stack; a stack
+    packs into one ``NmStackedCompressed`` only when every slice is masked
+    — partial coverage is a downgrade.  (With one global (n, m) cell the
+    slices of a stack cannot mix cells.)
     """
     out = params
+    stacks: dict[tuple, dict[int, Any]] = {}
     for path, mask in masks.items():
         if isinstance(path[-1], int):
-            _downgrade(f"expert slice {path_str(path)!r}: stacked compressed "
-                       "leaves are not ported yet; the stack will SERVE "
-                       "DENSE", strict)
+            stacks.setdefault(path[:-1], {})[path[-1]] = mask
             continue
         if any(p in NON_STREAMABLE_KERNELS for p in path
                if isinstance(p, str)):
@@ -54,6 +63,18 @@ def compress_params(params, masks: dict[tuple, Any], n: int, m: int, *,
         kernel = get_path(params, path)
         out = set_path(out, path, pack_nm(kernel.T, mask.T, n, m,
                                           idx_bits=idx_bits))
+
+    for base, slices in sorted(stacks.items(), key=lambda kv: path_str(kv[0])):
+        kernel = get_path(params, base)    # (E, in, out)
+        missing = sorted(set(range(kernel.shape[0])) - set(slices))
+        if missing:
+            _downgrade(f"cannot pack expert stack {path_str(base)!r} "
+                       f"(experts {missing} not n:m-masked); the stack will "
+                       "SERVE DENSE", strict)
+            continue
+        mk = torch.stack([slices[e].T for e in range(kernel.shape[0])])
+        out = set_path(out, base, pack_nm_stacked(
+            kernel.transpose(-1, -2), mk, n, m, idx_bits=idx_bits))
     return out
 
 
@@ -67,6 +88,8 @@ def decompress_params(params):
     def walk(node):
         if isinstance(node, NmCompressed):
             return unpack_nm(node).T       # back to (in, out)
+        if isinstance(node, NmStackedCompressed):     # back to (E, in, out)
+            return unpack_nm_stacked(node).transpose(-1, -2)
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
         return node
@@ -80,10 +103,11 @@ def compressed_bytes(params) -> tuple[int, int]:
 
     def walk(node):
         nonlocal comp, dense
-        if isinstance(node, NmCompressed):
+        if isinstance(node, (NmCompressed, NmStackedCompressed)):
             item = node.values.element_size()
             comp += node.values.numel() * item + node.indices.numel()
-            dense += node.values.shape[0] * node.b * item
+            rows = node.values.numel() // node.values.shape[-1]  # (E·)c
+            dense += rows * node.b * item
         elif isinstance(node, dict):
             for v in node.values():
                 walk(v)

@@ -10,11 +10,18 @@ into its slot of the resident cache in place.  A finished slot is freed and
 re-admits from the queue before the next step.  Idle slots keep re-decoding
 their last token at a frozen position: the writes land on their own row
 only, so each active row's tokens are those of serving it alone at B=1.
+In an MoE layer the idle rows route through ``moe_ffn`` like the others.
+That holds the B=1 equivalence only while no expert overflows: a token
+takes at most one slot per expert, so an expert holds at most B rows, and
+the capacity is at least 8 — with B ≤ 8 slots nothing is dropped.  Above
+8 slots a batch-mate (idle or not) can push a row's assignment past the
+capacity, as in the JAX engine.
 
 Compressed weights: params whose pruned linears are ``NmCompressed``
 (``serve/compressed.py``) stay compressed-resident — no
 ``decompress_params`` — and every pruned linear of prefill and decode runs
-through ``kernels/ops.nm_matmul`` (K2 on the card).
+through ``kernels/ops.nm_matmul`` (K2 on the card); an expert stack is one
+``NmStackedCompressed`` leaf through ``ops.nm_matmul_stacked`` (K3).
 """
 from __future__ import annotations
 

@@ -196,3 +196,33 @@ def test_hessian_kernel_vs_plain_on_card(cuda, dtype):
     torch.testing.assert_close(acc_k[0], acc_p[0], rtol=1e-3, atol=2e-2)
     assert float(acc_k[1]) == float(acc_p[1]) == float(valid.sum())
     assert float(acc_k[2]) == float(acc_p[2]) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_bits", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,c,b,nn,m", [(128, 8, 768, 2048, 2, 4),
+                                          (5, 3, 37, 96, 2, 4),
+                                          (5, 3, 37, 96, 5, 8),
+                                          (3, 17, 33, 100, 2, 4)])
+def test_nm_stacked_kernel_vs_plain_on_card(cuda, E, C, c, b, nn, m, dtype,
+                                            idx_bits):
+    """K3 vs its plain version on the card (K2's tolerances), one launch
+    per stacked leaf through ``ops.nm_matmul_stacked`` with impl auto."""
+    from repro_torch.core.masks import nm_mask
+
+    g = torch.Generator(device=cuda).manual_seed(E + c + b)
+    w = (torch.randn((E, c, b), generator=g, device=cuda) / b ** 0.5).to(dtype)
+    mask = nm_mask(w.reshape(E * c, b).float(), torch.ones(b, device=cuda),
+                   nn, m).reshape(E, c, b)
+    pk = tsp.pack_nm_stacked(w, mask, nn, m, idx_bits=idx_bits)
+    x = torch.randn((E, C, b), generator=g, device=cuda).to(dtype)
+    before = K2.nm_matmul_stacked_cuda.launches
+    y_k = tops.nm_matmul_stacked(x, pk)
+    assert K2.nm_matmul_stacked_cuda.launches == before + 1
+    y_p = K2.nm_matmul_stacked_plain(x, pk.values, pk.indices, nn, m, b,
+                                     idx_bits)
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-2)
+    assert y_k.shape == (E, C, c) and y_k.dtype == dtype
+    torch.testing.assert_close(y_k.float(), y_p.float(), rtol=tol[0],
+                               atol=tol[1])

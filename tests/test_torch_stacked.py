@@ -1,0 +1,236 @@
+"""The port's stacked n:m expert format and K3's plain version against the
+JAX package: ``pack_nm_stacked``/``unpack_nm_stacked`` byte-identical, the
+plain stacked matmul against the Pallas path (interpret mode) and the JAX
+oracle, ``compress_params`` grouping expert slices into one leaf (and
+downgrading partial stacks), ``compressed_bytes``, and
+``convert.params_from_numpy`` carrying stacked nodes across.
+
+Tolerances: packs and expansions exactly; the stacked matmul fp32 rtol/atol
+1e-5 (sums in another order), bf16 rtol 2e-2 / atol 1e-2; compressed
+serving on the plain path bitwise equal to the decompressed stack.
+"""
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.registry import get_config as j_get_config  # noqa: E402
+from repro.core import sparsity as jsp  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models.model_builder import build_model as j_build  # noqa: E402
+from repro.serve.compressed import compress_params as j_compress  # noqa
+from repro.serve.compressed import compressed_bytes as j_bytes  # noqa: E402
+from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.core import sparsity as tsp  # noqa: E402
+from repro_torch.core.schedule import get_path, set_path  # noqa: E402
+from repro_torch.kernels import nm_spmm as K  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.serve.compressed import (CompressionDowngrade,  # noqa: E402
+                                          compress_params, compressed_bytes,
+                                          decompress_params)
+from test_torch_fixtures import jax_tree_to_numpy, n, t  # noqa: E402
+
+
+def _nm_mask(w, nn, m):
+    """(…, b) n:m mask (1.0 = pruned): the nn smallest |w| of each group,
+    as tests/test_stacked_compressed.py makes it."""
+    shape = w.shape
+    wa = np.abs(np.asarray(w, np.float32)).reshape(*shape[:-1],
+                                                   shape[-1] // m, m)
+    order = np.argsort(wa, axis=-1)
+    mask = np.zeros_like(wa)
+    for k in range(nn):
+        np.put_along_axis(mask, order[..., k:k + 1], 1.0, axis=-1)
+    return mask.reshape(shape)
+
+
+def _stack(E, c, b, nn, m, dtype=jnp.float32, seed=0, idx_bits=4):
+    """A masked (E, c, b) stack packed by both packages."""
+    w = np.random.default_rng(seed).normal(size=(E, c, b))
+    mask = _nm_mask(w, nn, m)
+    sparse = jnp.asarray(w * (1 - mask), dtype)
+    jp = jsp.pack_nm_stacked(sparse, jnp.asarray(mask), nn, m,
+                             idx_bits=idx_bits)
+    tp = tsp.pack_nm_stacked(t(sparse), torch.from_numpy(mask), nn, m,
+                             idx_bits=idx_bits)
+    return sparse, mask, jp, tp
+
+
+# the grid of tests/test_stacked_compressed.py::test_pack_unpack_roundtrip
+@pytest.mark.parametrize("E", [1, 3])
+@pytest.mark.parametrize("nn,m", [(2, 4), (4, 8)])
+@pytest.mark.parametrize("idx_bits", [4, 8])
+def test_pack_stacked_byte_identical(E, nn, m, idx_bits):
+    """Values and index bytes identical to JAX's, the round trip exact,
+    and expert e bitwise ``pack_nm(w[e], mask[e])`` (tolerance: none)."""
+    c, b = 7, 2 * m
+    sparse, mask, jp, tp = _stack(E, c, b, nn, m, seed=E * m,
+                                  idx_bits=idx_bits)
+    assert (tp.E, tp.b, tp.n, tp.m, tp.idx_bits) == (E, b, nn, m, idx_bits)
+    np.testing.assert_array_equal(n(tp.values), np.asarray(jp.values))
+    np.testing.assert_array_equal(n(tp.indices),
+                                  np.asarray(jp.indices).view(np.uint8))
+    np.testing.assert_array_equal(n(tsp.unpack_nm_stacked(tp)),
+                                  np.asarray(sparse))
+    np.testing.assert_array_equal(n(tp.unpacked_indices()),
+                                  np.asarray(jp.unpacked_indices()))
+    for e in range(E):
+        one = tsp.pack_nm(t(sparse[e]), torch.from_numpy(mask[e]), nn, m,
+                          idx_bits=idx_bits)
+        assert torch.equal(one.values, tp.values[e])
+        assert torch.equal(one.indices, tp.indices[e])
+    with pytest.raises(ValueError, match="stacked"):
+        tsp.pack_nm_stacked(tp.values[0], tp.values[0], nn, m)
+
+
+@pytest.mark.parametrize("dtype,idx_bits,ratio", [
+    (jnp.bfloat16, 4, 0.625), (jnp.float32, 4, 0.5625),
+    (jnp.bfloat16, 8, 0.75)])
+def test_stacked_compression_ratio(dtype, idx_bits, ratio):
+    _, _, jp, tp = _stack(3, 8, 32, 2, 4, dtype, idx_bits=idx_bits)
+    assert tsp.compression_ratio(tp) == ratio == jsp.compression_ratio(jp)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("idx_bits", [4, 8])
+@pytest.mark.parametrize("E,C,c,b,nn,m", [(3, 6, 5, 16, 2, 4),
+                                          (2, 3, 9, 24, 5, 8)])
+def test_stacked_plain_vs_pallas_and_oracle(E, C, c, b, nn, m, dtype,
+                                            idx_bits):
+    """Plain K3 vs JAX ``nm_matmul_stacked(impl='pallas')`` in interpret
+    mode and ``nm_matmul_stacked_ref``; the expansion bit-exact."""
+    _, _, jp, tp = _stack(E, c, b, nn, m, dtype, seed=c + b,
+                          idx_bits=idx_bits)
+    x = jnp.asarray(np.random.default_rng(E + C).normal(size=(E, C, b)),
+                    dtype)
+    y_t = K.nm_matmul_stacked_plain(t(x), tp.values, tp.indices, nn, m, b,
+                                    idx_bits)
+    assert y_t.shape == (E, C, c) and y_t.dtype == t(np.asarray(x)).dtype
+    y_pal = jops.nm_matmul_stacked(x, jp, impl="pallas")
+    y_ref = jref.nm_matmul_stacked_ref(x, jp.values, jp.indices, nn, m, b,
+                                       idx_bits)
+    tol = ({"rtol": 2e-2, "atol": 1e-2} if dtype == jnp.bfloat16
+           else {"rtol": 1e-5, "atol": 1e-5})
+    for y_j in (y_pal, y_ref):
+        np.testing.assert_allclose(n(y_t), np.asarray(y_j, np.float32), **tol)
+    np.testing.assert_array_equal(
+        n(tref.nm_expand_stacked(tp.values, tp.indices, nn, m, b, idx_bits)),
+        np.asarray(jref.nm_expand_stacked(jp.values, jp.indices, nn, m, b,
+                                          idx_bits), np.float32))
+
+
+def test_stacked_dense_compressed_bitwise_and_dispatch():
+    """``stacked_dense`` on the packed stack == on the decompressed one,
+    bitwise (plain path); ``impl='kernel'`` on a CPU tensor raises."""
+    sparse, _, _, tp = _stack(3, 5, 16, 2, 4, seed=2)
+    dense = t(sparse).transpose(-1, -2)            # (E, in, out)
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(3, 6, 16)).astype(np.float32))
+    y_c = L.stacked_dense({"w": tp}, x)
+    torch.testing.assert_close(y_c, L.stacked_dense({"w": dense}, x),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(y_c, tops.nm_matmul_stacked(x, tp,
+                                                           impl="ref"),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.nm_matmul_stacked(x, tp, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        K.nm_matmul_stacked_cuda(x, tp.values, tp.indices, n=2, m=4, b=16,
+                                 idx_bits=4)
+    with pytest.raises(ValueError, match="x must be"):
+        K.nm_matmul_stacked_cuda(x[0], tp.values, tp.indices, n=2, m=4,
+                                 b=16, idx_bits=4)
+
+
+def _expert_problem(E=2, d_in=8, d_out=4, dtype=torch.float32):
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.normal(size=(E, d_in, d_out))).to(dtype)
+    params = {"moe": {"gate": {"w": w}}}
+    masks = {("moe", "gate", "w", e): torch.from_numpy(
+        _nm_mask(w[e].T.float().numpy(), 2, 4).T.copy()) for e in range(E)}
+    return params, masks
+
+
+def test_compress_params_packs_expert_stack_and_inverts():
+    params, masks = _expert_problem(E=4, d_in=16, d_out=8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", CompressionDowngrade)
+        comp = compress_params(params, masks, 2, 4)
+    leaf = comp["moe"]["gate"]["w"]
+    assert isinstance(leaf, tsp.NmStackedCompressed)
+    assert (leaf.E, leaf.n, leaf.m, leaf.b) == (4, 2, 4, 16)
+    expect = params["moe"]["gate"]["w"] * (1 - torch.stack(
+        [masks[("moe", "gate", "w", e)] for e in range(4)]))
+    restored = decompress_params(comp)["moe"]["gate"]["w"]
+    assert restored.shape == (4, 16, 8)
+    torch.testing.assert_close(restored, expect, rtol=0, atol=0)
+    cb, db = compressed_bytes(comp)
+    assert db == 4 * 16 * 8 * 4 and cb / db == 0.5625   # fp32, 4-bit idx
+    bf16 = compress_params(
+        {"w": params["moe"]["gate"]["w"].to(torch.bfloat16)},
+        {("w", e): masks[("moe", "gate", "w", e)] for e in range(4)}, 2, 4)
+    cb, db = compressed_bytes(bf16)
+    assert cb / db == 0.625                              # the paper's ratio
+
+
+def test_compress_params_partial_stack_downgrades():
+    params, masks = _expert_problem()
+    del masks[("moe", "gate", "w", 1)]
+    with pytest.warns(CompressionDowngrade, match="experts \\[1\\]"):
+        comp = compress_params(params, masks, 2, 4)
+    assert isinstance(comp["moe"]["gate"]["w"], torch.Tensor)
+    with pytest.raises(ValueError, match="SERVE DENSE"):
+        compress_params(params, masks, 2, 4, strict=True)
+
+
+def test_set_path_integer_tail_copies_the_stack():
+    w = torch.zeros((3, 2, 2))
+    tree = {"a": {"w": w}}
+    new = set_path(tree, ("a", "w", 1), torch.ones((2, 2)))
+    assert float(w.abs().sum()) == 0.0                  # the input kept
+    assert float(get_path(new, ("a", "w", 1)).sum()) == 4.0
+    assert float(get_path(new, ("a", "w", 0)).sum()) == 0.0
+
+
+def test_params_from_numpy_carries_stacked_nodes():
+    """A JAX qwen3-moe REDUCED tree with every expert stack compressed
+    crosses with the same bytes: bf16 through its bits, int8 indices as
+    uint8 (tolerance: none)."""
+    dtype = "bfloat16"
+    cfg = j_get_config("qwen3-moe-30b-a3b", reduced=True).replace(
+        dtype=dtype)
+    jparams = j_build(cfg).init(jax.random.PRNGKey(0))
+    masks = {}
+    for i in range(cfg.num_layers):
+        for name in ("gate", "up", "down"):
+            w = np.asarray(jparams["blocks"][i]["moe"][name]["w"],
+                           np.float32)
+            for e in range(cfg.num_experts):
+                masks[("blocks", i, "moe", name, "w", e)] = jnp.asarray(
+                    _nm_mask(w[e].T, 2, 4).T)
+    jcomp = j_compress(jparams, masks, 2, 4)
+    tcomp = params_from_numpy(jax_tree_to_numpy(jcomp), device="cpu")
+    for i in range(cfg.num_layers):
+        for name in ("gate", "up", "down"):
+            a = tcomp["blocks"][i]["moe"][name]["w"]
+            b = jcomp["blocks"][i]["moe"][name]["w"]
+            assert isinstance(a, tsp.NmStackedCompressed)
+            assert (a.n, a.m, a.b, a.E, a.idx_bits) == \
+                (b.n, b.m, b.b, b.E, b.idx_bits)
+            assert a.indices.dtype == torch.uint8
+            assert str(a.values.dtype) == f"torch.{dtype}"
+            np.testing.assert_array_equal(n(a.values),
+                                          np.asarray(b.values, np.float32))
+            np.testing.assert_array_equal(
+                n(a.indices), np.asarray(b.indices).view(np.uint8))
+    assert compressed_bytes(tcomp) == tuple(int(v) for v in j_bytes(jcomp))
