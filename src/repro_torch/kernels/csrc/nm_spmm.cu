@@ -22,25 +22,57 @@
 // of MAXB) are masked here; nothing is padded by the caller.
 //
 // K3: the stacked expert matmul y[e] = x[e] · W_eᵀ over one stacked leaf
-// (entry point nm_matmul_stacked, kernel nm_stacked_kernel).  Replaces
-// repro/kernels/ops.py::nm_matmul_stacked, whose Pallas branch launches
-// _nm_kernel once per expert; here it is ONE launch with the expert on
-// blockIdx.z.  values (E, c, L), indices (E, c, idx_stride) and x (E, C, b)
-// are addressed by expert stride; y is (E, C, c).
+// (entry point nm_matmul_stacked).  Replaces repro/kernels/ops.py::
+// nm_matmul_stacked, whose Pallas branch launches _nm_kernel once per
+// expert; here it is ONE launch.  values (E, c, L), indices (E, c,
+// idx_stride) and x (E, C, b) are addressed by expert stride; y is
+// (E, C, c).  A block owns one expert (blockIdx.z), one group of MAXB
+// capacity rows (blockIdx.y) and BLOCK_ROWS = 128 output rows (blockIdx.x),
+// so an expert's x rows are staged 6 (gate/up) or 16 (down) times at full
+// width, not 24 / 64 as with 32-row blocks.
 //
-// Bound on the H100: the MoE decode streams every expert of the leaf (128
-// experts at 2048×768, ≈ 252 MB of values + indices) for at most a few
-// routed rows, so K3 is bound by those bytes over 3.35 TB/s (≈ 75 µs).  At
-// C = 8 capacity rows K2's per-weight gather of B activations from global
-// memory would issue 8 scattered loads per kept weight, which costs more
-// than the weight stream itself.  So each block first stages its expert's
-// MAXB activation rows in shared memory, column-major (the MAXB values of
-// one column side by side, rows ≥ C zero-filled), so ONE 16-byte (bf16) or
-// two (fp32) shared loads give a kept weight's activations for all rows.
-// Column slots are XOR-swizzled by the column's 16-block so the lanes of a
-// warp, which read 16 columns apart, fall in different banks.  The weight
-// stream is K2's: a warp per output row (RPW rows per warp), 16-byte value
-// loads with their index bytes, fp32 sums, ragged rows masked here.
+// Bound on the H100: K3 is bound by the bytes it moves — the weights of
+// the row groups it computes (values + indices, ≈ 252 MB for a full
+// 128-expert leaf, 75 µs at 3.35 TB/s), x and y.  Its operations (2 per
+// kept weight and capacity row) are far below the tensor-core line.  The
+// design keeps that stream full and streams only what the data needs:
+//   * Skip.  Each block first reduces "is any of its x rows ≠ 0" with
+//     __syncthreads_or.  A row group that is all zero (every unrouted
+//     expert at decode: the dispatch zero-fills capacity rows no token was
+//     routed to, and the down leaf's input act(0)·0 is zero there too)
+//     writes its y rows as +0 and exits before any weight load.  The
+//     decision is per (expert, row group), on the device, with no host sync
+//     and no extra input.  For finite weights y is bitwise what the full
+//     computation gives (sums of ±0 products starting from +0 stay +0).
+//     CAVEAT: a non-finite weight in a skipped expert gives 0 where the
+//     plain version gives NaN; the prune guards (solution_finite) keep
+//     served weights finite.
+//   * A pipelined weight stream.  The block's rows of values and indices
+//     stream through a ring of NST shared-memory stages, filled by TMA bulk
+//     copies (cp.async.bulk, completion on one mbarrier per stage).  The
+//     first stages are issued right after the skip vote, ahead of the x
+//     staging and its barrier; a stage is refilled as soon as every warp is
+//     done with it.  Stages hold ~16–20 KB, so 2–3 stages of every resident
+//     block (≥ 40 KB a SM) are in flight.
+//   * bf16 2:4 (the served format) runs on the tensor cores (mode 2,
+//     nm_stacked_tc_kernel; see its note): each lane expands ONE 2:4 group
+//     into its two B registers of an mma.sync m16n8k16 whose A is the 8
+//     staged x rows, so a kept weight costs a fraction of an instruction.
+//     Stages hold 8 or 16 output rows (two bulk copies, values and
+//     indices); the 8 warps split the columns and sum their partial tiles
+//     in shared memory.
+//   * Other n:m and fp32 (mode 1, nm_stacked_kernel) run on the CUDA cores
+//     from the same ring: x staged column-major (the MAXB values of a
+//     column in one 16-byte slot, XOR-swizzled by 16-column block), so one
+//     or two shared loads give a kept weight's activations for all rows;
+//     G lanes share a row, G = 32 when the row's 8-value chunks fill whole
+//     warp steps, else 16 (L = 384 is 48 chunks: three steps of a
+//     half-warp, two rows a warp), fp32 sums and one log2(G)-step shuffle
+//     reduction per row.
+// Rows whose value or index bytes are not 16-byte aligned (L % 8 ≠ 0,
+// idx_stride % 16 ≠ 0, or unaligned bases) take the scalar path (mode 0):
+// the same blocks, skip and x staging, each lane loading one kept value at
+// a time straight from global memory.  Ragged c and C are masked here.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -181,7 +213,10 @@ void launch(const void* x, const void* vals, const void* idx, void* y, int vec,
 }
 
 // ---- K3 -------------------------------------------------------------------
-constexpr int RPW = 4;  // output rows per warp in K3: WARPS·RPW rows a block
+constexpr int K3_THREADS = 256;
+constexpr int BLOCK_ROWS = 128;  // output rows of one expert per block
+constexpr int NST = 3;           // stages in the weight ring
+constexpr int SMEM_MAX = 232448;  // 227 KB: shared memory a block may use
 
 __device__ __forceinline__ int xslot(int col) { return col ^ ((col >> 4) & 7); }
 
@@ -202,108 +237,573 @@ __device__ __forceinline__ void load_xcol(const float* xs, int slot,
   xv[4] = b.x; xv[5] = b.y; xv[6] = b.z; xv[7] = b.w;
 }
 
-template <typename T, int IDX_BITS, int P>
-__global__ void __launch_bounds__(WARPS * 32)
+// Magnitude bits of the values packed in a 32-bit word: a value is ≠ 0
+// iff one of its magnitude bits is set (−0 counts as zero, NaN as not).
+__device__ __forceinline__ uint32_t magnitude_bits(float) { return 0x7fffffffu; }
+__device__ __forceinline__ uint32_t magnitude_bits(__nv_bfloat16) {
+  return 0x7fff7fffu;
+}
+
+// Whether any of p[0..n) is ≠ 0, for this thread's share (16-byte loads
+// between a scalar head and tail).
+template <typename T>
+__device__ __forceinline__ int any_nonzero(const T* p, int64_t n) {
+  int nz = 0;
+  const int64_t mis = static_cast<int64_t>(reinterpret_cast<uintptr_t>(p) & 15);
+  int64_t head = ((16 - mis) & 15) / static_cast<int64_t>(sizeof(T));
+  if (head > n) head = n;
+  for (int64_t i = threadIdx.x; i < head; i += blockDim.x)
+    nz |= to_f32(p[i]) != 0.0f;
+  const int64_t nvec = (n - head) * static_cast<int64_t>(sizeof(T)) / 16;
+  const uint4* v = reinterpret_cast<const uint4*>(p + head);
+  const uint32_t mag = magnitude_bits(T{});
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < nvec; i += blockDim.x) {
+    const uint4 w = __ldg(v + i);
+    nz |= ((w.x | w.y | w.z | w.w) & mag) != 0u;
+  }
+  const int64_t tail = head + nvec * (16 / static_cast<int64_t>(sizeof(T)));
+  for (int64_t i = tail + threadIdx.x; i < n; i += blockDim.x)
+    nz |= to_f32(p[i]) != 0.0f;
+  return nz;
+}
+
+__device__ __forceinline__ uint32_t raw_bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t raw_bits(__nv_bfloat16 v) {
+  return __bfloat16_as_ushort(v);
+}
+
+// x[e, r0:r0+nr, :] into its column-major slots, one thread per column,
+// zeros past nr and b.
+template <typename T>
+__device__ __forceinline__ void stage_x(T* xs, const T* xe, int nr, int b) {
+  constexpr int PER = static_cast<int>(4 / sizeof(T));  // values per word
+  constexpr int WORDS = MAXB / PER;
+  const int bp = (b + 7) & ~7;  // the swizzle stays inside 8-column groups
+  for (int col = threadIdx.x; col < bp; col += blockDim.x) {
+    uint32_t wd[WORDS];
+#pragma unroll
+    for (int q = 0; q < WORDS; ++q) wd[q] = 0u;
+#pragma unroll
+    for (int r = 0; r < MAXB; ++r) {
+      if (r < nr && col < b)
+        wd[r / PER] |= raw_bits(xe[static_cast<int64_t>(r) * b + col])
+                       << (32 / PER * (r % PER));
+    }
+    uint4* dst = reinterpret_cast<uint4*>(xs + xslot(col) * MAXB);
+#pragma unroll
+    for (int q = 0; q < WORDS / 4; ++q)
+      dst[q] = make_uint4(wd[4 * q], wd[4 * q + 1], wd[4 * q + 2],
+                          wd[4 * q + 3]);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  uint64_t state;  // the arrival's phase token, not needed here
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;"
+               : "=l"(state)
+               : "r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// One TMA bulk copy global → shared, completing `bytes` on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// acc[i] += Σ_p w[p] · x[i, col(p)] for P consecutive kept values from j0.
+template <typename T, int P>
+__device__ __forceinline__ void fma_chunk(const T* xs, int j0, int m, int keep,
+                                          const float (&w)[P],
+                                          const int (&pos)[P],
+                                          float (&acc)[MAXB]) {
+  int grp = j0 / keep;
+  int r = j0 - grp * keep;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const bool ok = pos[p] < m;  // a position outside its group adds 0
+    const int col = ok ? grp * m + pos[p] : 0;
+    const float wp = ok ? w[p] : 0.0f;
+    float xv[MAXB];
+    load_xcol(xs, xslot(col), xv);
+#pragma unroll
+    for (int i = 0; i < MAXB; ++i) acc[i] = fmaf(wp, xv[i], acc[i]);
+    if (++r == keep) {
+      r = 0;
+      ++grp;
+    }
+  }
+}
+
+// Sum acc over the G lanes of a row (G a power of two, groups aligned), then
+// lane i < nr of the group writes capacity row i.  Warp-uniform: every lane
+// of the warp calls it, `live` says whether this lane's row exists.
+template <typename T>
+__device__ __forceinline__ void reduce_store(float (&acc)[MAXB], int G, int lg,
+                                             bool live, int nr, T* yrow,
+                                             int64_t c) {
+#pragma unroll
+  for (int i = 0; i < MAXB; ++i) {
+    for (int off = G >> 1; off > 0; off >>= 1)
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+  }
+#pragma unroll
+  for (int i = 0; i < MAXB; ++i)
+    if (live && lg == i && i < nr) store(yrow + i * c, acc[i]);
+}
+
+// PIPE: the ring path (16-byte aligned rows, G and SR from the host);
+// otherwise the scalar path (G = 32, SR unused).
+template <typename T, int IDX_BITS, bool PIPE>
+__global__ void __launch_bounds__(K3_THREADS, 2)
 nm_stacked_kernel(const T* __restrict__ x, const T* __restrict__ vals,
                   const uint8_t* __restrict__ idx, T* __restrict__ y, int C,
-                  int c, int b, int m, int keep, int L, int idx_stride) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);  // [slot(col)][MAXB]
+                  int c, int b, int m, int keep, int L, int idx_stride, int G,
+                  int SR) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[NST];
+  const int tid = threadIdx.x;
   const int e = blockIdx.z;
   const int r0 = blockIdx.y * MAXB;
   const int nr = min(MAXB, C - r0);
-  const int bp = (b + 7) & ~7;  // the swizzle stays inside 8-column groups
-
-  // stage x[e, r0:r0+nr, :] (coalesced along b), zeros past nr and b
+  const int row0 = blockIdx.x * BLOCK_ROWS;
+  const int nrows = min(c - row0, BLOCK_ROWS);
   const T* xe = x + (static_cast<int64_t>(e) * C + r0) * b;
-  for (int r = 0; r < MAXB; ++r) {
-    for (int col = threadIdx.x; col < bp; col += blockDim.x) {
-      T* dst = xs + xslot(col) * MAXB + r;
-      if (r < nr && col < b) {
-        *dst = xe[static_cast<int64_t>(r) * b + col];
-      } else {
-        store(dst, 0.0f);
+  T* ye = y + (static_cast<int64_t>(e) * C + r0) * c + row0;
+
+  // 1. skip: an all-zero row group gives y = +0 without a weight byte read
+  if (!__syncthreads_or(any_nonzero(xe, static_cast<int64_t>(nr) * b))) {
+    for (int l = tid; l < nr * nrows; l += K3_THREADS) {
+      const int i = l / nrows;
+      store(ye + static_cast<int64_t>(i) * c + (l - i * nrows), 0.0f);
+    }
+    return;
+  }
+
+  const int vbytes = L * static_cast<int>(sizeof(T));
+  const int row_bytes = vbytes + idx_stride;
+  const int nstages = PIPE ? (nrows + SR - 1) / SR : 0;
+  unsigned char* ring = smem;
+  T* xs = reinterpret_cast<T*>(smem + (PIPE ? NST * SR * row_bytes : 0));
+  const T* ve = vals + (static_cast<int64_t>(e) * c + row0) * L;
+  const uint8_t* ie = idx + (static_cast<int64_t>(e) * c + row0) * idx_stride;
+
+  // 2. start the weight stream (thread 0), ahead of the x staging
+  auto issue = [&](int s) {
+    const int slot = s % NST;
+    const int rows = min(SR, nrows - s * SR);
+    unsigned char* dv = ring + slot * SR * row_bytes;
+    const uint32_t bv = static_cast<uint32_t>(rows * vbytes);
+    const uint32_t bi = static_cast<uint32_t>(rows * idx_stride);
+    mbar_expect_tx(&full[slot], bv + bi);
+    bulk_load(dv, ve + static_cast<int64_t>(s) * SR * L, bv, &full[slot]);
+    bulk_load(dv + SR * vbytes, ie + static_cast<int64_t>(s) * SR * idx_stride,
+              bi, &full[slot]);
+  };
+  if (PIPE && tid == 0) {
+    for (int s = 0; s < NST; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int s = 0; s < min(NST, nstages); ++s) issue(s);
+  }
+
+  // 3. stage x, then stream the rows
+  stage_x(xs, xe, nr, b);
+  __syncthreads();
+
+  const int lane = tid & 31;
+  const int lg = lane & (G - 1);          // lane within its row group
+  const int gpw = 32 / G;                 // rows a warp takes at once
+  const int ng = K3_THREADS / G;          // rows the block takes at once
+  const int rfirst = (tid >> 5) * gpw;    // warp-uniform row base
+  const int sub = lane / G;
+
+  if constexpr (PIPE) {
+    const int chunks = L / 8;
+    for (int s = 0; s < nstages; ++s) {
+      const int slot = s % NST;
+      mbar_wait(&full[slot], static_cast<uint32_t>((s / NST) & 1));
+      const int rows = min(SR, nrows - s * SR);
+      const T* sv = reinterpret_cast<const T*>(ring + slot * SR * row_bytes);
+      const uint8_t* si = ring + slot * SR * row_bytes + SR * vbytes;
+      for (int rb = rfirst; rb < rows; rb += ng) {
+        const int rr = rb + sub;
+        const bool live = rr < rows;
+        float acc[MAXB];
+#pragma unroll
+        for (int i = 0; i < MAXB; ++i) acc[i] = 0.0f;
+        if (live) {
+          const T* vrow = sv + rr * L;
+          const uint8_t* irow = si + rr * idx_stride;
+          for (int ch = lg; ch < chunks; ch += G) {
+            float w[8];
+            int pos[8];
+            load_chunk<T, IDX_BITS, 8>(vrow, irow, ch * 8, w, pos);
+            fma_chunk<T, 8>(xs, ch * 8, m, keep, w, pos, acc);
+          }
+        }
+        reduce_store(acc, G, lg, live, nr, ye + s * SR + rr, c);
       }
+      __syncthreads();  // every warp is done with this slot: refill it
+      if (tid == 0 && s + NST < nstages) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        issue(s + NST);
+      }
+    }
+  } else {
+    for (int rb = rfirst; rb < nrows; rb += ng) {
+      const int rr = rb + sub;
+      const bool live = rr < nrows;
+      float acc[MAXB];
+#pragma unroll
+      for (int i = 0; i < MAXB; ++i) acc[i] = 0.0f;
+      if (live) {
+        const T* vrow = ve + static_cast<int64_t>(rr) * L;
+        const uint8_t* irow = ie + static_cast<int64_t>(rr) * idx_stride;
+        for (int j0 = lg; j0 < L; j0 += G) {
+          float w[1];
+          int pos[1];
+          load_chunk<T, IDX_BITS, 1>(vrow, irow, j0, w, pos);
+          fma_chunk<T, 1>(xs, j0, m, keep, w, pos, acc);
+        }
+      }
+      reduce_store(acc, G, lg, live, nr, ye + rr, c);
+    }
+  }
+}
+
+// ---- K3 on the tensor cores: bf16, 2:4 ---------------------------------------
+// y[i, o] = Σ_k x[i, k] · W[o, k] as mma.sync m16n8k16 (bf16 → fp32) with
+// A = the block's 8 capacity rows of x (rows 8–15 of the tile are zero) and
+// B = Wᵀ for 8 output rows, expanded from the compressed form in registers.
+// The k labels of the mma are free to permute as long as A and B agree:
+// the lanes with tig t take labels {2t, 2t+1, 2t+8, 2t+9} ↔ the 4 columns of
+// ONE 2:4 group, so a lane expands one group (2 kept values, 2 positions)
+// into its two B registers and reads the 4 matching x values as its two A
+// registers.  A stage holds 8·RT output rows (RT row tiles of n = 8, RT = 2
+// when rows are short, so a stage stays ~16 KB); the 8 warps split the
+// columns in macro windows of 16·NW columns (each lane NW consecutive
+// groups: one 4·NW-byte load of values and one load of index bytes per row
+// tile, one 8·NW-byte load of x shared by the RT tiles) and sum their
+// partial tiles in shared memory.
+constexpr int TC_WARPS = K3_THREADS / 32;
+
+// Padded shared-memory stride of the x rows: ≡ 16 (mod 128) bytes, so the
+// 8 rows a warp reads at once hit different banks.  (The weight rows keep
+// their global layout: two bulk copies a stage measured faster than one
+// copy per padded row.)
+__host__ __device__ constexpr int pad_to(int bytes, int rem) {
+  return ((bytes + 127 - rem) / 128) * 128 + rem;
+}
+
+template <int NBYTES>
+__device__ __forceinline__ void lds_words(const unsigned char* p,
+                                          uint32_t (&w)[(NBYTES + 3) / 4]) {
+  if constexpr (NBYTES == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if constexpr (NBYTES == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x; w[1] = v.y;
+  } else if constexpr (NBYTES == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    static_assert(NBYTES == 2, "2, 4, 8 or 16 bytes");
+    w[0] = *reinterpret_cast<const uint16_t*>(p);
+  }
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], uint32_t a0,
+                                               uint32_t a2, uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+
+// Place kept value v (raw bf16 bits) at in-group position p of a dense
+// 4-column group held as (lo = positions 0, 1; hi = 2, 3); p ≥ 4 adds 0.
+__device__ __forceinline__ void place(uint32_t v, uint32_t p, uint32_t& lo,
+                                      uint32_t& hi) {
+  const uint32_t t = v << ((p & 1u) * 16u);
+  lo |= p < 2u ? t : 0u;
+  hi |= (p - 2u) < 2u ? t : 0u;
+}
+
+template <int IDX_BITS, int NW, int RT>
+__global__ void __launch_bounds__(K3_THREADS, 2)
+nm_stacked_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ vals,
+                     const uint8_t* __restrict__ idx,
+                     __nv_bfloat16* __restrict__ y, int C, int c, int b,
+                     int L, int idx_stride) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[NST];
+  const int tid = threadIdx.x;
+  const int e = blockIdx.z;
+  const int r0 = blockIdx.y * MAXB;
+  const int nr = min(MAXB, C - r0);
+  const int row0 = blockIdx.x * BLOCK_ROWS;
+  const int nrows = min(c - row0, BLOCK_ROWS);
+  const __nv_bfloat16* xe = x + (static_cast<int64_t>(e) * C + r0) * b;
+  __nv_bfloat16* ye = y + (static_cast<int64_t>(e) * C + r0) * c + row0;
+
+  if (!__syncthreads_or(any_nonzero(xe, static_cast<int64_t>(nr) * b))) {
+    for (int l = tid; l < nr * nrows; l += K3_THREADS) {
+      const int i = l / nrows;
+      store(ye + static_cast<int64_t>(i) * c + (l - i * nrows), 0.0f);
+    }
+    return;
+  }
+
+  const int vbytes = L * 2;
+  const int sv = vbytes, si = idx_stride;  // stage rows as in global memory
+  const int sx = pad_to(2 * b, 16);
+  constexpr int SR = 8 * RT;  // output rows of a stage
+  const int stage = SR * (sv + si);
+  const int nstages = (nrows + SR - 1) / SR;
+  unsigned char* ring = smem;
+  unsigned char* xs = smem + NST * stage;
+  float* red = reinterpret_cast<float*>(xs + MAXB * sx);  // [2][warps][RT·64]
+  const __nv_bfloat16* ve = vals + (static_cast<int64_t>(e) * c + row0) * L;
+  const uint8_t* ie = idx + (static_cast<int64_t>(e) * c + row0) * idx_stride;
+
+  // two bulk copies a stage, the stage's rows of values and of indices
+  // (contiguous in global memory), from lane 0 of warp 0
+  auto issue = [&](int s, int lane) {
+    if (lane != 0) return;
+    const int slot = s % NST;
+    const int rows = min(SR, nrows - s * SR);
+    const uint32_t bv = static_cast<uint32_t>(rows * vbytes);
+    const uint32_t bi = static_cast<uint32_t>(rows * idx_stride);
+    unsigned char* d = ring + slot * stage;
+    mbar_expect_tx(&full[slot], bv + bi);
+    bulk_load(d, ve + static_cast<int64_t>(s) * SR * L, bv, &full[slot]);
+    bulk_load(d + SR * sv, ie + static_cast<int64_t>(s) * SR * idx_stride, bi,
+              &full[slot]);
+  };
+  const int lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0)
+    for (int s = 0; s < min(NST, nstages); ++s) issue(s, lane);
+
+  // x rows in natural layout (zeros past nr): 16-byte loads, four in
+  // flight a thread, where the rows are aligned
+  const int per_row = b / 8;  // b % 32 == 0
+  if ((reinterpret_cast<uintptr_t>(xe) & 15) == 0) {
+    const uint4* src = reinterpret_cast<const uint4*>(xe);
+    for (int l0 = tid; l0 < MAXB * per_row; l0 += 4 * K3_THREADS) {
+      uint4 v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int l = l0 + k * K3_THREADS;
+        const int r = l / per_row;
+        v[k] = make_uint4(0u, 0u, 0u, 0u);
+        if (l < MAXB * per_row && r < nr) v[k] = __ldg(src + l);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int l = l0 + k * K3_THREADS;
+        const int r = l / per_row;
+        if (l < MAXB * per_row)
+          reinterpret_cast<uint4*>(xs + r * sx)[l - r * per_row] = v[k];
+      }
+    }
+  } else {
+    for (int l = tid; l < MAXB * b; l += K3_THREADS) {
+      const int r = l / b;
+      __nv_bfloat16 v;
+      store(&v, 0.0f);
+      if (r < nr) v = xe[l];
+      reinterpret_cast<__nv_bfloat16*>(xs + r * sx)[l - r * b] = v;
     }
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const T* ve = vals + static_cast<int64_t>(e) * c * L;
-  const uint8_t* ie = idx + static_cast<int64_t>(e) * c * idx_stride;
-  T* ye = y + (static_cast<int64_t>(e) * C + r0) * c;
-  const int row0 = static_cast<int>(blockIdx.x) * WARPS * RPW;
-  const int row_end = min(c, row0 + WARPS * RPW);
-  for (int row = row0 + warp; row < row_end; row += WARPS) {
-    const T* vrow = ve + static_cast<int64_t>(row) * L;
-    const uint8_t* irow = ie + static_cast<int64_t>(row) * idx_stride;
-    float acc[MAXB];
+  const int g = lane >> 2, t = lane & 3;
+  constexpr int MW = 16 * NW;              // columns of a macro window
+  constexpr int IB = NW * IDX_BITS / 4;    // index bytes a lane reads
+  const int nmac = b / MW;
+  for (int s = 0; s < nstages; ++s) {
+    const int slot = s % NST;
+    mbar_wait(&full[slot], static_cast<uint32_t>((s / NST) & 1));
+    const unsigned char* vrow = ring + slot * stage + g * sv;
+    const unsigned char* irow = ring + slot * stage + SR * sv + g * si;
+    const unsigned char* xrow = xs + g * sx;
+    float d[RT][4];
 #pragma unroll
-    for (int i = 0; i < MAXB; ++i) acc[i] = 0.0f;
-
-    for (int j0 = lane * P; j0 < L; j0 += 32 * P) {
-      float w[P];
-      int pos[P];
-      load_chunk<T, IDX_BITS, P>(vrow, irow, j0, w, pos);
-      int grp = j0 / keep;
-      int r = j0 - grp * keep;
+    for (int rt = 0; rt < RT; ++rt)
+      d[rt][0] = d[rt][1] = d[rt][2] = d[rt][3] = 0.0f;
+    for (int mac = warp; mac < nmac; mac += TC_WARPS) {
+      const int q0 = mac * 4 * NW + NW * t;  // this lane's first group
+      uint32_t xw[2 * NW];  // x[g, 4 columns of each group]: a0, a2 pairs
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const bool ok = pos[p] < m;  // a position outside its group adds 0
-        const int col = ok ? grp * m + pos[p] : 0;
-        const float wp = ok ? w[p] : 0.0f;
-        float xv[MAXB];
-        load_xcol(xs, xslot(col), xv);
+      for (int h = 0; h < NW / 2; ++h) {
+        const uint4 v = *reinterpret_cast<const uint4*>(xrow + q0 * 8 + 16 * h);
+        xw[4 * h] = v.x; xw[4 * h + 1] = v.y;
+        xw[4 * h + 2] = v.z; xw[4 * h + 3] = v.w;
+      }
 #pragma unroll
-        for (int i = 0; i < MAXB; ++i) acc[i] = fmaf(wp, xv[i], acc[i]);
-        if (++r == keep) {
-          r = 0;
-          ++grp;
+      for (int rt = 0; rt < RT; ++rt) {
+        uint32_t vw[NW];
+        uint32_t iw[(IB + 3) / 4];
+        lds_words<4 * NW>(vrow + rt * 8 * sv + q0 * 4, vw);
+        lds_words<IB>(irow + rt * 8 * si + q0 * IDX_BITS / 4, iw);
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {
+          uint32_t p0, p1;
+          if constexpr (IDX_BITS == 4) {
+            const uint32_t byte = (iw[0] >> (8 * w)) & 0xFFu;
+            p0 = byte & 0xFu;
+            p1 = byte >> 4;
+          } else {
+            const uint32_t half = (iw[w >> 1] >> (16 * (w & 1))) & 0xFFFFu;
+            p0 = half & 0xFFu;
+            p1 = half >> 8;
+          }
+          uint32_t lo = 0u, hi = 0u;
+          place(vw[w] & 0xFFFFu, p0, lo, hi);
+          place(vw[w] >> 16, p1, lo, hi);
+          mma_bf16_16816(d[rt], xw[2 * w], xw[2 * w + 1], lo, hi);
         }
       }
     }
+    // d[rt][0..1]: capacity row g, output rows 8·rt + 2t, +1 of the stage
+    float* rb = red + ((s & 1) * TC_WARPS + warp) * RT * 64;
 #pragma unroll
-    for (int i = 0; i < MAXB; ++i) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+    for (int rt = 0; rt < RT; ++rt)
+      *reinterpret_cast<float2*>(rb + rt * 64 + g * 8 + 2 * t) =
+          make_float2(d[rt][0], d[rt][1]);
+    __syncthreads();  // slot consumed, partial tiles written
+    if (warp == 0 && s + NST < nstages) {
+      if (lane == 0) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncwarp();
+      issue(s + NST, lane);
     }
-    // every lane holds every sum: lane i writes row r0 + i
+    if (tid < RT * 64) {
+      const int i = (tid & 63) >> 3;
+      const int rr = s * SR + (tid >> 6) * 8 + (tid & 7);
+      const float* rs = red + (s & 1) * TC_WARPS * RT * 64 + tid;
+      float sum = 0.0f;
 #pragma unroll
-    for (int i = 0; i < MAXB; ++i)
-      if (lane == i && i < nr) store(ye + static_cast<int64_t>(i) * c + row, acc[i]);
+      for (int w = 0; w < TC_WARPS; ++w) sum += rs[w * RT * 64];
+      if (i < nr && rr < nrows) store(ye + static_cast<int64_t>(i) * c + rr, sum);
+    }
   }
 }
 
-template <typename T, int IDX_BITS, int P>
-int launch_stacked_p(const void* x, const void* vals, const void* idx, void* y,
-                     int E, int C, int c, int b, int m, int keep, int L,
-                     int idx_stride, cudaStream_t s) {
-  const size_t smem = static_cast<size_t>(MAXB) * ((b + 7) & ~7) * sizeof(T);
+template <int IDX_BITS, int NW, int RT>
+int launch_tc(const void* x, const void* vals, const void* idx, void* y,
+              int E, int C, int c, int b, int L, int idx_stride, size_t smem,
+              cudaStream_t s) {
+  auto kern = nm_stacked_tc_kernel<IDX_BITS, NW, RT>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        nm_stacked_kernel<T, IDX_BITS, P>,
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((c + BLOCK_ROWS - 1) / BLOCK_ROWS, (C + MAXB - 1) / MAXB, E);
+  kern<<<grid, K3_THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(vals),
+      static_cast<const uint8_t*>(idx), static_cast<__nv_bfloat16*>(y), C, c,
+      b, L, idx_stride);
+  return 0;
+}
+
+// NW = 4 when the 64-column windows split evenly over the 8 warps, else 2;
+// SR = 8·RT output rows a stage.
+template <int IDX_BITS>
+int launch_stacked_tc(const void* x, const void* vals, const void* idx,
+                      void* y, int E, int C, int c, int b, int L,
+                      int idx_stride, int SR, cudaStream_t s) {
+  const size_t smem =
+      static_cast<size_t>(NST) * SR * (2 * L + idx_stride) +
+      static_cast<size_t>(MAXB) * pad_to(2 * b, 16) + 2 * TC_WARPS * SR * 8 * 4;
+  if (smem + NST * sizeof(uint64_t) > SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool nw4 = b % 64 == 0 && (b / 64) % TC_WARPS == 0;
+  if (SR == 8)
+    return nw4 ? launch_tc<IDX_BITS, 4, 1>(x, vals, idx, y, E, C, c, b, L, idx_stride, smem, s)
+               : launch_tc<IDX_BITS, 2, 1>(x, vals, idx, y, E, C, c, b, L, idx_stride, smem, s);
+  return nw4 ? launch_tc<IDX_BITS, 4, 2>(x, vals, idx, y, E, C, c, b, L, idx_stride, smem, s)
+             : launch_tc<IDX_BITS, 2, 2>(x, vals, idx, y, E, C, c, b, L, idx_stride, smem, s);
+}
+
+template <typename T, int IDX_BITS, bool PIPE>
+int launch_stacked_p(const void* x, const void* vals, const void* idx, void* y,
+                     int E, int C, int c, int b, int m, int keep, int L,
+                     int idx_stride, int G, int SR, cudaStream_t s) {
+  size_t smem = static_cast<size_t>(MAXB) * ((b + 7) & ~7) * sizeof(T);
+  if (PIPE) smem += static_cast<size_t>(NST) * SR * (L * sizeof(T) + idx_stride);
+  if (smem + NST * sizeof(uint64_t) > SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nm_stacked_kernel<T, IDX_BITS, PIPE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((c + WARPS * RPW - 1) / (WARPS * RPW), (C + MAXB - 1) / MAXB,
-                  E);
-  nm_stacked_kernel<T, IDX_BITS, P><<<grid, WARPS * 32, smem, s>>>(
+  const dim3 grid((c + BLOCK_ROWS - 1) / BLOCK_ROWS, (C + MAXB - 1) / MAXB, E);
+  nm_stacked_kernel<T, IDX_BITS, PIPE><<<grid, K3_THREADS, smem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(vals),
       static_cast<const uint8_t*>(idx), static_cast<T*>(y), C, c, b, m, keep,
-      L, idx_stride);
+      L, idx_stride, G, SR);
   return 0;
 }
 
 template <typename T, int IDX_BITS>
 int launch_stacked(const void* x, const void* vals, const void* idx, void* y,
-                   int vec, int E, int C, int c, int b, int m, int keep, int L,
-                   int idx_stride, cudaStream_t s) {
-  return vec ? launch_stacked_p<T, IDX_BITS, 8>(x, vals, idx, y, E, C, c, b, m,
-                                                keep, L, idx_stride, s)
-             : launch_stacked_p<T, IDX_BITS, 1>(x, vals, idx, y, E, C, c, b, m,
-                                                keep, L, idx_stride, s);
+                   int mode, int E, int C, int c, int b, int m, int keep,
+                   int L, int idx_stride, int G, int SR, cudaStream_t s) {
+  const bool ring_ok = L % 8 == 0 && (L * sizeof(T)) % 16 == 0 &&
+                       idx_stride % 16 == 0;
+  if (mode == 2) {
+    if (sizeof(T) != 2 || m != 4 || keep != 2 || !ring_ok || b % 32 != 0 ||
+        (SR != 8 && SR != 16))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_stacked_tc<IDX_BITS>(x, vals, idx, y, E, C, c, b, L,
+                                       idx_stride, SR, s);
+  }
+  if (mode == 1) {
+    if ((G != 16 && G != 32) || SR < 1 || SR > BLOCK_ROWS || !ring_ok)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_stacked_p<T, IDX_BITS, true>(x, vals, idx, y, E, C, c, b, m,
+                                               keep, L, idx_stride, G, SR, s);
+  }
+  return launch_stacked_p<T, IDX_BITS, false>(x, vals, idx, y, E, C, c, b, m,
+                                              keep, L, idx_stride, 32, 0, s);
 }
 
 }  // namespace
@@ -333,32 +833,37 @@ extern "C" int nm_matmul(const void* x, const void* vals, const void* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3.  dtype / idx_bits / vec as for nm_matmul (vec also needs the expert
-// strides c·L and c·idx_stride to keep 16-byte alignment, which L % 8 == 0
-// gives).  Shared memory: MAXB·⌈b/8⌉·8 elements of x's dtype a block; the
-// caller keeps it within 227 KB.  Returns cudaGetLastError().
+// K3.  dtype / idx_bits as for nm_matmul.  mode (the caller's plan,
+// kernels/nm_spmm.py::_k3_plan): 0 = the scalar path; 1 = the ring path on
+// the CUDA cores, which needs L % 8 == 0, 16-byte rows of values (L·sizeof)
+// and of indices (idx_stride % 16 == 0) and 16-byte aligned bases, with G
+// (16 or 32 lanes a row) and SR (rows a ring stage); 2 = the tensor-core
+// path, which needs all that, bf16, 2:4 and b % 32 == 0, with SR = 8 or 16
+// output rows a stage (G ignored).
+// Shared memory within 227 KB, as _k3_plan computes it.  Returns
+// cudaGetLastError().
 extern "C" int nm_matmul_stacked(const void* x, const void* vals,
                                  const void* idx, void* y, int dtype,
-                                 int idx_bits, int vec, int E, int C, int c,
+                                 int idx_bits, int mode, int E, int C, int c,
                                  int b, int m, int keep, int L, int idx_stride,
-                                 void* stream) {
+                                 int G, int SR, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (E <= 0 || C <= 0 || c <= 0) return static_cast<int>(cudaGetLastError());
   if (E > 65535 || (C + MAXB - 1) / MAXB > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   int err;
   if (dtype == 0 && idx_bits == 4) {
-    err = launch_stacked<float, 4>(x, vals, idx, y, vec, E, C, c, b, m, keep,
-                                   L, idx_stride, s);
+    err = launch_stacked<float, 4>(x, vals, idx, y, mode, E, C, c, b, m, keep,
+                                   L, idx_stride, G, SR, s);
   } else if (dtype == 0 && idx_bits == 8) {
-    err = launch_stacked<float, 8>(x, vals, idx, y, vec, E, C, c, b, m, keep,
-                                   L, idx_stride, s);
+    err = launch_stacked<float, 8>(x, vals, idx, y, mode, E, C, c, b, m, keep,
+                                   L, idx_stride, G, SR, s);
   } else if (dtype == 1 && idx_bits == 4) {
-    err = launch_stacked<__nv_bfloat16, 4>(x, vals, idx, y, vec, E, C, c, b, m,
-                                           keep, L, idx_stride, s);
+    err = launch_stacked<__nv_bfloat16, 4>(x, vals, idx, y, mode, E, C, c, b,
+                                           m, keep, L, idx_stride, G, SR, s);
   } else if (dtype == 1 && idx_bits == 8) {
-    err = launch_stacked<__nv_bfloat16, 8>(x, vals, idx, y, vec, E, C, c, b, m,
-                                           keep, L, idx_stride, s);
+    err = launch_stacked<__nv_bfloat16, 8>(x, vals, idx, y, mode, E, C, c, b,
+                                           m, keep, L, idx_stride, G, SR, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -80,7 +80,7 @@ def hessian_update_cuda(x: Tensor, valid: "Tensor | None", xtx: Tensor,
     x = x.contiguous()
     if valid is not None:
         valid = valid.contiguous()
-    stats = torch.zeros(2, dtype=torch.int32, device=x.device)
+    stats = torch.empty(2, dtype=torch.int32, device=x.device)  # scratch
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = _fn()(x.data_ptr(), _DTYPES[x.dtype],
                    None if valid is None else valid.data_ptr(),

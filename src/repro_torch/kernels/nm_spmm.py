@@ -17,8 +17,11 @@ Layout (g = b/m groups, keep = m − n; K3 adds a leading expert axis E):
             (c, ⌈g·keep/2⌉)  uint8, idx_bits = 4, low nibble first
 
 K3's plain version is ``ref.nm_matmul_stacked_ref`` (``nm_matmul_stacked_
-plain``).  K3 stages each expert's activation rows in shared memory, which
-bounds b: 8·⌈b/8⌉·8 elements of x's dtype must fit in 227 KB.
+plain``).  K3 stages each expert's activation rows in shared memory beside a
+ring of weight stages (``_k3_plan``), which bounds b: 8·⌈b/8⌉·8 elements of
+x's dtype must fit in 227 KB.  A group of 8 capacity rows that is all zero
+skips its weights (see the note in the source); ``stacked_stream_bytes``
+counts the bytes a given x makes K3 move.
 """
 from __future__ import annotations
 
@@ -34,19 +37,24 @@ from repro_torch.kernels.ref import \
 
 Tensor = torch.Tensor
 
-__all__ = ["nm_matmul_cuda", "nm_matmul_plain", "nm_matmul_stacked_cuda",
-           "nm_matmul_stacked_plain"]
+__all__ = ["active_row_groups", "nm_matmul_cuda", "nm_matmul_plain",
+           "nm_matmul_stacked_cuda", "nm_matmul_stacked_plain",
+           "stacked_stream_bytes"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024      # bytes of shared memory a block may use
 _MAXB = 8                     # activation rows per pass (MAXB in the source)
+# K3's block and ring, as in the source: K3_THREADS, BLOCK_ROWS, NST
+_K3_THREADS, _K3_BLOCK_ROWS, _K3_NST = 256, 128, 3
+_K3_STAGE_BYTES = 16 * 1024   # target bytes of one ring stage
+_K3_TC_STAGE_BYTES = 20 * 1024  # tensor cores: 16-row stages up to this
 
 
 def _fn(name: str):
     fn = getattr(_build.load("nm_spmm"), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        ints = 10 if name == "nm_matmul" else 11
+        ints = 10 if name == "nm_matmul" else 13
         fn.argtypes = [p, p, p, p] + [i] * ints + [p]
         fn.restype = ctypes.c_int
     return fn
@@ -116,6 +124,74 @@ nm_matmul_cuda.launches = 0
 nm_matmul_cuda.by_shape = collections.Counter()
 
 
+def _pad_to(nbytes: int, rem: int) -> int:
+    """The least stride ≥ nbytes that is ≡ rem (mod 128) (pad_to in the
+    source)."""
+    return (nbytes + 127 - rem) // 128 * 128 + rem
+
+
+def _k3_plan(L: int, idx_stride: int, b: int, esize: int, aligned: bool,
+             n: int = 2, m: int = 4) -> "tuple[int, int, int, int]":
+    """K3's launch plan → (mode, G lanes a row, SR rows a ring stage,
+    dynamic shared-memory bytes), as the source lays them out.
+
+    mode 2, the tensor-core path: bf16 2:4 with 16-byte rows of values and
+    indices (and aligned bases, ``aligned``) and b % 32 == 0; 16 output rows
+    a stage where they fit in ``_K3_TC_STAGE_BYTES``, else 8, x rows
+    padded in shared memory.  mode 1, the ring on the CUDA cores (any n:m and
+    dtype with 16-byte rows): G = 32 when a row's 8-value chunks fill whole
+    warp steps (or are many), else 16, so the down leaf's 48 chunks fill
+    half-warps; a stage holds the fewest multiple of the block's
+    rows-at-once that reaches ``_K3_STAGE_BYTES``.  mode 0, the scalar path
+    (G = 32), when rows are not 16-byte aligned or a ring would not fit in
+    227 KB.  The 64 bytes added to each check are the mbarriers' static
+    shared memory.
+    """
+    xs = _MAXB * -(-b // 8) * 8 * esize
+    row = L * esize + idx_stride
+    ring_ok = aligned and L % 8 == 0 and (L * esize) % 16 == 0 and \
+        idx_stride % 16 == 0
+    if ring_ok and esize == 2 and (n, m) == (2, 4) and b % 32 == 0:
+        SR = 16 if 16 * row <= _K3_TC_STAGE_BYTES else 8
+        smem = (_K3_NST * SR * row + _MAXB * _pad_to(2 * b, 16)
+                + 2 * 8 * SR * 8 * 4)
+        if smem + 64 <= _SMEM_LIMIT:
+            return 2, 32, SR, smem
+    if ring_ok:
+        chunks = L // 8
+        G = 32 if chunks % 32 == 0 or chunks > 48 else 16
+        ng = _K3_THREADS // G
+        SR = min(ng * max(1, _K3_STAGE_BYTES // (ng * row)), _K3_BLOCK_ROWS)
+        smem = xs + _K3_NST * SR * row
+        if smem + 64 <= _SMEM_LIMIT:
+            return 1, G, SR, smem
+    return 0, 32, 0, xs
+
+
+def active_row_groups(x: Tensor) -> Tensor:
+    """(E, ⌈C/8⌉) bool: the groups of 8 capacity rows of x (E, C, b) that
+    hold a value ≠ 0 — the row groups whose weights K3 streams."""
+    E, C, b = x.shape
+    pad = -(-C // _MAXB) * _MAXB - C
+    nz = (x != 0).any(dim=-1)                                 # (E, C)
+    nz = torch.nn.functional.pad(nz, (0, pad))
+    return nz.reshape(E, -1, _MAXB).any(dim=-1)
+
+
+def stacked_stream_bytes(x: Tensor, values: Tensor, indices: Tensor) -> int:
+    """Bytes K3 moves for this x: the values and indices of expert e once
+    for every active row group of e (``active_row_groups``), all of x (a
+    block reads its rows to decide) and all of y (written, zeros where
+    skipped).  y has x's dtype and shape (E, C, c)."""
+    E, C, _ = x.shape
+    c = values.shape[1]
+    per_expert = (values[0].numel() * values.element_size()
+                  + indices[0].numel() * indices.element_size())
+    groups = int(active_row_groups(x).sum())
+    return (groups * per_expert + x.numel() * x.element_size()
+            + E * C * c * x.element_size())
+
+
 def nm_matmul_stacked_cuda(x: Tensor, values: Tensor, indices: Tensor, *,
                            n: int, m: int, b: int,
                            idx_bits: int = 8) -> Tensor:
@@ -126,25 +202,26 @@ def nm_matmul_stacked_cuda(x: Tensor, values: Tensor, indices: Tensor, *,
                          f"{tuple(values.shape)}")
     L = _check_layout(x, values, indices, n, m, b, idx_bits)
     _check_operands(x, values, indices, "K3")
-    smem = _MAXB * -(-b // 8) * 8 * x.element_size()
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"K3 stages x in shared memory: b={b} in {x.dtype} "
-                         f"needs {smem} bytes > {_SMEM_LIMIT}")
     E, C = x.shape[0], x.shape[1]
     x = x.contiguous()
     values = values.contiguous()
     indices = indices.contiguous().view(torch.uint8)
+    stride = indices.shape[2]
+    mode, G, SR, smem = _k3_plan(
+        L, stride, b, x.element_size(),
+        all(t.data_ptr() % 16 == 0 for t in (values, indices)), n, m)
+    if smem + 64 > _SMEM_LIMIT:
+        raise ValueError(f"K3 stages x in shared memory: b={b} in {x.dtype} "
+                         f"needs {smem} bytes > {_SMEM_LIMIT - 64}")
     c = values.shape[1]
     y = torch.empty((E, C, c), dtype=x.dtype, device=x.device)
     if E == 0 or C == 0 or c == 0:
         return y
-    vec = int(L % 8 == 0 and all(t.data_ptr() % 16 == 0
-                                 for t in (values, indices)))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = _fn("nm_matmul_stacked")(
         x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
-        _DTYPES[x.dtype], idx_bits, vec, E, C, c, b, m, m - n, L,
-        indices.shape[2], stream)
+        _DTYPES[x.dtype], idx_bits, mode, E, C, c, b, m, m - n, L,
+        stride, G, SR, stream)
     _build.check(status, "nm_matmul_stacked")
     nm_matmul_stacked_cuda.launches += 1
     nm_matmul_stacked_cuda.by_shape[(E, C, c, b, str(x.dtype),

@@ -226,3 +226,73 @@ def test_nm_stacked_kernel_vs_plain_on_card(cuda, E, C, c, b, nn, m, dtype,
     assert y_k.shape == (E, C, c) and y_k.dtype == dtype
     torch.testing.assert_close(y_k.float(), y_p.float(), rtol=tol[0],
                                atol=tol[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tok,b", [(37, 100), (37, 770), (80, 100),
+                                   (80, 770)])
+def test_hessian_kernel_odd_shapes_on_card(cuda, tok, b, dtype, masked):
+    """K1 at ragged tokens and b (rows not 16-byte aligned): vs the plain
+    version (rtol 1e-3 / atol 2e-2), xtx exactly symmetric, garbage in
+    masked rows ignored, a NaN in a valid row skips the batch."""
+    g = torch.Generator(device=cuda).manual_seed(tok * b)
+    x = torch.randn((tok, b), generator=g, device=cuda).to(dtype)
+    valid = (torch.rand((tok,), generator=g, device=cuda) < 0.6
+             if masked else None)
+    if masked:
+        x[~valid] = torch.nan
+    acc_k = [torch.zeros((b, b), device=cuda),
+             torch.zeros((), device=cuda), torch.zeros((), device=cuda)]
+    acc_p = [a.clone() for a in acc_k]
+    for _ in range(2):
+        K1.hessian_update_cuda(x, valid, *acc_k)
+        K1.hessian_update_plain(x, valid, *acc_p)
+    torch.testing.assert_close(acc_k[0], acc_p[0], rtol=1e-3, atol=2e-2)
+    assert torch.equal(acc_k[0], acc_k[0].T)
+    assert float(acc_k[1]) == float(acc_p[1])
+    before = acc_k[0].clone()
+    row = 0 if valid is None else int(valid.nonzero()[0])
+    x[row, b // 2] = torch.nan
+    K1.hessian_update_cuda(x, valid, *acc_k)
+    assert torch.equal(acc_k[0], before) and float(acc_k[2]) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_bits", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,c,b,nn,m", [(6, 3, 37, 128, 2, 4),
+                                          (6, 17, 300, 128, 5, 8),
+                                          (5, 17, 37, 96, 2, 4),
+                                          (4, 3, 33, 104, 5, 8)])
+def test_nm_stacked_kernel_skips_zero_groups_on_card(cuda, E, C, c, b, nn,
+                                                     m, dtype, idx_bits):
+    """K3 with a mix of all-zero and filled row groups (whole experts and,
+    at C = 17, the middle group of live experts): vs the plain version
+    (K2's tolerances), and every output row of an all-zero group is
+    bitwise +0.  (128, 300) rows cover a ragged second 128-row block."""
+    from repro_torch.core.masks import nm_mask
+
+    g = torch.Generator(device=cuda).manual_seed(E * C + c + b)
+    w = (torch.randn((E, c, b), generator=g, device=cuda) / b ** 0.5).to(dtype)
+    mask = nm_mask(w.reshape(E * c, b).float(), torch.ones(b, device=cuda),
+                   nn, m).reshape(E, c, b)
+    pk = tsp.pack_nm_stacked(w, mask, nn, m, idx_bits=idx_bits)
+    x = torch.randn((E, C, b), generator=g, device=cuda).to(dtype)
+    idle = torch.arange(E, device=cuda) % 2 == 0
+    x[idle] = 0.0
+    x[1, 0, 0] = -0.0
+    if C > 8:
+        x[~idle, 8:16] = 0.0
+    y_k = K2.nm_matmul_stacked_cuda(x, pk.values, pk.indices, n=nn, m=m,
+                                    b=b, idx_bits=idx_bits)
+    y_p = K2.nm_matmul_stacked_plain(x, pk.values, pk.indices, nn, m, b,
+                                     idx_bits)
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-2)
+    torch.testing.assert_close(y_k.float(), y_p.float(), rtol=tol[0],
+                               atol=tol[1])
+    bits = y_k.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+    assert bool((bits[idle] == 0).all())
+    if C > 8:
+        assert bool((bits[~idle, 8:16] == 0).all())

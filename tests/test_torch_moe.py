@@ -121,6 +121,33 @@ def test_tape_counts_routed_rows_like_jax(pair):
     assert len(counts) == 3 * cfg.num_experts and min(counts) > 0
 
 
+@pytest.mark.parametrize("T", [1, 4])
+def test_unrouted_capacity_rows_are_zero(pair, T):
+    """The premise of K3's skip: at serving sizes (T = 1 prefill token,
+    T = 4 decode slots) every capacity row that ``valid`` marks unrouted is
+    exactly zero in the gate/up input (the dispatch buffer) and in h, the
+    down leaf's input; only T·k rows are routed."""
+    _, _, tmodel, tparams = pair
+    cfg = tmodel.cfg
+    p = tparams["blocks"][0]["moe"]
+    x = torch.from_numpy(np.random.default_rng(T).normal(
+        size=(T, 1, cfg.d_model)).astype(np.float32))
+    tape: dict = {}
+    M.moe_ffn(p, x, cfg, tape=tape)
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    assert M.capacity(T, k, E, cfg.capacity_factor) == 8
+    routed = 0
+    for name in ("gate", "up", "down"):
+        for e in range(E):
+            xe, valid = tape[(name, "w", e)]
+            assert xe.shape == (8, cfg.d_model if name != "down"
+                                else cfg.moe_d_ff)
+            assert bool((xe[~valid] == 0).all()), (name, e)
+            assert bool((xe[valid] != 0).any(dim=-1).all()), (name, e)
+            routed += int(valid.sum()) if name == "gate" else 0
+    assert routed == T * k
+
+
 def test_dead_expert_raises_insufficient_calibration(pair):
     """4 tokens × top-2 over 8 experts leaves experts unrouted (the JAX
     test at tests/test_stacked_compressed.py:231): the guard raises."""

@@ -234,3 +234,55 @@ def test_params_from_numpy_carries_stacked_nodes():
             np.testing.assert_array_equal(
                 n(a.indices), np.asarray(b.indices).view(np.uint8))
     assert compressed_bytes(tcomp) == tuple(int(v) for v in j_bytes(jcomp))
+
+
+def test_stacked_stream_bytes_counts_active_row_groups():
+    """K3's data-dependent byte count against a hand count: E = 4 experts
+    of c = 6 rows, b = 16, 2:4 with 4-bit indices (L = 8 kept values, 4
+    index bytes a row), C = 10 capacity rows = two row groups (8 + 2)."""
+    w = np.random.default_rng(3).normal(size=(4, 6, 16))
+    pk = tsp.pack_nm_stacked(torch.from_numpy(w).to(torch.bfloat16),
+                             torch.from_numpy(_nm_mask(w, 2, 4)), 2, 4,
+                             idx_bits=4)
+    assert pk.values.shape == (4, 6, 8) and pk.indices.shape == (4, 6, 4)
+    x = torch.zeros((4, 10, 16), dtype=torch.bfloat16)
+    x[0, 3, 5] = 1.0            # expert 0, first group
+    x[0, 9, 0] = -2.0           # expert 0, second group
+    x[2, 8, 15] = 0.5           # expert 2, second group only
+    x[3, 1, 1] = -0.0           # −0 counts as zero: expert 3 stays idle
+    assert K.active_row_groups(x).tolist() == [[True, True], [False, False],
+                                               [False, True],
+                                               [False, False]]
+    per_expert = 6 * 8 * 2 + 6 * 4          # values + index bytes
+    x_bytes, y_bytes = 4 * 10 * 16 * 2, 4 * 10 * 6 * 2
+    assert K.stacked_stream_bytes(x, pk.values, pk.indices) == \
+        3 * per_expert + x_bytes + y_bytes
+    assert K.stacked_stream_bytes(torch.zeros_like(x), pk.values,
+                                  pk.indices) == x_bytes + y_bytes
+
+
+@pytest.mark.parametrize("L,stride,b,esize,aligned,nm,plan", [
+    # the two full-width qwen3-moe leaves, bf16 2:4 4-bit: tensor cores,
+    # 8-row stages of 20 KB (gate/up) or 16-row stages of 15 KB (down),
+    # x rows padded to ≡ 16 mod 128 bytes, partial tiles of 8 warps × 2
+    (1024, 512, 2048, 2, True, (2, 4),
+     (2, 32, 8, 3 * 8 * 2560 + 8 * 4112 + 2 * 8 * 8 * 8 * 4)),
+    (384, 192, 768, 2, True, (2, 4),
+     (2, 32, 16, 3 * 16 * 960 + 8 * 1552 + 2 * 8 * 16 * 8 * 4)),
+    # fp32 or 5:8 with 16-byte rows: the ring on the CUDA cores — 32-lane
+    # rows in 8-row stages, or half-warps (48 chunks) in 16-row stages
+    (1024, 1024, 2048, 4, True, (2, 4),
+     (1, 32, 8, 8 * 2048 * 4 + 3 * 8 * 5120)),
+    (384, 192, 768, 4, True, (2, 4), (1, 16, 16, 8 * 768 * 4 + 3 * 16 * 1728)),
+    (384, 192, 1024, 2, True, (5, 8),
+     (1, 16, 16, 8 * 1024 * 2 + 3 * 16 * 960)),
+    # 4-bit index rows of 24 bytes, or unaligned bases: the scalar path
+    (48, 24, 96, 2, True, (2, 4), (0, 32, 0, 8 * 96 * 2)),
+    (1024, 512, 2048, 2, False, (2, 4), (0, 32, 0, 8 * 2048 * 2)),
+    (50, 25, 100, 4, True, (2, 4), (0, 32, 0, 8 * 104 * 4)),
+])
+def test_k3_launch_plan(L, stride, b, esize, aligned, nm, plan):
+    """K3's launch plan: the path, G lanes a row, SR rows a stage, and the
+    shared memory the source lays out (x + 3 ring stages [+ the partial
+    tiles of the tensor-core path])."""
+    assert K._k3_plan(L, stride, b, esize, aligned, *nm) == plan
