@@ -31,13 +31,20 @@ non-zero without the final result line):
    Then the redesigned kernels at odd shapes: K1 at ragged tokens and b
              with and without a row mask (xtx exactly symmetric, NaN batch
              skipped); K3 with all-zero and filled row groups mixed (their
-             outputs bitwise +0).
+             outputs bitwise +0); K2's tensor-core path at every path shape
+             and ragged c for B ∈ K2_BATCHES (its plan checked, two
+             launches bitwise equal), its cluster split, a NaN weight (NaN
+             out, no skip) and strided / offset x.
 5. times   — each kernel at each main-path shape: kernel, plain version and
              one library call (K1 also the bf16 tensor-core addmm), beside
              the bound the card's peaks give; K3 also at the serving path's
              decode occupancy (x from moe_ffn's own dispatch of 1 and 4
              tokens), its bound counting only the weights of active row
-             groups.
+             groups.  K2's rows also print the plan and the warp-per-row
+             kernel (K2's design before the tensor-core path) timed in this
+             run beside its time recorded in PERF.md; then K2's device
+             time per model step of each path and its launch-weighted
+             total, each beside the library's.
 
 Kernel launch counts are zeroed just before each path (phases 3 and 4m) and
 read just after its serve; the comparison and timing launches are not
@@ -76,6 +83,23 @@ MOE_K1 = [(1024, 2048, False), (1024, 4096, False), (80, 2048, True),
 K3_REPLACES = ("src/repro/kernels/ops.py:151-161 (loops the pallas_call of "
                "src/repro/kernels/nm_spmm.py:135)")
 MAXB_ROWS = 8                 # capacity rows K3 computes per row group
+# K2's time per launch with the warp-per-row kernel, as PERF.md records it
+# (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+WARP_ROW_K2_MS = {"B=1 W (2048, 2048)": 0.0065, "B=4 W (2048, 2048)": 0.0126,
+              "B=1 W (256, 2048)": 0.0051, "B=4 W (256, 2048)": 0.0089,
+              "B=1 W (5632, 2048)": 0.0124, "B=4 W (5632, 2048)": 0.0283,
+              "B=1 W (2048, 5632)": 0.0133, "B=4 W (2048, 5632)": 0.0299,
+              "B=1 W (4096, 2048)": 0.0085, "B=4 W (4096, 2048)": 0.0202,
+              "B=1 W (512, 2048)": 0.0052, "B=4 W (512, 2048)": 0.0089,
+              "B=1 W (2048, 4096)": 0.0103, "B=4 W (2048, 4096)": 0.0225}
+# K2, (c, b): tinyllama's q/o, k/v, gate/up and down linears
+SERVE_K2 = [(2048, 2048), (256, 2048), (5632, 2048), (2048, 5632)]
+# the tensor-core K2's checks: ragged c (the cluster split), its batch
+# sizes, and (c, b, B) of the NaN-weight and x-view checks
+K2_RAGGED = [(37, 128), (129, 256), (300, 512)]
+K2_BATCHES = (1, 2, 3, 4, 5, 8, 9, 17)
+K2_CLUSTER = [(256, 2048), (512, 2048), (37, 1024), (300, 512)]
+K2_EDGE = [(2048, 2048, 4), (256, 2048, 1), (37, 128, 9)]
 # the redesign checks: K1 at ragged (tokens, b); K3 (E, C, c, b, n, m)
 # with all-zero row groups, from a full-width leaf to ragged shapes
 ODD_K1 = [(37, 100), (37, 770), (80, 100), (80, 770)]
@@ -92,6 +116,29 @@ def fail(msg: str) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         fail(msg)
+
+
+def ptxas_entries(log: str, kernel: str) -> list:
+    """(template arguments, "registers …, spill …") of each entry function
+    of ``-Xptxas -v``'s report whose mangled name holds ``kernel``."""
+    out, current, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1) if kernel in m.group(1) else None
+            spill = ""
+            continue
+        if current is None:
+            continue
+        if "spill stores" in line:
+            spill = re.sub(r".*ptxas info\s*:\s*", "", line).strip()
+        m = re.search(r"Used (\d+) registers.*", line)
+        if m:
+            args = re.findall(r"Li(\d+)E", current)
+            out.append((f"<{', '.join(args)}>",
+                        f"{m.group(0)}; {spill}"))
+            current = None
+    return out
 
 
 def gpu_line() -> str:
@@ -368,6 +415,125 @@ def redesign_checks(gen, dev) -> None:
           f"row groups {n3} ok, {zeros} outputs of all-zero groups bitwise +0")
 
 
+def k2_tc_checks(gen, dev) -> None:
+    """Phase 2 for K2's tensor-core path (bf16 2:4, the served format)
+    against its plain version at bf16 rtol 2e-2 / atol 1e-2: every path
+    shape and the ragged K2_RAGGED widths at B ∈ K2_BATCHES, 4- and 8-bit
+    indices, each launch's plan checked to be the tensor-core path and two
+    launches bitwise equal; the cluster split at c ≤ 512 (K2_CLUSTER, CS
+    2/4/8, explicit plans) and where the plan itself splits (rows too wide
+    for one block); a
+    NaN kept weight (NaN in its output column, no skip); x as a strided
+    view and as a contiguous view one element off 16-byte alignment."""
+    import torch
+
+    from repro_torch.core.masks import nm_mask
+    from repro_torch.core.sparsity import pack_nm
+    from repro_torch.kernels import nm_spmm as K2
+
+    tol = {"rtol": 2e-2, "atol": 1e-2}
+
+    def pack(c, b, bits, nan_row=None):
+        w = (torch.randn((c, b), generator=gen, device=dev)
+             / math.sqrt(b)).to(torch.bfloat16)
+        mask = nm_mask(w.float(), torch.ones((b,), device=dev), 2, 4)
+        if nan_row is not None:
+            w[nan_row, int((mask[nan_row] < 0.5).nonzero()[0])] = torch.nan
+        return pack_nm(w, mask, 2, 4, idx_bits=bits)
+
+    def run(x, pk, b, bits, what):
+        plan = K2._k2_operands(x, pk.values, pk.indices, 2, 4, b, bits)[3]
+        check(plan[0] == 2, f"K2 {what}: plan {plan} is not the tensor-core "
+              "path")
+        y_k = K2.nm_matmul_cuda(x, pk.values, pk.indices, n=2, m=4, b=b,
+                                idx_bits=bits)
+        y_2 = K2.nm_matmul_cuda(x, pk.values, pk.indices, n=2, m=4, b=b,
+                                idx_bits=bits)
+        y_p = K2.nm_matmul_plain(x, pk.values, pk.indices, 2, 4, b, bits)
+        torch.cuda.synchronize()
+        check(torch.equal(y_k.view(torch.int16), y_2.view(torch.int16)),
+              f"K2 {what}: two launches differ")
+        return y_k, y_p, plan
+
+    n_ok, worst, plans = 0, (0.0, 0.0), set()
+    for (c, b), bits in itertools.product(
+            [*SERVE_K2, *MOE_ATTN, *K2_RAGGED], (4, 8)):
+        pk = pack(c, b, bits)
+        for B in K2_BATCHES:
+            x = torch.randn((B, b), generator=gen, device=dev).to(
+                torch.bfloat16)
+            y_k, y_p, plan = run(x, pk, b, bits, f"({c}, {b}) B={B} "
+                                 f"idx{bits}")
+            e = errs(y_k, y_p)
+            check(y_k.shape == (B, c) and torch.allclose(
+                y_k.float(), y_p.float(), **tol),
+                f"K2 tc ({c}, {b}) B={B} idx{bits}: max abs err {e[0]:.3g}")
+            worst = max(worst, e)
+            plans.add(plan[1])
+            n_ok += 1
+        del pk
+    # the cluster split: explicit plans at c ≤ 512, and the wrapper's own
+    # plan where rows are too wide for one block (b = 16384 at B = 8)
+    n_cs = 0
+    for (c, b), CS, B in itertools.product(K2_CLUSTER, (2, 4, 8),
+                                           (1, 4, 9)):
+        pk = pack(c, b, 4)
+        x = torch.randn((B, b), generator=gen, device=dev).to(torch.bfloat16)
+        plan = (2, CS, K2._k2_smem(b, pk.values.shape[1], pk.indices.shape[1],
+                                   B, CS))
+        y_k = K2._launch_k2(x, pk.values, pk.indices, 2, 4, b, 4, plan)
+        y_2 = K2._launch_k2(x, pk.values, pk.indices, 2, 4, b, 4, plan)
+        y_p = K2.nm_matmul_plain(x, pk.values, pk.indices, 2, 4, b, 4)
+        torch.cuda.synchronize()
+        e = errs(y_k, y_p)
+        check(torch.allclose(y_k.float(), y_p.float(), **tol)
+              and torch.equal(y_k, y_2),
+              f"K2 cluster CS={CS} ({c}, {b}) B={B}: max abs err {e[0]:.3g}")
+        worst = max(worst, e)
+        n_cs += 1
+    for B in (1, 8):
+        pk = pack(64, 16384, 4)
+        x = torch.randn((B, 16384), generator=gen, device=dev).to(
+            torch.bfloat16)
+        y_k, y_p, plan = run(x, pk, 16384, 4, f"wide rows B={B}")
+        check(plan[1] == (2 if B == 8 else 1) and torch.allclose(
+            y_k.float(), y_p.float(), **tol),
+            f"K2 wide rows (64, 16384) B={B}: plan {plan}, max abs err "
+            f"{errs(y_k, y_p)[0]:.3g}")
+        plans.add(plan[1])
+        n_cs += 1
+    n_nan = 0
+    for (c, b, B), bits in itertools.product(K2_EDGE, (4, 8)):
+        pk = pack(c, b, bits, nan_row=c // 2)
+        x = torch.randn((B, b), generator=gen, device=dev).to(torch.bfloat16)
+        y_k, y_p, _ = run(x, pk, b, bits, f"NaN weight ({c}, {b}) B={B}")
+        check(bool(torch.isnan(y_k[:, c // 2]).all()) and torch.allclose(
+            y_k.float(), y_p.float(), equal_nan=True, **tol),
+            f"K2 NaN weight ({c}, {b}) B={B} idx{bits}: NaN column "
+            f"{bool(torch.isnan(y_k[:, c // 2]).all())}")
+        n_nan += 1
+    n_view = 0
+    for c, b, B in K2_EDGE:
+        pk = pack(c, b, 4)
+        strided = torch.randn((B, b + 8), generator=gen, device=dev).to(
+            torch.bfloat16)[:, 3:3 + b]
+        offset = torch.randn((B * b + 1,), generator=gen, device=dev).to(
+            torch.bfloat16)[1:].view(B, b)
+        for name, x in (("strided", strided), ("offset", offset)):
+            y_k, y_p, _ = run(x, pk, b, 4, f"{name} x ({c}, {b}) B={B}")
+            check(torch.allclose(y_k.float(), y_p.float(), **tol),
+                  f"K2 {name} x ({c}, {b}) B={B}: max abs err "
+                  f"{errs(y_k, y_p)[0]:.3g}")
+            n_view += 1
+    print(f"kernels: nm_matmul tensor-core path vs plain: {n_ok} checks ok "
+          f"(B ∈ {K2_BATCHES}, idx 4/8, path and ragged shapes), max abs/"
+          f"rel err {worst[0]:.3g}/{worst[1]:.3g} (rtol 2e-2 / atol 1e-2), "
+          f"two launches bitwise equal; cluster splits {sorted(plans)}; "
+          f"cluster checks {n_cs} ok (CS 2/4/8 at c ≤ 512, wide rows); NaN "
+          f"weight {n_nan} ok (NaN column, no skip); strided / offset x "
+          f"{n_view} ok")
+
+
 def moe_phase(dev) -> dict:
     """Phase 4m: prune → stacked compress → serve qwen3-moe-30b-a3b at full
     width, depth cut to MOE_LAYERS, through the functions ``prune_arch``
@@ -605,6 +771,94 @@ def moe_dispatch_inputs(gen, dev, packs3: dict) -> dict:
     return out
 
 
+def k2_times(gen, dev, packs: dict, err: dict, main: dict,
+             path: str) -> list:
+    """Phase 5 rows of K2 at one path's shapes (bf16 2:4, 4-bit indices,
+    B ∈ {1, 4}): its plan, the kernel, the warp-per-row kernel (K2's
+    design before the tensor-core path, mode 1 of the same source), the plain
+    version and ``torch.matmul`` on the dense weight.  The weights rotate
+    through copies so that every launch streams them from HBM."""
+    import torch
+
+    from repro_torch.kernels import nm_spmm as K2
+
+    bf16 = torch.bfloat16
+    rows = []
+    for (c, b), (pk, wd) in packs.items():
+        per = pk.values.numel() * 2 + pk.indices.numel()
+        copies = max(1, math.ceil(128 * 2**20 / per))
+        vals = [pk.values.clone() for _ in range(copies)]
+        idxs = [pk.indices.clone() for _ in range(copies)]
+        dens = [wd.clone() for _ in range(max(1, math.ceil(
+            128 * 2**20 / (wd.numel() * 2))))]
+        reps = copies * max(1, 64 // copies)
+        dreps = len(dens) * max(1, 64 // len(dens))
+        for B in (1, 4):
+            x = torch.randn((B, b), generator=gen, device=dev).to(bf16)
+            plan = K2._k2_operands(x, pk.values, pk.indices, 2, 4, b, 4)[3]
+            old = (1, 1, 0)                  # warp-per-row, 16-byte loads
+            ring = itertools.cycle(range(copies))
+            dring = itertools.cycle(range(len(dens)))
+
+            def kern():
+                i = next(ring)
+                K2.nm_matmul_cuda(x, vals[i], idxs[i], n=2, m=4, b=b,
+                                  idx_bits=4)
+
+            def kern_old():
+                i = next(ring)
+                K2._launch_k2(x, vals[i], idxs[i], 2, 4, b, 4, old)
+
+            def plain():
+                i = next(ring)
+                K2.nm_matmul_plain(x, vals[i], idxs[i], 2, 4, b, 4)
+
+            def lib():
+                torch.matmul(x, dens[next(dring)].T)
+
+            nbytes = per + 2 * B * b + 2 * B * c
+            ops = 2 * B * c * pk.values.shape[1]
+            t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bfloat16"]
+            key = (B, c, b, str(bf16), 4)
+            rows.append({
+                "name": "nm_matmul", "shape": f"B={B} W ({c}, {b}) 2:4 bf16",
+                "path": path, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/nm_spmm.cu",
+                "replaces": "src/repro/kernels/nm_spmm.py:135",
+                "launches": main.get(key, 0), "max_abs_err": err[key][0],
+                "ms": device_ms(kern, reps), "eager_ms": eager_ms(kern, 200),
+                "plain_ms": device_ms(plain, reps),
+                "bound_ms": 1e3 * max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations",
+                "library_ms": device_ms(lib, dreps),
+                "library_bf16_ms": None,
+                "plan": {"mode": plan[0], "cluster": plan[1],
+                         "smem": plan[2], "ctas": K2._k2_ctas(c, B, plan)},
+                "warp_row_ms": device_ms(kern_old, reps)})
+        del vals, idxs, dens
+    return rows
+
+
+def k2_step_line(rows: list, stats: dict, path: str) -> dict:
+    """K2's device time per model step of one path — the B=1 (prefill)
+    and the B=4 (decode) step — and its launch-weighted total, each beside
+    the library call's (``torch.matmul``) at the same launches."""
+    steps = {1: stats["prefill_tokens"], 4: stats["decode_steps"]}
+    out = {}
+    for key in ("ms", "library_ms"):
+        tot = {B: sum(r["launches"] * r[key] for r in rows
+                      if r["shape"].startswith(f"B={B} ")) for B in (1, 4)}
+        out[key] = {"B=1 step": tot[1] / max(1, steps[1]),
+                    "B=4 step": tot[4] / max(1, steps[4]),
+                    "weighted": tot[1] + tot[4]}
+    k, lb = out["ms"], out["library_ms"]
+    print(f"  K2 per {path} model step: B=1 {k['B=1 step']:.4f} ms (library "
+          f"{lb['B=1 step']:.4f}), B=4 {k['B=4 step']:.4f} ms (library "
+          f"{lb['B=4 step']:.4f}); launch-weighted {k['weighted']:.2f} ms "
+          f"(library {lb['weighted']:.2f})")
+    return out
+
+
 def moe_times(gen, dev, chk: dict, moe: dict) -> list:
     """Phase 5 rows at the MoE path's shapes (bf16, 4-bit indices): K1 at
     its capacity-buffer and attention shapes, K2 at the attention shapes,
@@ -651,39 +905,8 @@ def moe_times(gen, dev, chk: dict, moe: dict) -> list:
             device_ms(lambda: torch.addmm(acc[0], xm.T, xm), 10),
             x.numel() * 2 + (tok if valid is not None else 0) + 2 * b * b * 4,
             2 * rows_used * b * b, addmm_bf16_ms(acc[0], xm.to(bf16), 10))
-    for (c, b), (pk, wd) in chk["packs2"].items():
-        per = pk.values.numel() * 2 + pk.indices.numel()
-        copies = max(1, math.ceil(128 * 2**20 / per))   # stream from HBM
-        vals = [pk.values.clone() for _ in range(copies)]
-        idxs = [pk.indices.clone() for _ in range(copies)]
-        dens = [wd.clone() for _ in range(max(1, math.ceil(
-            128 * 2**20 / (wd.numel() * 2))))]
-        for B in (1, 4):
-            x = torch.randn((B, b), generator=gen, device=dev).to(bf16)
-            ring = itertools.cycle(range(copies))
-            dring = itertools.cycle(range(len(dens)))
-
-            def kern():
-                i = next(ring)
-                K2.nm_matmul_cuda(x, vals[i], idxs[i], n=2, m=4, b=b,
-                                  idx_bits=4)
-
-            def plain():
-                i = next(ring)
-                K2.nm_matmul_plain(x, vals[i], idxs[i], 2, 4, b, 4)
-
-            reps = copies * max(1, 64 // copies)
-            key = (B, c, b, str(bf16), 4)
-            row("nm_matmul", f"B={B} W ({c}, {b}) 2:4 bf16",
-                "src/repro_torch/kernels/csrc/nm_spmm.cu",
-                "src/repro/kernels/nm_spmm.py:135",
-                main["nm_matmul_cuda"].get(key, 0), chk["k2"][key][0],
-                device_ms(kern, reps), eager_ms(kern, 200),
-                device_ms(plain, reps),
-                device_ms(lambda: torch.matmul(x, dens[next(dring)].T),
-                          len(dens) * max(1, 64 // len(dens))),
-                per + 2 * B * b + 2 * B * c, 2 * B * c * pk.values.shape[1])
-        del vals, idxs, dens
+    rows += k2_times(gen, dev, chk["packs2"], chk["k2"],
+                     main["nm_matmul_cuda"], MOE_ARCH)
     # K3 at full occupancy (every capacity row filled: no main-path step
     # is like that, so no launches), then at the main path's decode
     # occupancy: x from moe_ffn's own dispatch of T = 1 (prefill) and T = 4
@@ -780,7 +1003,6 @@ def main() -> None:
     from repro_torch.core.sparsity import pack_nm
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build, hessian_accum as K1, nm_spmm as K2
-    from repro_torch.kernels import ref
     from repro_torch.launch.prune import prune_arch
     from repro_torch.models.model_builder import build_model
     from repro_torch.serve.compressed import (compress_params,
@@ -804,6 +1026,8 @@ def main() -> None:
             print(f"  ptxas {name}: {len(regs)} kernels, {min(regs)}–"
                   f"{max(regs)} registers a thread, {spills} bytes of "
                   f"spill loads and stores")
+        for kern, info in ptxas_entries(log, "nm_tc_kernel"):
+            print(f"  ptxas K2 tensor-core {kern}: {info}")
     print(f"phase build: {len(_build.SOURCES)} kernels in {secs:.2f} s")
     results["build_seconds"] = secs
 
@@ -863,11 +1087,10 @@ def main() -> None:
           f"(rtol 1e-3 / atol 2e-2; xtx exactly symmetric; masked rows and "
           f"NaN skip exact)")
 
-    serve_shapes = [(2048, 2048), (256, 2048), (5632, 2048), (2048, 5632)]
     packs: dict = {}
     k2_err: dict = {}
     n2, worst2 = 0, {torch.float32: (0.0, 0.0), torch.bfloat16: (0.0, 0.0)}
-    cases = [(c, b, B, 2, 4) for c, b in serve_shapes for B in (1, 4)]
+    cases = [(c, b, B, 2, 4) for c, b in SERVE_K2 for B in (1, 4)]
     cases += [(37, 96, 3, 2, 4), (37, 96, 3, 5, 8)]
     for (c, b, B, n, m) in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -897,7 +1120,7 @@ def main() -> None:
                 worst2[dtype] = max(worst2[dtype], e)
                 n2 += 1
                 if dtype == torch.bfloat16 and bits == 4 and (c, b) in \
-                        serve_shapes:
+                        SERVE_K2:
                     packs[(c, b)] = (pk, w.masked_fill(mask > 0.5, 0))
     print(f"kernels: nm_matmul (cuda) vs plain: {n2} checks ok; max abs/rel "
           f"err fp32 {worst2[torch.float32][0]:.3g}/"
@@ -906,6 +1129,7 @@ def main() -> None:
           f"(rtol 2e-2 / atol 1e-2)")
     moe_chk = moe_kernel_checks(gen, dev)
     redesign_checks(gen, dev)
+    k2_tc_checks(gen, dev)
 
     # ---- 3. main path: prune ----------------------------------------------
     for fn in (K1.hessian_update_cuda, K2.nm_matmul_cuda):
@@ -1032,53 +1256,7 @@ def main() -> None:
             "bound_ms": 1e3 * max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations",
             "library_ms": lib, "library_bf16_ms": lib_bf16})
-    for (c, b) in serve_shapes:
-        pk, wd = packs[(c, b)]
-        per = (pk.values.numel() * 2 + pk.indices.numel())
-        copies = max(1, math.ceil(128 * 2**20 / per))   # stream from HBM
-        vals = [pk.values.clone() for _ in range(copies)]
-        idxs = [pk.indices.clone() for _ in range(copies)]
-        dens = [wd.clone() for _ in range(max(1, math.ceil(
-            128 * 2**20 / (wd.numel() * 2))))]
-        for B in (1, 4):
-            x = torch.randn((B, b), generator=gen, device=dev).to(
-                torch.bfloat16)
-            ring = itertools.cycle(range(copies))
-            dring = itertools.cycle(range(len(dens)))
-
-            def kern():
-                i = next(ring)
-                K2.nm_matmul_cuda(x, vals[i], idxs[i], n=2, m=4, b=b,
-                                  idx_bits=4)
-
-            def plain():
-                i = next(ring)
-                ref.nm_matmul_ref(x, vals[i], idxs[i], 2, 4, b, 4)
-
-            def lib():
-                torch.matmul(x, dens[next(dring)].T)
-
-            reps = copies * max(1, 64 // copies)
-            ms = device_ms(kern, reps)
-            eager = eager_ms(kern, 200)
-            plain_ms = device_ms(plain, reps)
-            lib_ms = device_ms(lib, len(dens) * max(1, 64 // len(dens)))
-            nbytes = per + 2 * B * b + 2 * B * c
-            ops = 2 * B * c * pk.values.shape[1]
-            t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bfloat16"]
-            key = (B, c, b, str(torch.bfloat16), 4)
-            entries.append({
-                "name": "nm_matmul", "shape": f"B={B} W ({c}, {b}) 2:4 bf16",
-                "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/nm_spmm.cu",
-                "replaces": "src/repro/kernels/nm_spmm.py:135",
-                "launches": k2_main.get(key, 0),
-                "max_abs_err": k2_err[key][0], "ms": ms, "eager_ms": eager,
-                "plain_ms": plain_ms,
-                "bound_ms": 1e3 * max(t_b, t_o),
-                "bound_by": "bytes" if t_b >= t_o else "operations",
-                "library_ms": lib_ms, "library_bf16_ms": None})
-        del vals, idxs, dens
+    entries += k2_times(gen, dev, packs, k2_err, k2_main, "tinyllama-1.1b")
     entries += moe_times(gen, dev, moe_chk, moe)
     torch.cuda.synchronize()
     print(f"phase times on {results['gpu']} (name, power limit):")
@@ -1092,6 +1270,30 @@ def main() -> None:
               f"plain {e['plain_ms']:.4f} ms  "
               f"library {e['library_ms']:.4f} ms{tc}  bound "
               f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
+        if e["name"] == "nm_matmul":
+            p = e["plan"]
+            before = WARP_ROW_K2_MS[re.sub(r" 2:4 bf16$", "", e["shape"])]
+            print(f"      plan mode {p['mode']} CS {p['cluster']} smem "
+                  f"{p['smem']} B, {p['ctas']} CTAs; warp-per-row kernel "
+                  f"now {e['warp_row_ms']:.4f} ms (recorded {before:.4f})")
+    steps = {}
+    for path, st in (("tinyllama-1.1b", results["serve"]["stats"]),
+                     (MOE_ARCH, moe["stats"])):
+        steps[path] = k2_step_line(
+            [e for e in entries if e["name"] == "nm_matmul"
+             and e["path"] == path], st, path)
+    k2 = [e for e in entries if e["name"] == "nm_matmul"]
+    results["k2_steps"] = steps
+    print(f"  K2 launch-weighted over both paths: "
+          f"{sum(e['launches'] * e['ms'] for e in k2):.2f} ms, library "
+          f"{sum(e['launches'] * e['library_ms'] for e in k2):.2f} ms, "
+          f"bound {sum(e['launches'] * e['bound_ms'] for e in k2):.2f} ms, "
+          f"warp-per-row kernel "
+          f"{sum(e['launches'] * e['warp_row_ms'] for e in k2):.2f}"
+          f" ms; every path launch on plan mode 2: "
+          f"{all(e['plan']['mode'] == 2 for e in k2)}")
+    check(all(e["plan"]["mode"] == 2 for e in k2),
+          "a K2 path shape is not planned on the tensor-core path")
     results["kernels"] = entries
     results["seconds"] = time.perf_counter() - t_all
     out_dir = ROOT / "chiprun_out"

@@ -12,14 +12,31 @@
 // Bound on the H100: the serving shapes are GEMV-like (B = 1 in prefill,
 // B = slots in decode), so the kernel is bound by the bytes it streams —
 // values + indices + x + y — over 3.35 TB/s; its operations (2·B·c·L) are
-// far below the tensor-core line.  The design therefore only has to keep
-// the weight stream coalesced and in flight: one warp per output row, each
-// lane loading 16 bytes of values and the matching 4 (or 8) index bytes per
-// step when the row is 16-byte aligned (a scalar path otherwise), x read
-// through the read-only cache (it is small and shared by every row), and
-// up to MAXB activation rows accumulated per pass over the weights.  The
-// ragged edges (c not a multiple of the rows per block, B not a multiple
-// of MAXB) are masked here; nothing is padded by the caller.
+// far below the tensor-core line.  bf16 2:4 (the served format) takes the
+// tensor-core path (nm_tc_kernel, mode 2; see its note), whose design
+// answers what held the warp-per-row kernel (nm_kernel) back:
+//   * x is staged once per block in shared memory (only the nr rows that
+//     exist, K3's padded layout), so no kept weight gathers from global
+//     memory and B = 4 costs about what B = 1 does;
+//   * every weight byte of a block (8 output rows: 20–56 KB at the path
+//     shapes) is requested at once by TMA bulk copies before the x
+//     staging, instead of a chain of dependent loads;
+//   * one 2:4 group per lane is expanded by a byte permute into the B
+//     registers of an mma.sync m16n8k16 whose A is the staged x rows
+//     (K3's tc_window), so a kept weight costs a fraction of an
+//     instruction at every B ≤ 8;
+//   * 8-row blocks give 256–704 blocks at the large path shapes; rows too
+//     wide for one block's shared memory are split over a cluster of CTAs
+//     that sums its partial tiles through distributed shared memory in a
+//     fixed order (one launch, the same y every run).
+// The cluster split and shared memory come from the host's plan
+// (kernels/nm_spmm.py::_k2_plan).  fp32, n:m other than 2:4 and rows that
+// are not 16-byte aligned (on no served path) keep nm_kernel:
+// one warp per output row, 16-byte value loads with the matching index
+// bytes (a scalar path for unaligned rows), x read through the read-only
+// cache, up to MAXB activation rows per pass.  The ragged
+// edges (c not a multiple of the rows per block, B not a multiple of MAXB)
+// are masked here; nothing is padded by the caller.
 //
 // K3: the stacked expert matmul y[e] = x[e] · W_eᵀ over one stacked leaf
 // (entry point nm_matmul_stacked).  Replaces repro/kernels/ops.py::
@@ -73,6 +90,7 @@
 // idx_stride % 16 ≠ 0, or unaligned bases) take the scalar path (mode 0):
 // the same blocks, skip and x staging, each lane loading one kept value at
 // a time straight from global memory.  Ragged c and C are masked here.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -547,13 +565,69 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
 }
 
-// Place kept value v (raw bf16 bits) at in-group position p of a dense
-// 4-column group held as (lo = positions 0, 1; hi = 2, 3); p ≥ 4 adds 0.
-__device__ __forceinline__ void place(uint32_t v, uint32_t p, uint32_t& lo,
-                                      uint32_t& hi) {
-  const uint32_t t = v << ((p & 1u) * 16u);
-  lo |= p < 2u ? t : 0u;
-  hi |= (p - 2u) < 2u ? t : 0u;
+// x << s with PTX's clamp: 0 once s ≥ 32 (C++ leaves that undefined).
+__device__ __forceinline__ uint32_t shl_clamped(uint32_t x, uint32_t s) {
+  uint32_t r;
+  asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(x), "r"(s));
+  return r;
+}
+
+// One 2:4 group from its two kept values v (raw bf16 bits, the first in
+// the low half) at in-group positions p0 ≠ p1, given as 8·p0 and 8·p1, to
+// the dense group (lo = positions 0, 1; hi = 2, 3) by one byte
+// permutation of {v, 0}: selector nibble j picks byte j of the dense
+// group, 4 (a zero byte) by default, 1 0 for the first value at 2·p0 and
+// 3 2 for the second at 2·p1.  A position ≥ 4 shifts out and adds 0.
+__device__ __forceinline__ void expand_group(uint32_t v, uint32_t p0x8,
+                                             uint32_t p1x8, uint32_t& lo,
+                                             uint32_t& hi) {
+  const uint32_t sel = 0x44444444u ^ shl_clamped(0x54u, p0x8) ^
+                       shl_clamped(0x76u, p1x8);
+  lo = __byte_perm(v, 0u, sel);
+  hi = __byte_perm(v, 0u, sel >> 16);
+}
+
+// One macro window of the tensor-core paths (K2 and K3): the lane's NW
+// consecutive 2:4 groups from group q0 on, for RT row tiles of 8 output
+// rows.  xrow is the lane's staged x row (A row g), read only when xlive
+// (else A is zero); vrow / irow are the lane's weight row (B column g) of
+// tile 0 in shared memory, with row strides sv / si bytes.
+template <int IDX_BITS, int NW, int RT>
+__device__ __forceinline__ void tc_window(const unsigned char* xrow, bool xlive,
+                                          const unsigned char* vrow, int sv,
+                                          const unsigned char* irow, int si,
+                                          int q0, float (&d)[RT][4]) {
+  constexpr int IB = NW * IDX_BITS / 4;  // index bytes a lane reads
+  uint32_t xw[2 * NW];  // x[g, 4 columns of each group]: a0, a2 pairs
+#pragma unroll
+  for (int h = 0; h < NW / 2; ++h) {
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (xlive) v = *reinterpret_cast<const uint4*>(xrow + q0 * 8 + 16 * h);
+    xw[4 * h] = v.x; xw[4 * h + 1] = v.y;
+    xw[4 * h + 2] = v.z; xw[4 * h + 3] = v.w;
+  }
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt) {
+    uint32_t vw[NW];
+    uint32_t iw[(IB + 3) / 4];
+    lds_words<4 * NW>(vrow + rt * 8 * sv + q0 * 4, vw);
+    lds_words<IB>(irow + rt * 8 * si + q0 * IDX_BITS / 4, iw);
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      uint32_t p0x8, p1x8;  // 8 × the two in-group positions
+      if constexpr (IDX_BITS == 4) {
+        p0x8 = (iw[0] << 3 >> (8 * w)) & 0x78u;
+        p1x8 = (iw[0] >> (8 * w + 1)) & 0x78u;
+      } else {
+        const uint32_t half = iw[w >> 1] >> (16 * (w & 1));
+        p0x8 = (half & 0xFFu) << 3;
+        p1x8 = (half >> 5) & 0x7F8u;
+      }
+      uint32_t lo, hi;
+      expand_group(vw[w], p0x8, p1x8, lo, hi);
+      mma_bf16_16816(d[rt], xw[2 * w], xw[2 * w + 1], lo, hi);
+    }
+  }
 }
 
 template <int IDX_BITS, int NW, int RT>
@@ -652,7 +726,6 @@ nm_stacked_tc_kernel(const __nv_bfloat16* __restrict__ x,
 
   const int g = lane >> 2, t = lane & 3;
   constexpr int MW = 16 * NW;              // columns of a macro window
-  constexpr int IB = NW * IDX_BITS / 4;    // index bytes a lane reads
   const int nmac = b / MW;
   for (int s = 0; s < nstages; ++s) {
     const int slot = s % NST;
@@ -664,40 +737,9 @@ nm_stacked_tc_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int rt = 0; rt < RT; ++rt)
       d[rt][0] = d[rt][1] = d[rt][2] = d[rt][3] = 0.0f;
-    for (int mac = warp; mac < nmac; mac += TC_WARPS) {
-      const int q0 = mac * 4 * NW + NW * t;  // this lane's first group
-      uint32_t xw[2 * NW];  // x[g, 4 columns of each group]: a0, a2 pairs
-#pragma unroll
-      for (int h = 0; h < NW / 2; ++h) {
-        const uint4 v = *reinterpret_cast<const uint4*>(xrow + q0 * 8 + 16 * h);
-        xw[4 * h] = v.x; xw[4 * h + 1] = v.y;
-        xw[4 * h + 2] = v.z; xw[4 * h + 3] = v.w;
-      }
-#pragma unroll
-      for (int rt = 0; rt < RT; ++rt) {
-        uint32_t vw[NW];
-        uint32_t iw[(IB + 3) / 4];
-        lds_words<4 * NW>(vrow + rt * 8 * sv + q0 * 4, vw);
-        lds_words<IB>(irow + rt * 8 * si + q0 * IDX_BITS / 4, iw);
-#pragma unroll
-        for (int w = 0; w < NW; ++w) {
-          uint32_t p0, p1;
-          if constexpr (IDX_BITS == 4) {
-            const uint32_t byte = (iw[0] >> (8 * w)) & 0xFFu;
-            p0 = byte & 0xFu;
-            p1 = byte >> 4;
-          } else {
-            const uint32_t half = (iw[w >> 1] >> (16 * (w & 1))) & 0xFFFFu;
-            p0 = half & 0xFFu;
-            p1 = half >> 8;
-          }
-          uint32_t lo = 0u, hi = 0u;
-          place(vw[w] & 0xFFFFu, p0, lo, hi);
-          place(vw[w] >> 16, p1, lo, hi);
-          mma_bf16_16816(d[rt], xw[2 * w], xw[2 * w + 1], lo, hi);
-        }
-      }
-    }
+    for (int mac = warp; mac < nmac; mac += TC_WARPS)
+      tc_window<IDX_BITS, NW, RT>(xrow, true, vrow, sv, irow, si,
+                                  mac * 4 * NW + NW * t, d);
     // d[rt][0..1]: capacity row g, output rows 8·rt + 2t, +1 of the stage
     float* rb = red + ((s & 1) * TC_WARPS + warp) * RT * 64;
 #pragma unroll
@@ -806,17 +848,240 @@ int launch_stacked(const void* x, const void* vals, const void* idx, void* y,
                                               keep, L, idx_stride, 32, 0, s);
 }
 
+// ---- K2 on the tensor cores: bf16, 2:4 ---------------------------------------
+// A block (K2_WARPS warps) owns 8 output rows — the n = 8 of one mma tile —
+// one group of MAXB activation rows (blockIdx.y) and, in a cluster of CS
+// CTAs along x, the CTA's 1/CS slice of the columns.  Every weight byte of
+// the block is requested at once: warp 0 sets one mbarrier and issues its
+// rows of values and of indices as bulk copies (two copies when CS = 1,
+// where the rows are contiguous; one per row and array otherwise) before
+// it stages its nr ≤ 8 x rows in K3's padded layout; lanes whose A row is
+// ≥ nr use zero registers.  The
+// warps split the columns in macro windows (tc_window, as K3) and sum
+// their partial tiles in shared memory, warp by warp; a cluster then sums
+// its CTAs' tiles through distributed shared memory, CTA by CTA, so y does
+// not depend on timing.  Nothing is skipped: a non-finite weight gives NaN
+// in y, as in the plain version.
+//
+// Chosen on the card (PERF.md): 8 warps, not 4 — once a block's bytes
+// land, its windows finish sooner, and the grid's last blocks set the
+// time; 8-row blocks, not 16; no cluster split at the path shapes, where
+// every split measures slower (tools/k2_plan_sweep.py: the small shapes
+// are latency-bound, and a CTA's fixed cost outweighs its share of the
+// bytes).  The split stays for wide rows: the least CS whose slices fit
+// in 227 KB of shared memory.  More, smaller bulk copies (a stage per 512
+// columns, so compute starts before a block's last byte) and a
+// programmatic dependent launch (the weight copies issued before the
+// previous kernel ends) were both tried: the first measured slower at
+// every path shape, the second gained only between back-to-back K2
+// launches and lost after a torch op, as most of the path's launches are.
+constexpr int K2_WARPS = 8;
+constexpr int K2_THREADS = 32 * K2_WARPS;
+
+template <int IDX_BITS, int NW>
+__global__ void __launch_bounds__(K2_THREADS)
+nm_tc_kernel(const __nv_bfloat16* __restrict__ x,
+             const __nv_bfloat16* __restrict__ vals,
+             const uint8_t* __restrict__ idx, __nv_bfloat16* __restrict__ y,
+             int B, int c, int b, int L, int idx_stride, int CS) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = blockIdx.x % CS;  // == the CTA's rank in its cluster
+  const int row0 = blockIdx.x / CS * 8;
+  const int rows = min(8, c - row0);
+  const int r0 = blockIdx.y * MAXB;
+  const int nr = min(MAXB, B - r0);
+  const int bc = b / CS;             // columns of this CTA
+  const int Lc = L / CS;             // kept values of a row in this CTA
+  const int sv = 2 * Lc, si = idx_stride / CS;  // bytes of a row's slice
+  const int sx = pad_to(2 * bc, 16);
+  unsigned char* tile = smem;                    // [8][sv], then [8][si]
+  unsigned char* xs = smem + 8 * (sv + si);      // [min(B, 8)][sx]
+  float* red = reinterpret_cast<float*>(xs + min(MAXB, B) * sx);  // [W][64]
+  float* tot = red + K2_WARPS * 64;                               // [64]
+
+  if (tid == 0) {
+    mbar_init(&full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0) {
+    if (lane == 0) mbar_expect_tx(&full, static_cast<uint32_t>(rows * (sv + si)));
+    __syncwarp();
+    if (CS == 1) {
+      if (lane == 0) {
+        bulk_load(tile, vals + static_cast<int64_t>(row0) * L, rows * sv, &full);
+        bulk_load(tile + 8 * sv, idx + static_cast<int64_t>(row0) * idx_stride,
+                  rows * si, &full);
+      }
+    } else if (lane < 2 * rows) {
+      const int r = lane >> 1;
+      const int64_t o = row0 + r;
+      if (lane & 1)
+        bulk_load(tile + 8 * sv + r * si, idx + o * idx_stride + rank * si, si,
+                  &full);
+      else
+        bulk_load(tile + r * sv, vals + o * L + rank * Lc, sv, &full);
+    }
+  }
+
+  // this CTA's column slice of the nr x rows: 16-byte loads, four in
+  // flight a thread, where the rows are aligned
+  const __nv_bfloat16* xe = x + static_cast<int64_t>(r0) * b + rank * bc;
+  const int per_row = bc / 8;
+  if ((reinterpret_cast<uintptr_t>(xe) & 15) == 0) {
+    for (int l0 = tid; l0 < nr * per_row; l0 += 4 * K2_THREADS) {
+      uint4 v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int l = l0 + k * K2_THREADS;
+        const int r = l / per_row;
+        if (l < nr * per_row)
+          v[k] = __ldg(reinterpret_cast<const uint4*>(
+                           xe + static_cast<int64_t>(r) * b) + (l - r * per_row));
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int l = l0 + k * K2_THREADS;
+        const int r = l / per_row;
+        if (l < nr * per_row)
+          reinterpret_cast<uint4*>(xs + r * sx)[l - r * per_row] = v[k];
+      }
+    }
+  } else {
+    for (int l = tid; l < nr * bc; l += K2_THREADS) {
+      const int r = l / bc;
+      reinterpret_cast<__nv_bfloat16*>(xs + r * sx)[l - r * bc] =
+          xe[static_cast<int64_t>(r) * b + (l - r * bc)];
+    }
+  }
+  __syncthreads();
+
+  const int g = lane >> 2, t = lane & 3;
+  const int nmac = bc / (16 * NW);
+  mbar_wait(&full, 0u);
+  float d[1][4] = {{0.0f, 0.0f, 0.0f, 0.0f}};
+  for (int mac = warp; mac < nmac; mac += K2_WARPS)
+    tc_window<IDX_BITS, NW, 1>(xs + g * sx, g < nr, tile + g * sv, sv,
+                               tile + 8 * sv + g * si, si,
+                               mac * 4 * NW + NW * t, d);
+  // d[0][0..1]: activation row g, output rows 2t, 2t + 1
+  *reinterpret_cast<float2*>(red + warp * 64 + g * 8 + 2 * t) =
+      make_float2(d[0][0], d[0][1]);
+  __syncthreads();
+
+  // tid → (activation row i, output row rr): warps summed in order
+  const int i = tid >> 3, rr = tid & 7;
+  const bool out = tid < 64 && i < nr && rr < rows;
+  float sum = 0.0f;
+  if (tid < 64) {
+#pragma unroll
+    for (int w = 0; w < K2_WARPS; ++w) sum += red[w * 64 + tid];
+  }
+  __nv_bfloat16* yo = y + static_cast<int64_t>(r0 + i) * c + row0 + rr;
+  if (CS == 1) {
+    if (out) store(yo, sum);
+    return;
+  }
+  // the cluster's CTAs in rank order, each output summed by one CTA
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (tid < 64) tot[tid] = sum;
+  cluster.sync();
+  if (out && tid % CS == rank) {
+    float acc = 0.0f;
+    for (int q = 0; q < CS; ++q) acc += *cluster.map_shared_rank(tot + tid, q);
+    store(yo, acc);
+  }
+  cluster.sync();  // no CTA leaves while its tile may still be read
+}
+
+// Dynamic shared memory of nm_tc_kernel, as _k2_smem computes it.
+size_t tc_smem(int B, int b, int L, int idx_stride, int CS) {
+  return static_cast<size_t>(8) * (2 * (L / CS) + idx_stride / CS) +
+         static_cast<size_t>(min(MAXB, B)) * pad_to(2 * (b / CS), 16) +
+         static_cast<size_t>(K2_WARPS + 1) * 64 * 4;
+}
+
+template <int IDX_BITS, int NW>
+int launch_k2_tc(const void* x, const void* vals, const void* idx, void* y,
+                 int B, int c, int b, int L, int idx_stride, int CS,
+                 size_t smem, cudaStream_t s) {
+  auto kern = nm_tc_kernel<IDX_BITS, NW>;
+  static size_t smem_set = 48 * 1024;  // the variant's limit so far
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((c + 7) / 8 * CS),
+                     static_cast<unsigned>((B + MAXB - 1) / MAXB));
+  cfg.blockDim = dim3(K2_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = static_cast<unsigned>(CS);
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = CS > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(vals),
+      static_cast<const uint8_t*>(idx), static_cast<__nv_bfloat16*>(y), B, c,
+      b, L, idx_stride, CS));
+}
+
+// The checks of _k2_plan's tensor-core path, then NW = 4 when a CTA's
+// columns split into 64-column windows, else 2.
+int launch_k2_tc_checked(const void* x, const void* vals, const void* idx,
+                         void* y, int idx_bits, int B, int c, int b, int m,
+                         int keep, int L, int idx_stride, int CS, int smem,
+                         cudaStream_t s) {
+  const bool cs_ok = CS == 1 || CS == 2 || CS == 4 || CS == 8;
+  if (m != 4 || keep != 2 || L * 2 != b || !cs_ok || b % (32 * CS) != 0 ||
+      idx_stride != L * idx_bits / 8 || (idx_stride / CS) % 16 != 0 ||
+      (B + MAXB - 1) / MAXB > 65535 ||
+      static_cast<size_t>(smem) != tc_smem(B, b, L, idx_stride, CS) ||
+      smem + sizeof(uint64_t) > SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool nw4 = (b / CS) % 64 == 0;
+  if (idx_bits == 4)
+    return nw4 ? launch_k2_tc<4, 4>(x, vals, idx, y, B, c, b, L, idx_stride, CS, smem, s)
+               : launch_k2_tc<4, 2>(x, vals, idx, y, B, c, b, L, idx_stride, CS, smem, s);
+  return nw4 ? launch_k2_tc<8, 4>(x, vals, idx, y, B, c, b, L, idx_stride, CS, smem, s)
+             : launch_k2_tc<8, 2>(x, vals, idx, y, B, c, b, L, idx_stride, CS, smem, s);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, values and y share it).
-// vec: 1 = the 16-byte vector path (caller checked L % 8 == 0 and 16-byte
-// aligned base pointers).  Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16 (x, values and y share it).  mode (the
+// caller's plan, kernels/nm_spmm.py::_k2_plan): 2 = the tensor-core path
+// (bf16 2:4, 16-byte row slices: see launch_k2_tc_checked) with CS CTAs a
+// cluster and smem bytes of dynamic shared memory; 1 = the 16-byte vector
+// path of nm_kernel (L % 8 == 0 and 16-byte aligned bases); 0 = its scalar
+// path.  CS and smem are ignored below mode 2.  Returns the launch's error,
+// else cudaGetLastError().
 extern "C" int nm_matmul(const void* x, const void* vals, const void* idx,
-                         void* y, int dtype, int idx_bits, int vec, int B,
+                         void* y, int dtype, int idx_bits, int mode, int B,
                          int c, int b, int m, int keep, int L, int idx_stride,
-                         void* stream) {
+                         int CS, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || c <= 0) return static_cast<int>(cudaGetLastError());
+  if (mode == 2) {
+    if (dtype != 1 || (idx_bits != 4 && idx_bits != 8))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int err = launch_k2_tc_checked(x, vals, idx, y, idx_bits, B, c, b,
+                                         m, keep, L, idx_stride, CS, smem, s);
+    if (err != 0) return err;
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int vec = mode == 1;
   if (dtype == 0 && idx_bits == 4) {
     launch<float, 4>(x, vals, idx, y, vec, B, c, b, m, keep, L, idx_stride, s);
   } else if (dtype == 0 && idx_bits == 8) {

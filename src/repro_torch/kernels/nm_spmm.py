@@ -5,11 +5,13 @@ nm_matmul_stacked``), as one launch per leaf.
 
 ``nm_matmul_cuda`` launches the hand-written kernel in ``csrc/nm_spmm.cu``
 (see the note there: what it replaces, what bounds it on the H100 and what
-its design does about it).  The plain version is ``ref.nm_matmul_ref``,
-re-exported here as ``nm_matmul_plain``: it expands W and multiplies in x's
-dtype, where the kernel sums in fp32 — so the two agree within a tolerance,
-not bitwise.  The Pallas wrapper's tile chooser and pad/slice do not carry
-over: the kernel masks its own ragged edges.
+its design does about it): bf16 2:4 on the tensor cores, other formats on
+the warp-per-row kernel, as ``_k2_plan`` chooses.  The plain version
+is ``ref.nm_matmul_ref``, re-exported here as ``nm_matmul_plain``: it
+expands W and multiplies in x's dtype, where the kernel sums in fp32 — so
+the two agree within a tolerance, not bitwise.  The Pallas wrapper's tile
+chooser and pad/slice do not carry over: the kernel masks its own ragged
+edges.
 
 Layout (g = b/m groups, keep = m − n; K3 adds a leading expert axis E):
     values  (c, g·keep)      x's dtype
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import torch
 
@@ -44,20 +47,26 @@ __all__ = ["active_row_groups", "nm_matmul_cuda", "nm_matmul_plain",
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024      # bytes of shared memory a block may use
 _MAXB = 8                     # activation rows per pass (MAXB in the source)
+_K2_WARPS = 8                 # warps of a K2 tensor-core block (K2_WARPS)
 # K3's block and ring, as in the source: K3_THREADS, BLOCK_ROWS, NST
 _K3_THREADS, _K3_BLOCK_ROWS, _K3_NST = 256, 128, 3
 _K3_STAGE_BYTES = 16 * 1024   # target bytes of one ring stage
 _K3_TC_STAGE_BYTES = 20 * 1024  # tensor cores: 16-row stages up to this
 
 
-def _fn(name: str):
-    fn = getattr(_build.load("nm_spmm"), name)
+def _bind(lib: ctypes.CDLL, name: str):
+    """Entry point ``name`` of a built nm_spmm library, with its types."""
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        ints = 10 if name == "nm_matmul" else 13
+        ints = 12 if name == "nm_matmul" else 13
         fn.argtypes = [p, p, p, p] + [i] * ints + [p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _fn(name: str):
+    return _bind(_build.load("nm_spmm"), name)
 
 
 def _check_layout(x: Tensor, values: Tensor, indices: Tensor, n: int, m: int,
@@ -93,9 +102,71 @@ def _check_operands(x: Tensor, values: Tensor, indices: Tensor,
                          "device")
 
 
-def nm_matmul_cuda(x: Tensor, values: Tensor, indices: Tensor, *, n: int,
-                   m: int, b: int, idx_bits: int = 8) -> Tensor:
-    """Launch K2 on the current stream: x (B, b) → y (B, c) in x's dtype."""
+@functools.lru_cache(maxsize=None)
+def _k2_plan(c: int, b: int, L: int, idx_stride: int, B: int, esize: int,
+             aligned: bool, n: int = 2, m: int = 4) -> "tuple[int, int, int]":
+    """K2's launch plan → (mode, CS CTAs a cluster, dynamic shared-memory
+    bytes), as the source lays them out.  Every block owns 8 output rows.
+
+    mode 2, the tensor-core path: bf16 2:4 with aligned bases
+    (``aligned``), b % 32 == 0 and index rows of exactly L·idx_bits/8
+    bytes.  CS is the least of 1, 2, 4, 8 whose column slices keep 16-byte
+    rows of values and indices and fit ``_k2_smem`` in 227 KB — 1 at every
+    serving shape: a split measured slower there (``tools/
+    k2_plan_sweep.py``), so it only lets wide rows keep this path.  mode 1,
+    the warp-per-row kernel with 16-byte loads (L % 8 == 0, aligned
+    bases), and mode 0, its scalar path, for every other layout and dtype
+    and where no split fits; CS = 1 and no dynamic shared memory.
+    """
+    bits = 8 * idx_stride // L if L else 0
+    if (aligned and esize == 2 and (n, m) == (2, 4) and 2 * L == b
+            and b % 32 == 0 and bits in (4, 8)
+            and idx_stride * 8 == L * bits):
+        for CS in (1, 2, 4, 8):
+            if b % (32 * CS) or idx_stride % CS or (idx_stride // CS) % 16:
+                continue
+            smem = _k2_smem(b, L, idx_stride, B, CS)
+            if smem + 64 <= _SMEM_LIMIT:
+                return 2, CS, smem
+    return int(aligned and L % 8 == 0), 1, 0
+
+
+def _k2_smem(b: int, L: int, idx_stride: int, B: int, CS: int) -> int:
+    """Dynamic shared memory of K2's tensor-core path (tc_smem in the
+    source): a block's 8 weight-row slices, min(B, 8) x row slices padded
+    to ≡ 16 (mod 128) bytes, the partial tiles of its warps and its own."""
+    return (8 * ((2 * L + idx_stride) // CS)
+            + min(_MAXB, B) * _pad_to(2 * (b // CS), 16)
+            + (_K2_WARPS + 1) * 64 * 4)
+
+
+def _k2_ctas(c: int, B: int, plan: "tuple[int, int, int]") -> int:
+    """CTAs (blocks) of a K2 launch under ``plan``: 8 output rows and 8
+    activation rows a block, CS blocks a cluster."""
+    return -(-c // 8) * plan[1] * -(-B // _MAXB)
+
+
+def _launch_k2(x: Tensor, values: Tensor, indices: Tensor, n: int, m: int,
+               b: int, idx_bits: int, plan) -> Tensor:
+    """One K2 launch under ``plan`` (checked operands, contiguous) → y."""
+    B, c, L = x.shape[0], values.shape[0], values.shape[1]
+    y = torch.empty((B, c), dtype=x.dtype, device=x.device)
+    if B == 0 or c == 0:
+        return y
+    mode, CS, smem = plan
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = _fn("nm_matmul")(
+        x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
+        _DTYPES[x.dtype], idx_bits, mode, B, c, b, m, m - n, L,
+        indices.shape[1], CS, smem, stream)
+    _build.check(status, "nm_matmul")
+    return y
+
+
+def _k2_operands(x: Tensor, values: Tensor, indices: Tensor, n: int, m: int,
+                b: int, idx_bits: int):
+    """K2's checked, contiguous operands and their launch plan →
+    (x, values, indices, plan)."""
     if values.dim() != 2:
         raise ValueError(f"K2 takes 2-D values, got {tuple(values.shape)}")
     L = _check_layout(x, values, indices, n, m, b, idx_bits)
@@ -103,20 +174,24 @@ def nm_matmul_cuda(x: Tensor, values: Tensor, indices: Tensor, *, n: int,
     x = x.contiguous()
     values = values.contiguous()
     indices = indices.contiguous().view(torch.uint8)
-    B, c = x.shape[0], values.shape[0]
-    y = torch.empty((B, c), dtype=x.dtype, device=x.device)
-    if B == 0 or c == 0:
+    plan = _k2_plan(values.shape[0], b, L, indices.shape[1], x.shape[0],
+                    x.element_size(),
+                    all(t.data_ptr() % 16 == 0 for t in (values, indices)),
+                    n, m)
+    return x, values, indices, plan
+
+
+def nm_matmul_cuda(x: Tensor, values: Tensor, indices: Tensor, *, n: int,
+                   m: int, b: int, idx_bits: int = 8) -> Tensor:
+    """Launch K2 on the current stream: x (B, b) → y (B, c) in x's dtype."""
+    x, values, indices, plan = _k2_operands(x, values, indices, n, m, b,
+                                           idx_bits)
+    y = _launch_k2(x, values, indices, n, m, b, idx_bits, plan)
+    if y.numel() == 0:
         return y
-    vec = int(L % 8 == 0 and all(t.data_ptr() % 16 == 0
-                                 for t in (values, indices)))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _fn("nm_matmul")(
-        x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
-        _DTYPES[x.dtype], idx_bits, vec, B, c, b, m, m - n, L,
-        indices.shape[1], stream)
-    _build.check(status, "nm_matmul")
     nm_matmul_cuda.launches += 1
-    nm_matmul_cuda.by_shape[(B, c, b, str(x.dtype), idx_bits)] += 1
+    nm_matmul_cuda.by_shape[(x.shape[0], values.shape[0], b, str(x.dtype),
+                             idx_bits)] += 1
     return y
 
 
