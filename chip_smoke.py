@@ -15,19 +15,31 @@ non-zero without the final result line):
              then the MoE path's shapes: K1 at (1024, 4096) and at the
              expert capacity buffers (80, 2048) / (80, 768) with a random
              row mask, K2 at qwen3-moe's attention shapes, K3 (stacked
-             expert matmul) at both full-width expert leaves and odd shapes.
+             expert matmul) at both full-width expert leaves and odd shapes;
+             then K1 and K2 at deepseek-v3's MLA and MLP shapes (MLA_K1,
+             MLA_K2), each K2 launch's plan printed.
 3. prune   — the dense path: Thanos 2:4 prunes tinyllama-1.1b at full width
              and depth from a seeded random init (K1 carries the Hessians).
 4. serve   — compress the pruned linears and serve 4 requests through the
              continuous-batching engine, compressed-resident (K2 carries
              every pruned linear); then hold the kernel path's first-step
-             logits against the same params decompressed and served dense.
+             logits against the same params decompressed and served dense;
+             then serve the same requests with the int8 KV cache
+             (QuantGqaCache) and hold its logits against the bf16 cache's.
 4m. moe    — the MoE path: qwen3-moe-30b-a3b at full width, depth cut to
              MOE_LAYERS layers, Thanos 2:4 prunes every expert slice on its
              routed tokens (K1), every expert stack packs into one stacked
              leaf, and the engine serves the phase-4 request set (K3 for
              the expert stacks, K2 for attention); exact launch counts and
              the first-step logits against the decompressed params.
+4mla. mla  — the MLA path: deepseek-v3-671b at full width, depth cut to
+             its MLA_LAYERS leading dense layers; Thanos 2:4 prunes the 24
+             linears (K1 at b up to 18 432), every wkv_b serves dense (one
+             CompressionDowngrade each), the engine serves the phase-4
+             request set with the bf16 latent cache (MlaCache) and again
+             with the int8 one (QuantMlaCache); exact launch counts, the
+             first-step logits against the decompressed params and the
+             int8 logits against the bf16 cache's.
    Then the redesigned kernels at odd shapes: K1 at ragged tokens and b
              with and without a row mask (xtx exactly symmetric, NaN batch
              skipped); K3 with all-zero and filled row groups mixed (their
@@ -46,11 +58,11 @@ non-zero without the final result line):
              time per model step of each path and its launch-weighted
              total, each beside the library's.
 
-Kernel launch counts are zeroed just before each path (phases 3 and 4m) and
-read just after its serve; the comparison and timing launches are not
-counted.  The line before the last is the kernels JSON; the last line is
-the device JSON.  Results are also written to
-``chiprun_out/chip_smoke.json``.
+Kernel launch counts are zeroed just before each path (phases 3, 4m and
+mla) and read just after its serve (the mla path: after both serves); the
+comparison and timing launches are not counted.  The line before the
+last is the kernels JSON; the last line is the device JSON.  Results are
+also written to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -80,6 +92,15 @@ MOE_ATTN = [(4096, 2048), (512, 2048), (2048, 4096)]      # K2, (c, b)
 # K1: (tokens, b, row mask): attention inputs, expert capacity buffers
 MOE_K1 = [(1024, 2048, False), (1024, 4096, False), (80, 2048, True),
           (80, 768, True)]
+MLA_ARCH = "deepseek-v3-671b"
+# its three leading dense layers (num_dense_layers = 3): a full-width MoE
+# block needs ~110 GB of expert Hessians at once under the port's schedule
+MLA_LAYERS = 3
+# K2, (c, b): wq_a, wq_b, wkv_a, wo, gate/up and down (wkv_b serves dense)
+MLA_K2 = [(1536, 7168), (24576, 1536), (576, 7168), (7168, 16384),
+          (18432, 7168), (7168, 18432)]
+# K1 at x (1024, b): the inputs of wq_a/wkv_a/gate/up, wq_b, wkv_b, wo, down
+MLA_K1 = [7168, 1536, 512, 16384, 18432]
 K3_REPLACES = ("src/repro/kernels/ops.py:151-161 (loops the pallas_call of "
                "src/repro/kernels/nm_spmm.py:135)")
 MAXB_ROWS = 8                 # capacity rows K3 computes per row group
@@ -538,7 +559,6 @@ def moe_phase(dev) -> dict:
     """Phase 4m: prune → stacked compress → serve qwen3-moe-30b-a3b at full
     width, depth cut to MOE_LAYERS, through the functions ``prune_arch``
     composes; exact K1/K2/K3 launch counts over the path."""
-    import numpy as np
     import torch
 
     from repro_torch.configs.registry import get_config
@@ -553,7 +573,6 @@ def moe_phase(dev) -> dict:
     from repro_torch.serve.compressed import (compress_params,
                                               compressed_bytes,
                                               decompress_params)
-    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 
     full = get_config(MOE_ARCH)
     cfg = full.replace(num_layers=MOE_LAYERS)
@@ -617,25 +636,14 @@ def moe_phase(dev) -> dict:
           "an expert stack is not one NmStackedCompressed leaf of E = 128")
     cb, db = compressed_bytes(comp)
     check(cb / db == 0.625, f"compressed ratio {cb / db}")
-    engine = ServingEngine(model, comp, ServeConfig(batch_slots=4,
-                                                    max_len=16 + 12 + 8))
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=16) for _ in range(4)]
-    for uid, p in enumerate(prompts):
-        engine.submit(Request(uid, p, max_new=12))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = engine.run()
-    torch.cuda.synchronize()
-    t_serve = time.perf_counter() - t0
+    prompts = request_prompts(cfg.vocab_size)
+    done, t_serve, engine = serve_requests(model, comp, prompts,
+                                           cfg.vocab_size)
     launches = {fn.__name__: fn.launches for fn in kernels}
     by_shape = {fn.__name__: dict(fn.by_shape) for fn in kernels}
     st = engine.stats
     steps = st["prefill_tokens"] + st["decode_steps"]
     ntok = sum(len(r.out) for r in done)
-    check(len(done) == 4 and all(r.done and len(r.out) == 12 for r in done)
-          and all(0 <= t < cfg.vocab_size for r in done for t in r.out),
-          "MoE served requests incomplete or out of vocabulary")
     expect = {"hessian_update_cuda": k1_expect,
               "nm_matmul_cuda": 4 * L * steps,
               "nm_matmul_stacked_cuda": 3 * L * steps}
@@ -984,10 +992,391 @@ def moe_times(gen, dev, chk: dict, moe: dict) -> list:
     return rows
 
 
+def cache_bytes(cache: dict) -> int:
+    """Bytes of every tensor field of every layer's cache."""
+    return sum(t.numel() * t.element_size() for layer in cache.values()
+               for t in vars(layer).values() if hasattr(t, "element_size"))
+
+
+def request_prompts(vocab: int) -> list:
+    """The phase-4 request set's prompts: 4 × 16 tokens from seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, size=16) for _ in range(4)]
+
+
+def serve_requests(model, params, prompts, vocab: int):
+    """The phase-4 request set — 4 requests × (16 prompt + 12 new) on 4
+    slots — through the continuous-batching engine → (finished requests,
+    seconds, engine)."""
+    import torch
+
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+
+    engine = ServingEngine(model, params, ServeConfig(batch_slots=4,
+                                                      max_len=16 + 12 + 8))
+    for uid, p in enumerate(prompts):
+        engine.submit(Request(uid, p, max_new=12))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(len(done) == 4 and all(r.done and len(r.out) == 12 for r in done)
+          and all(0 <= t < vocab for r in done for t in r.out),
+          f"{model.cfg.name} ({model.cfg.kv_cache_dtype or 'model dtype'} "
+          "cache): served requests incomplete or out of vocabulary")
+    return done, seconds, engine
+
+
+def first_step_line(model, comp, prompts) -> tuple:
+    """The first decode step's logits on the kernel path against the same
+    params decompressed and served dense: finite, max abs error within 5e-2
+    of the logits' max magnitude (bf16 through every layer, summed in
+    another order) → (max abs err, rel err, argmax agreement)."""
+    import torch
+
+    from repro_torch.serve.compressed import decompress_params
+
+    dense = decompress_params(comp)
+    tok = torch.tensor([[int(p[0])] for p in prompts], device=model.device)
+    with torch.no_grad():
+        lg_k, _ = model.decode_step(comp, model.init_cache(4, 8), tok, 0)
+        lg_d, _ = model.decode_step(dense, model.init_cache(4, 8), tok, 0)
+    torch.cuda.synchronize()
+    e = errs(lg_k, lg_d)
+    agree = float((lg_k.argmax(-1) == lg_d.argmax(-1)).float().mean())
+    check(bool(torch.isfinite(lg_k).all()) and e[1] <= 5e-2,
+          f"{model.cfg.name} compressed vs dense logits: max abs err "
+          f"{e[0]:.3g} (rel {e[1]:.3g})")
+    print(f"  first-step logits, K2 path vs decompressed dense: max abs err "
+          f"{e[0]:.4g}, rel {e[1]:.4g} (limit 5e-2), argmax agree "
+          f"{agree:.2f}")
+    return e[0], e[1], agree
+
+
+def chain_logits(model, params, prompts):
+    """Teacher-forced decode of the 4 prompts side by side (B = 4, one
+    position a step) → the logits of the last prompt position: attention
+    there reads 16 cached positions."""
+    import numpy as np
+    import torch
+
+    toks = torch.tensor(np.stack(prompts), device=model.device)
+    cache = model.init_cache(toks.shape[0], toks.shape[1] + 1)
+    with torch.no_grad():
+        for t in range(toks.shape[1]):
+            lg, cache = model.decode_step(params, cache, toks[:, t:t + 1], t)
+    return lg
+
+
+def int8_cache_line(name: str, model, model8, params, prompts, engine,
+                    engine8, tps: float, tps8: float,
+                    rel_limit: "float | None") -> dict:
+    """The int8 KV cache against the model-dtype one on the same params:
+    both engines' resident cache bytes, and the logits of the same step
+    (``chain_logits``): finite, max |Δlogit| < 1.0 (the bound of the
+    reference's own int8 test, tests/test_serving_optimizations.py) and,
+    where ``rel_limit`` is given, max abs error within that share of the
+    logits' max magnitude.  The argmax agreement is printed, not gated
+    (random-init logits hold near-ties)."""
+    import torch
+
+    from repro_torch.models import attention as A
+
+    kinds = {type(c).__name__ for c in engine8._cache.values()}
+    check(kinds <= {"QuantGqaCache", "QuantMlaCache"} and len(kinds) == 1,
+          f"{name}: the int8 engine holds {kinds}")
+    lg = chain_logits(model, params, prompts)
+    lg8 = chain_logits(model8, params, prompts)
+    torch.cuda.synchronize()
+    e = errs(lg8, lg)
+    agree = float((lg8.argmax(-1) == lg.argmax(-1)).float().mean())
+    nb, nb8 = cache_bytes(engine._cache), cache_bytes(engine8._cache)
+    check(bool(torch.isfinite(lg8).all()) and e[0] < 1.0
+          and (rel_limit is None or e[1] <= rel_limit),
+          f"{name} int8 vs {model.cfg.dtype} cache logits: max abs err "
+          f"{e[0]:.3g} (rel {e[1]:.3g}, limit {rel_limit})")
+    limit = "" if rel_limit is None else f", rel limit {rel_limit:g}"
+    group = (f", latent scale groups of {A._mla_group(model.cfg.kv_lora_rank)}"
+             if model.cfg.uses_mla else "")
+    print(f"  int8 KV cache ({sorted(kinds)[0]}{group}): {tps8:.1f} tok/s "
+          f"(model-dtype cache {tps:.1f}); resident cache {nb8} B vs {nb} "
+          f"B ({nb8 / nb:.4f}); logits after 16 teacher-forced positions, "
+          f"int8 vs model-dtype cache: max abs err {e[0]:.4g} (limit 1.0"
+          f"{limit}), rel {e[1]:.4g}, argmax agree {agree:.2f} (not "
+          "gated)")
+    return {"tok_per_s": tps8, "cache_bytes": nb8, "cache_bytes_bf16": nb,
+            "logits_max_abs_err": e[0], "logits_rel_err": e[1],
+            "argmax_agree": agree}
+
+
+def mla_kernel_checks(gen, dev) -> dict:
+    """Phase 2 at the MLA path's shapes (bf16, the served format): K1 at
+    x (1024, b) for every b of MLA_K1, K2 at every (c, b) of MLA_K2 for
+    B ∈ {1, 4} and 4-/8-bit indices, each launch's plan printed.
+    Tolerances as above: K1 rtol 1e-3 / atol 2e-2 (xtx exactly
+    symmetric); K2 rtol 2e-2 / atol 1e-2.  → errors and operands for
+    phase 5."""
+    import torch
+
+    from repro_torch.core.masks import nm_mask
+    from repro_torch.core.sparsity import pack_nm
+    from repro_torch.kernels import hessian_accum as K1, nm_spmm as K2
+
+    bf16 = torch.bfloat16
+    out: dict = {"k1": {}, "k2": {}, "packs2": {}}
+    for b in MLA_K1:
+        x = torch.randn((1024, b), generator=gen, device=dev).to(bf16)
+        acc_k = [torch.zeros((b, b), device=dev), torch.zeros((), device=dev),
+                 torch.zeros((), device=dev)]
+        acc_p = [t.clone() for t in acc_k]
+        for _ in range(2):
+            K1.hessian_update_cuda(x, None, *acc_k)
+            K1.hessian_update_plain(x, None, *acc_p)
+        torch.cuda.synchronize()
+        e = errs(acc_k[0], acc_p[0])
+        check(torch.allclose(acc_k[0], acc_p[0], rtol=1e-3, atol=2e-2)
+              and torch.equal(acc_k[0], acc_k[0].T)
+              and float(acc_k[1]) == float(acc_p[1]) == 2048.0
+              and float(acc_k[2]) == 0.0,
+              f"K1 MLA (1024, {b}): err {e[0]:.3g}, count {float(acc_k[1])}")
+        out["k1"][(1024, b, str(bf16))] = e
+        del x, acc_k, acc_p
+    for c, b in MLA_K2:
+        w = (torch.randn((c, b), generator=gen, device=dev)
+             / math.sqrt(b)).to(bf16)
+        mask = nm_mask(w.float(), torch.ones((b,), device=dev), 2, 4)
+        for bits, B in itertools.product((4, 8), (1, 4)):
+            pk = pack_nm(w, mask, 2, 4, idx_bits=bits)
+            x = torch.randn((B, b), generator=gen, device=dev).to(bf16)
+            plan = K2._k2_operands(x, pk.values, pk.indices, 2, 4, b,
+                                   bits)[3]
+            y_k = K2.nm_matmul_cuda(x, pk.values, pk.indices, n=2, m=4, b=b,
+                                    idx_bits=bits)
+            y_p = K2.nm_matmul_plain(x, pk.values, pk.indices, 2, 4, b, bits)
+            torch.cuda.synchronize()
+            e = errs(y_k, y_p)
+            check(y_k.shape == (B, c) and torch.allclose(
+                y_k.float(), y_p.float(), rtol=2e-2, atol=1e-2),
+                f"K2 MLA ({c}, {b}) B={B} idx{bits}: plan {plan}, max abs "
+                f"err {e[0]:.3g}")
+            print(f"  K2 ({c}, {b}) B={B} idx{bits}: plan mode {plan[0]} CS "
+                  f"{plan[1]} smem {plan[2]} B, {K2._k2_ctas(c, B, plan)} "
+                  f"CTAs; max abs/rel err {e[0]:.3g}/{e[1]:.3g}")
+            out["k2"][(B, c, b, str(bf16), bits)] = e
+            if bits == 4:
+                out["packs2"][(c, b)] = (pk, w.masked_fill(mask > 0.5, 0))
+        del w, mask
+    print(f"kernels: MLA shapes: hessian_xtx {len(out['k1'])} checks ok at "
+          f"b ∈ {MLA_K1} (rtol 1e-3 / atol 2e-2, xtx exactly symmetric); "
+          f"nm_matmul {len(out['k2'])} checks ok (rtol 2e-2 / atol 1e-2)")
+    return out
+
+
+def mla_phase(dev) -> dict:
+    """Phase mla: prune → compress → serve deepseek-v3-671b at full width,
+    depth cut to its MLA_LAYERS leading dense layers, through the
+    functions ``prune_arch`` composes; every wkv_b is pruned but serves
+    dense (the absorbed decode reads it raw); the engine serves the
+    phase-4 request set with the bf16 latent cache (``MlaCache``) and
+    again with the int8 one (``QuantMlaCache``).  Exact K1/K2 launch
+    counts over the path."""
+    import warnings
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import PruneConfig
+    from repro_torch.core.masks import check_nm
+    from repro_torch.core.schedule import prune_model
+    from repro_torch.core.sparsity import NmCompressed
+    from repro_torch.data.pipeline import calibration_batches, heldout_loss
+    from repro_torch.kernels import hessian_accum as K1, nm_spmm as K2
+    from repro_torch.models.model_builder import ModelAdapter, build_model
+    from repro_torch.serve.compressed import (CompressionDowngrade,
+                                              compress_params,
+                                              compressed_bytes)
+
+    full = get_config(MLA_ARCH)
+    cfg = full.replace(num_layers=MLA_LAYERS)
+    L = cfg.num_layers
+    check(not any(cfg.layer_is_moe(i) for i in range(L)),
+          f"the first {L} layers of {MLA_ARCH} are not all dense")
+    print(f"phase mla: {MLA_ARCH} at full width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads, MLA q_lora {cfg.q_lora_rank} kv_lora "
+          f"{cfg.kv_lora_rank} nope/rope/v {cfg.qk_nope_head_dim}/"
+          f"{cfg.qk_rope_head_dim}/{cfg.v_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}), {cfg.dtype}; depth cut {full.num_layers} → "
+          f"{L} layers (its {full.num_dense_layers} leading dense layers)")
+    kernels = (K1.hessian_update_cuda, K2.nm_matmul_cuda)
+    for fn in kernels:
+        fn.launches = 0
+        fn.by_shape.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    dense_loss = heldout_loss(model, params, cfg)
+    batches = calibration_batches(cfg, num_samples=16, seq_len=128, batch=8,
+                                  device=dev)
+    t1 = time.perf_counter()
+    pruned, report = prune_model(
+        params, ModelAdapter(model), batches,
+        PruneConfig("thanos", "nm", n=2, m=4, block_size=64))
+    torch.cuda.synchronize()
+    t_prune = time.perf_counter() - t1
+    pruned_loss = heldout_loss(model, pruned, cfg)
+    t_phase = time.perf_counter() - t0
+    del params
+    per_block = 5 + 3
+    check(len(report.masks) == per_block * L,
+          f"{len(report.masks)} pruned linears, expected {per_block * L}")
+    check(all(check_nm(mk.T, 2, 4) for mk in report.masks.values()),
+          "a pruned linear breaks 2:4")
+    check(all(r.fallback == "" for r in report.layers),
+          "a layer fell back to magnitude pruning")
+    check(abs(report.mean_sparsity() - 0.5) < 1e-9,
+          f"sparsity {report.mean_sparsity()}")
+    check(math.isfinite(dense_loss) and math.isfinite(pruned_loss),
+          "non-finite held-out loss")
+    k1_expect = per_block * len(batches) * L
+    check(K1.hessian_update_cuda.launches == k1_expect,
+          f"K1 launches {K1.hessian_update_cuda.launches}, expected "
+          f"{k1_expect}")
+    k1_shapes = {b: k for (_, b, _), k in
+                 sorted(K1.hessian_update_cuda.by_shape.items())}
+    check(set(k1_shapes) == set(MLA_K1), f"K1 shapes {k1_shapes}")
+    damp = sum(r.damp_attempts for r in report.layers)
+    print(f"phase mla prune: thanos 2:4 B=64 on {len(batches)} × 8 × 128 "
+          f"tokens: {len(report.layers)} linears in {t_prune:.1f} s (phase "
+          f"{t_phase:.1f} s), dense loss {dense_loss:.4f}, pruned loss "
+          f"{pruned_loss:.4f}, damping escalations {damp}, K1 launches "
+          f"{K1.hessian_update_cuda.launches} (expect {k1_expect}) at x "
+          f"(1024, b), launches by b {k1_shapes}")
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", CompressionDowngrade)
+        comp = compress_params(pruned, report.masks, 2, 4)
+    del pruned, report
+    downs = [str(w.message) for w in caught
+             if issubclass(w.category, CompressionDowngrade)]
+    check(len(downs) == L and all(f"blocks/{i}/attn/wkv_b/w" in downs[i]
+                                  for i in range(L)),
+          f"downgrades {downs}, expected one per layer for wkv_b")
+    attn = [comp["blocks"][i]["attn"] for i in range(L)]
+    check(all(not isinstance(a["wkv_b"]["w"], NmCompressed) for a in attn)
+          and all(isinstance(a[n]["w"], NmCompressed) for a in attn
+                  for n in ("wq_a", "wq_b", "wkv_a", "wo"))
+          and all(isinstance(comp["blocks"][i]["mlp"][n]["w"], NmCompressed)
+                  for i in range(L) for n in ("gate", "up", "down")),
+          "compressed leaves are not exactly every linear but wkv_b")
+    cb, db = compressed_bytes(comp)
+    check(cb / db == 0.625, f"compressed ratio {cb / db}")
+
+    prompts = request_prompts(cfg.vocab_size)
+    done, t_serve, engine = serve_requests(model, comp, prompts,
+                                           cfg.vocab_size)
+    st = engine.stats
+    steps = st["prefill_tokens"] + st["decode_steps"]
+    k2_expect = (5 - 1 + 3) * L * steps          # wkv_b serves dense
+    check(K2.nm_matmul_cuda.launches == k2_expect,
+          f"K2 launches {K2.nm_matmul_cuda.launches}, expected {k2_expect}")
+    ntok = sum(len(r.out) for r in done)
+    by_b = {(B, c, b): k for (B, c, b, _, _), k in
+            sorted(K2.nm_matmul_cuda.by_shape.items())}
+    print(f"phase mla serve: compressed {cb / db:.4f} of dense bf16 bytes "
+          f"on the {len(attn) * 7} compressed linears ({cb / 2**20:.1f} MiB "
+          f"vs {db / 2**20:.1f} MiB), {len(downs)} wkv_b dense "
+          f"(CompressionDowngrade); bf16 latent cache: 4 requests, {ntok} "
+          f"tokens in {t_serve:.2f} s ({ntok / t_serve:.1f} tok/s, "
+          f"{st['decode_steps']} decode steps, {st['prefills']} prefills, "
+          f"{steps} model steps); K2 launches {K2.nm_matmul_cuda.launches} "
+          f"(expect {k2_expect}); by (B, c, b) {by_b}")
+    print(f"  req 0: {done[0].out}")
+
+    model8 = build_model(cfg.replace(kv_cache_dtype="int8"), device=dev)
+    done8, t_serve8, engine8 = serve_requests(model8, comp, prompts,
+                                              cfg.vocab_size)
+    st8 = engine8.stats
+    steps8 = st8["prefill_tokens"] + st8["decode_steps"]
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    by_shape = {fn.__name__: dict(fn.by_shape) for fn in kernels}
+    expect = {"hessian_update_cuda": k1_expect,
+              "nm_matmul_cuda": (5 - 1 + 3) * L * (steps + steps8)}
+    check(launches == expect, f"MLA launches {launches}, expected {expect}")
+    ntok8 = sum(len(r.out) for r in done8)
+    print(f"phase mla serve int8: {ntok8} tokens in {t_serve8:.2f} s "
+          f"({ntok8 / t_serve8:.1f} tok/s, {steps8} model steps); launches "
+          f"over the path {launches} (expect {expect})")
+    print(f"  req 0: {done8[0].out}")
+
+    e = first_step_line(model, comp, prompts)
+    # 3 layers, the int8 rounding of the latent: max abs error within
+    # 5e-2 of the logits' max magnitude, as the other logit checks
+    q8 = int8_cache_line(MLA_ARCH, model, model8, comp, prompts, engine,
+                         engine8, ntok / t_serve, ntok8 / t_serve8, 5e-2)
+    stats = {k: st[k] + st8[k] for k in st}
+    return {"layers": L, "layers_full": full.num_layers,
+            "dense_loss": dense_loss, "pruned_loss": pruned_loss,
+            "prune_seconds": t_prune, "phase_seconds": t_phase,
+            "damp_escalations": damp, "ratio": cb / db,
+            "downgrades": len(downs), "tokens": ntok,
+            "serve_seconds": t_serve, "tok_per_s": ntok / t_serve,
+            "stats": st, "stats_both": stats, "steps": steps,
+            "launches": launches, "by_shape": by_shape,
+            "logits_max_abs_err": e[0], "logits_rel_err": e[1],
+            "argmax_agree": e[2], "int8": q8}
+
+
+def mla_times(gen, dev, chk: dict, mla: dict) -> list:
+    """Phase 5 rows at the MLA path's shapes (bf16): K1 at x (1024, b) for
+    every b of MLA_K1, K2 at every (c, b) of MLA_K2 (``k2_times``)."""
+    import torch
+
+    from repro_torch.kernels import hessian_accum as K1
+
+    bf16 = torch.bfloat16
+    main = mla["by_shape"]
+    rows = []
+    for b in MLA_K1:
+        x = torch.randn((1024, b), generator=gen, device=dev).to(bf16)
+        x32 = x.float()
+        acc = [torch.zeros((b, b), device=dev), torch.zeros((), device=dev),
+               torch.zeros((), device=dev)]
+        nbytes = x.numel() * 2 + 2 * b * b * 4
+        ops = 2 * 1024 * b * b
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bfloat16"]
+        key = (1024, b, str(bf16))
+        rows.append({
+            "name": "hessian_xtx", "shape": f"x (1024, {b}) bf16",
+            "path": MLA_ARCH, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/hessian_xtx.cu",
+            "replaces": "src/repro/kernels/hessian_accum.py:66",
+            "launches": main["hessian_update_cuda"].get(key, 0),
+            "max_abs_err": chk["k1"][key][0],
+            "ms": device_ms(lambda: K1.hessian_update_cuda(x, None, *acc),
+                            10),
+            "eager_ms": eager_ms(lambda: K1.hessian_update_cuda(x, None,
+                                                                *acc), 10),
+            "plain_ms": device_ms(lambda: K1.hessian_update_plain(
+                x, None, *acc), 10),
+            "bound_ms": 1e3 * max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": device_ms(lambda: torch.addmm(acc[0], x32.T, x32),
+                                    10),
+            "library_bf16_ms": addmm_bf16_ms(acc[0], x, 10)})
+        del x, x32, acc
+        torch.cuda.empty_cache()
+    rows += k2_times(gen, dev, chk["packs2"], chk["k2"],
+                     main["nm_matmul_cuda"], MLA_ARCH)
+    return rows
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1005,10 +1394,7 @@ def main() -> None:
     from repro_torch.kernels import _build, hessian_accum as K1, nm_spmm as K2
     from repro_torch.launch.prune import prune_arch
     from repro_torch.models.model_builder import build_model
-    from repro_torch.serve.compressed import (compress_params,
-                                              compressed_bytes,
-                                              decompress_params)
-    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+    from repro_torch.serve.compressed import compress_params, compressed_bytes
 
     dev = resolve_device("cuda")          # also turns TF32 off
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1130,6 +1516,7 @@ def main() -> None:
     moe_chk = moe_kernel_checks(gen, dev)
     redesign_checks(gen, dev)
     k2_tc_checks(gen, dev)
+    mla_chk = mla_kernel_checks(gen, dev)
 
     # ---- 3. main path: prune ----------------------------------------------
     for fn in (K1.hessian_update_cuda, K2.nm_matmul_cuda):
@@ -1168,25 +1555,14 @@ def main() -> None:
     cb, db = compressed_bytes(comp)
     check(abs(cb / db - 0.625) < 1e-6, f"compressed ratio {cb / db}")
     model = build_model(cfg, device="cuda")
-    engine = ServingEngine(model, comp, ServeConfig(batch_slots=4,
-                                                    max_len=16 + 12 + 8))
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=16) for _ in range(4)]
-    for uid, p in enumerate(prompts):
-        engine.submit(Request(uid, p, max_new=12))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = engine.run()
-    torch.cuda.synchronize()
-    t_serve = time.perf_counter() - t0
+    prompts = request_prompts(cfg.vocab_size)
+    done, t_serve, engine = serve_requests(model, comp, prompts,
+                                           cfg.vocab_size)
     k1_launches = K1.hessian_update_cuda.launches
     k2_launches = K2.nm_matmul_cuda.launches
     k1_main = dict(K1.hessian_update_cuda.by_shape)
     k2_main = dict(K2.nm_matmul_cuda.by_shape)
     ntok = sum(len(r.out) for r in done)
-    check(len(done) == 4 and all(r.done and len(r.out) == 12 for r in done)
-          and all(0 <= t < cfg.vocab_size for r in done for t in r.out),
-          "served requests incomplete or out of vocabulary")
     check(k1_launches > 0 and k2_launches > 0,
           f"main path launches K1 {k1_launches} K2 {k2_launches}")
     st = engine.stats
@@ -1198,35 +1574,35 @@ def main() -> None:
           f"; K2 launches {k2_launches} (154 per decode step)")
     print(f"  req 0: {done[0].out}")
 
-    # first-step logits: compressed kernel path vs decompressed dense
-    dense = decompress_params(comp)
-    tok = torch.tensor([[int(p[0])] for p in prompts], device=dev)
-    with torch.no_grad():
-        lg_k, _ = model.decode_step(comp, model.init_cache(4, 8), tok, 0)
-        lg_d, _ = model.decode_step(dense, model.init_cache(4, 8), tok, 0)
-    torch.cuda.synchronize()
-    e = errs(lg_k, lg_d)
-    agree = float((lg_k.argmax(-1) == lg_d.argmax(-1)).float().mean())
-    # bf16 through 22 layers, summed in another order: max abs error
-    # within 5e-2 of the logits' max magnitude
-    check(bool(torch.isfinite(lg_k).all()) and e[1] <= 5e-2,
-          f"compressed vs dense logits: max abs err {e[0]:.3g} "
-          f"(rel {e[1]:.3g})")
-    print(f"  first-step logits, K2 path vs decompressed dense: max abs "
-          f"err {e[0]:.4g}, rel {e[1]:.4g} (limit 5e-2), argmax agree "
-          f"{agree:.2f}")
+    e = first_step_line(model, comp, prompts)
+    agree = e[2]
+    model8 = build_model(cfg.replace(kv_cache_dtype="int8"), device="cuda")
+    done8, t_serve8, engine8 = serve_requests(model8, comp, prompts,
+                                              cfg.vocab_size)
+    # 22 random-init layers amplify the int8 rounding as they amplify the
+    # summation order (first-step rel above): held to the reference's
+    # absolute bound only
+    int8 = int8_cache_line("tinyllama-1.1b", model, model8, comp, prompts,
+                           engine, engine8, ntok / t_serve,
+                           sum(len(r.out) for r in done8) / t_serve8, None)
+    del engine8, model8
     results["serve"] = {"ratio": cb / db, "tokens": ntok,
                         "seconds": t_serve, "tok_per_s": ntok / t_serve,
                         "stats": st, "logits_max_abs_err": e[0],
                         "logits_rel_err": e[1], "argmax_agree": agree,
                         "k1_launches": k1_launches,
-                        "k2_launches": k2_launches}
-    del pruned, comp, dense, engine, model
+                        "k2_launches": k2_launches, "int8": int8}
+    del pruned, comp, engine, model
     torch.cuda.empty_cache()
 
     # ---- 4m. MoE path: prune → stacked compress → serve --------------------
     moe = moe_phase(dev)
     results["moe"] = {k: v for k, v in moe.items() if k != "by_shape"}
+    torch.cuda.empty_cache()
+
+    # ---- mla. MLA path: prune → compress → serve, bf16 and int8 caches ---
+    mla = mla_phase(dev)
+    results["mla"] = {k: v for k, v in mla.items() if k != "by_shape"}
     torch.cuda.empty_cache()
 
     # ---- 5. times at the main-path shapes ---------------------------------
@@ -1258,6 +1634,7 @@ def main() -> None:
             "library_ms": lib, "library_bf16_ms": lib_bf16})
     entries += k2_times(gen, dev, packs, k2_err, k2_main, "tinyllama-1.1b")
     entries += moe_times(gen, dev, moe_chk, moe)
+    entries += mla_times(gen, dev, mla_chk, mla)
     torch.cuda.synchronize()
     print(f"phase times on {results['gpu']} (name, power limit):")
     for e in entries:
@@ -1269,22 +1646,26 @@ def main() -> None:
               f"  kernel {e['ms']:.4f} ms (eager {e['eager_ms']:.4f})  "
               f"plain {e['plain_ms']:.4f} ms  "
               f"library {e['library_ms']:.4f} ms{tc}  bound "
-              f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']})  err vs plain "
+              f"{e['max_abs_err']:.3g}")
         if e["name"] == "nm_matmul":
             p = e["plan"]
-            before = WARP_ROW_K2_MS[re.sub(r" 2:4 bf16$", "", e["shape"])]
+            before = WARP_ROW_K2_MS.get(re.sub(r" 2:4 bf16$", "",
+                                               e["shape"]))
+            before = "none" if before is None else f"{before:.4f}"
             print(f"      plan mode {p['mode']} CS {p['cluster']} smem "
                   f"{p['smem']} B, {p['ctas']} CTAs; warp-per-row kernel "
-                  f"now {e['warp_row_ms']:.4f} ms (recorded {before:.4f})")
+                  f"now {e['warp_row_ms']:.4f} ms (recorded {before})")
     steps = {}
     for path, st in (("tinyllama-1.1b", results["serve"]["stats"]),
-                     (MOE_ARCH, moe["stats"])):
+                     (MOE_ARCH, moe["stats"]),
+                     (MLA_ARCH, mla["stats_both"])):
         steps[path] = k2_step_line(
             [e for e in entries if e["name"] == "nm_matmul"
              and e["path"] == path], st, path)
     k2 = [e for e in entries if e["name"] == "nm_matmul"]
     results["k2_steps"] = steps
-    print(f"  K2 launch-weighted over both paths: "
+    print(f"  K2 launch-weighted over every path: "
           f"{sum(e['launches'] * e['ms'] for e in k2):.2f} ms, library "
           f"{sum(e['launches'] * e['library_ms'] for e in k2):.2f} ms, "
           f"bound {sum(e['launches'] * e['bound_ms'] for e in k2):.2f} ms, "

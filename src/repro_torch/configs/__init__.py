@@ -1,1 +1,1 @@
-"""Model configurations (the port registers tinyllama-1.1b only)."""
+"""Model configurations of the port (see ``registry.ARCHS``)."""

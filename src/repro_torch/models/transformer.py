@@ -1,11 +1,13 @@
-"""Decoder-only transformer LM — the dense (tinyllama) and MoE (qwen3-moe)
-GQA paths of ``repro/models/transformer.py``.
+"""Decoder-only transformer LM — the dense (tinyllama), MoE (qwen3-moe) and
+MLA + MoE (deepseek-v3) paths of ``repro/models/transformer.py``.
 
 Model protocol, as in the JAX package:
     init(gen)                                   → params
     forward(params, batch, tape=None)           → logits (B, S, V)
     loss(params, batch)                         → scalar CE
-    init_cache(batch, max_len)                  → {layer: GqaCache}
+    init_cache(batch, max_len)                  → {layer: cache} — GQA or
+                                                  MLA, int8 when
+                                                  cfg.kv_cache_dtype is "int8"
     decode_step(params, cache, tokens, pos)     → (logits (B, 1, V), cache)
     embed_batch / block / num_blocks / block_linear_paths   (Alg.-3 adapter)
 """
@@ -26,8 +28,8 @@ Tensor = torch.Tensor
 
 class TransformerLM:
     def __init__(self, cfg, *, device="cuda"):
-        if cfg.family not in ("dense", "moe") or cfg.uses_mla:
-            raise ValueError(f"{cfg.name}: the port runs dense and MoE GQA "
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"{cfg.name}: the port runs dense and MoE "
                              "models only so far")
         if cfg.norm != "rmsnorm":
             raise ValueError(f"{cfg.name}: norm {cfg.norm!r} is not ported")
@@ -53,7 +55,8 @@ class TransformerLM:
             blk = {
                 "ln1": L.rmsnorm_params(cfg.d_model, dt, dev),
                 "ln2": L.rmsnorm_params(cfg.d_model, dt, dev),
-                "attn": A.gqa_params(gen, cfg, dt, dev),
+                "attn": (A.mla_params(gen, cfg, dt, dev) if cfg.uses_mla
+                         else A.gqa_params(gen, cfg, dt, dev)),
             }
             if cfg.layer_is_moe(i):
                 blk["moe"] = M.moe_params(gen, cfg, dt, dev)
@@ -110,17 +113,24 @@ class TransformerLM:
         blk = params["blocks"][i]
         path = ("blocks", i)
         h, pos = carry["h"], carry["positions"]
-        attn = A.gqa_forward(blk["attn"], self.cfg, L.rmsnorm(blk["ln1"], h),
-                             pos, theta=self._theta(i),
-                             window=self._window(i), tape=tape,
-                             path=path + ("attn",))
+        hn = L.rmsnorm(blk["ln1"], h)
+        if self.cfg.uses_mla:
+            attn = A.mla_forward(blk["attn"], self.cfg, hn, pos, tape=tape,
+                                 path=path + ("attn",))
+        else:
+            attn = A.gqa_forward(blk["attn"], self.cfg, hn, pos,
+                                 theta=self._theta(i),
+                                 window=self._window(i), tape=tape,
+                                 path=path + ("attn",))
         h = h + attn
         ff = self._ffn(i, blk, L.rmsnorm(blk["ln2"], h), tape, path)
         return {"h": h + ff, "positions": pos}
 
     def block_linear_paths(self, params, i: int) -> list[tuple]:
         path = ("blocks", i)
-        attn = [path + ("attn", n, "w") for n in ("wq", "wk", "wv", "wo")]
+        names = (("wq_a", "wq_b", "wkv_a", "wkv_b", "wo") if self.cfg.uses_mla
+                 else ("wq", "wk", "wv", "wo"))
+        attn = [path + ("attn", n, "w") for n in names]
         if self.cfg.layer_is_moe(i):
             return attn + M.moe_linear_paths(params["blocks"][i]["moe"],
                                              path + ("moe",))
@@ -145,6 +155,11 @@ class TransformerLM:
     def init_cache(self, batch: int, max_len: int) -> dict:
         caches = {}
         for i in range(self.cfg.num_layers):
+            if self.cfg.uses_mla:
+                caches[i] = A.mla_cache_init(self.cfg, batch, max_len,
+                                             dtype=self.cfg.torch_dtype,
+                                             device=self.device)
+                continue
             w = self._window(i)
             caches[i] = A.gqa_cache_init(
                 self.cfg, batch, max_len, window=min(w, max_len) if w else 0,
@@ -160,9 +175,13 @@ class TransformerLM:
         pos = A.slot_positions(pos, h.shape[0], self.device)
         for i in range(self.cfg.num_layers):
             blk = params["blocks"][i]
-            attn, cache[i] = A.gqa_decode(blk["attn"], self.cfg,
-                                          L.rmsnorm(blk["ln1"], h), pos,
-                                          cache[i], theta=self._theta(i))
+            hn = L.rmsnorm(blk["ln1"], h)
+            if self.cfg.uses_mla:
+                attn, cache[i] = A.mla_decode(blk["attn"], self.cfg, hn, pos,
+                                              cache[i])
+            else:
+                attn, cache[i] = A.gqa_decode(blk["attn"], self.cfg, hn, pos,
+                                              cache[i], theta=self._theta(i))
             h = h + attn
             h = h + self._ffn(i, blk, L.rmsnorm(blk["ln2"], h), None, ())
         return self._head(params, h), cache

@@ -57,8 +57,10 @@ def compress_params(params, masks: dict[tuple, Any], n: int, m: int, *,
             continue
         if any(p in NON_STREAMABLE_KERNELS for p in path
                if isinstance(p, str)):
-            _downgrade(f"kernel {path_str(path)!r} cannot stream "
-                       "NmCompressed; the layer will SERVE DENSE", strict)
+            _downgrade(f"kernel {path_str(path)!r} is consumed as a "
+                       "reshaped raw weight by the absorbed MLA decode and "
+                       "cannot stream NmCompressed; the layer will SERVE "
+                       "DENSE", strict)
             continue
         kernel = get_path(params, path)
         out = set_path(out, path, pack_nm(kernel.T, mask.T, n, m,

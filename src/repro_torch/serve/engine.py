@@ -138,12 +138,15 @@ class ServingEngine:
 
     def _write_slot(self, row: dict, slot: int) -> None:
         """Copy a B=1 row cache into row ``slot`` of the resident cache, in
-        place — the whole row, so a stale tail is re-zeroed."""
+        place — the whole row, so a stale tail is re-zeroed.  Every tensor
+        field of every cache kind (GQA k/v + pos_ids, MLA latents + length,
+        the int8 payloads and their scales) is batch-leading."""
         for i, layer in row.items():
             full = self._cache[i]
-            full.k[slot] = layer.k[0]
-            full.v[slot] = layer.v[0]
-            full.pos_ids[slot] = layer.pos_ids[0]
+            for f in dataclasses.fields(full):
+                dst = getattr(full, f.name)
+                if isinstance(dst, torch.Tensor):
+                    dst[slot] = getattr(layer, f.name)[0]
 
     def _admit_into(self, slot: int) -> None:
         """Prefill the queue head into ``slot``."""
