@@ -26,6 +26,21 @@ non-zero without the final result line):
              logits against the same params decompressed and served dense;
              then serve the same requests with the int8 KV cache
              (QuantGqaCache) and hold its logits against the bf16 cache's.
+base. baselines — the paper's comparison methods on phase 3's dense
+             tinyllama tree: SparseGPT (block 64), Wanda and magnitude each
+             prune 2:4 (K1), compress and serve the phase-4 request set
+             (K2), with held-out losses, exact launch counts and the
+             first-step logits; then the four methods prune layer 0's gate
+             (5632, 2048) unstructured p = 0.5 on its K1 Hessian (Thanos and
+             SparseGPT must beat magnitude's reconstruction error), and
+             SparseGPT 2:4 on that (w, H) runs on the card and on the CPU
+             (errors within 1 %, ≥ 0.99 of the mask entries agreeing).
+plan. plan — tinyllama under examples/recipes/mixed_2to4_serve.json: MLP
+             2:4, attention unstructured, served with mixed residency (K2
+             for the MLP, 66 launches a model step; attention dense); the
+             bytes ratios, the report's rule rollup, the first-step logits;
+             then besa_trace_budget.json's sparsity allocation over one
+             dense capture pass (K1), its budget and clip held.
 4m. moe    — the MoE path: qwen3-moe-30b-a3b at full width, depth cut to
              MOE_LAYERS layers, Thanos 2:4 prunes every expert slice on its
              routed tokens (K1), every expert stack packs into one stacked
@@ -58,9 +73,12 @@ non-zero without the final result line):
              time per model step of each path and its launch-weighted
              total, each beside the library's.
 
-Kernel launch counts are zeroed just before each path (phases 3, 4m and
-mla) and read just after its serve (the mla path: after both serves); the
-comparison and timing launches are not counted.  The line before the
+Kernel launch counts are zeroed just before each path (phases 3,
+baselines, plan, 4m and mla) and read just after its serve (the mla path:
+after both serves; baselines and plan also per method and per step); the
+comparison and timing launches are not counted.  The tinyllama rows of
+phase 5 carry the baselines and plan paths' launches at the same shapes
+(``path_launches``).  The line before the
 last is the kernels JSON; the last line is the device JSON.  Results are
 also written to ``chiprun_out/chip_smoke.json``.
 """
@@ -92,6 +110,8 @@ MOE_ATTN = [(4096, 2048), (512, 2048), (2048, 4096)]      # K2, (c, b)
 # K1: (tokens, b, row mask): attention inputs, expert capacity buffers
 MOE_K1 = [(1024, 2048, False), (1024, 4096, False), (80, 2048, True),
           (80, 768, True)]
+# the paper's comparison methods, run beside phase 3's Thanos
+BASELINES = ("sparsegpt", "wanda", "magnitude")
 MLA_ARCH = "deepseek-v3-671b"
 # its three leading dense layers (num_dense_layers = 3): a full-width MoE
 # block needs ~110 GB of expert Hessians at once under the port's schedule
@@ -585,9 +605,7 @@ def moe_phase(dev) -> dict:
           f"{full.num_layers} → {L} layers")
     kernels = (K1.hessian_update_cuda, K2.nm_matmul_cuda,
                K2.nm_matmul_stacked_cuda)
-    for fn in kernels:
-        fn.launches = 0
-        fn.by_shape.clear()
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev)
@@ -780,12 +798,14 @@ def moe_dispatch_inputs(gen, dev, packs3: dict) -> dict:
 
 
 def k2_times(gen, dev, packs: dict, err: dict, main: dict,
-             path: str) -> list:
+             path: str, others: "dict | None" = None) -> list:
     """Phase 5 rows of K2 at one path's shapes (bf16 2:4, 4-bit indices,
     B ∈ {1, 4}): its plan, the kernel, the warp-per-row kernel (K2's
     design before the tensor-core path, mode 1 of the same source), the plain
     version and ``torch.matmul`` on the dense weight.  The weights rotate
-    through copies so that every launch streams them from HBM."""
+    through copies so that every launch streams them from HBM.  ``others``
+    maps another path that runs the same shapes to its launches by shape
+    (its row's ``path_launches``)."""
     import torch
 
     from repro_torch.kernels import nm_spmm as K2
@@ -843,6 +863,9 @@ def k2_times(gen, dev, packs: dict, err: dict, main: dict,
                 "plan": {"mode": plan[0], "cluster": plan[1],
                          "smem": plan[2], "ctas": K2._k2_ctas(c, B, plan)},
                 "warp_row_ms": device_ms(kern_old, reps)})
+            if others:
+                rows[-1]["path_launches"] = {
+                    name: by.get(key, 0) for name, by in others.items()}
         del vals, idxs, dens
     return rows
 
@@ -1211,9 +1234,7 @@ def mla_phase(dev) -> dict:
           f"{cfg.vocab_size}), {cfg.dtype}; depth cut {full.num_layers} → "
           f"{L} layers (its {full.num_dense_layers} leading dense layers)")
     kernels = (K1.hessian_update_cuda, K2.nm_matmul_cuda)
-    for fn in kernels:
-        fn.launches = 0
-        fn.by_shape.clear()
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev)
@@ -1374,6 +1395,345 @@ def mla_times(gen, dev, chk: dict, mla: dict) -> list:
     return rows
 
 
+def zero_counts() -> None:
+    """Set every kernel wrapper's launch counts to 0."""
+    from repro_torch.kernels import hessian_accum as K1, nm_spmm as K2
+
+    for fn in (K1.hessian_update_cuda, K2.nm_matmul_cuda,
+               K2.nm_matmul_stacked_cuda):
+        fn.launches = 0
+        fn.by_shape.clear()
+
+
+def path_counts() -> dict:
+    """Each wrapper's launches and launches by shape, read now."""
+    from repro_torch.kernels import hessian_accum as K1, nm_spmm as K2
+
+    return {fn.__name__: (fn.launches, dict(fn.by_shape))
+            for fn in (K1.hessian_update_cuda, K2.nm_matmul_cuda,
+                       K2.nm_matmul_stacked_cuda)}
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    """Add one ``path_counts()`` reading into ``total`` (the same form)."""
+    for name, (n, shapes) in counts.items():
+        n0, s0 = total.get(name, (0, {}))
+        s0 = dict(s0)
+        for key, v in shapes.items():
+            s0[key] = s0.get(key, 0) + v
+        total[name] = (n0 + n, s0)
+
+
+def gate_hessian(model, dense, batches):
+    """Layer 0's gate in the paper's (out, in) layout and its Hessian
+    H = 2XᵀX/T, accumulated by K1 from the calibration batches."""
+    import torch
+
+    from repro_torch.core.hessian import HessianAccumulator
+    from repro_torch.models.model_builder import ModelAdapter
+
+    path = ("blocks", 0, "mlp", "gate", "w")
+    adapter = ModelAdapter(model)
+    acc = None
+    with torch.no_grad():
+        for batch in batches:
+            _, caps = adapter.block_apply(
+                dense, 0, adapter.prepare(dense, batch), capture=True)
+            x = caps[path]
+            if acc is None:
+                acc = HessianAccumulator.init(x.shape[-1], x.device)
+            acc.update(x)
+    return dense["blocks"][0]["mlp"]["gate"]["w"].T.contiguous(), \
+        acc.finalize()
+
+
+def baselines_phase(dev, dense, dense_loss: float) -> dict:
+    """Phase baselines: the paper's comparison methods on tinyllama-1.1b at
+    full width and depth on phase 3's dense tree (Thanos is phase 3, whose
+    held-out loss of that tree is ``dense_loss``): SparseGPT (block 64),
+    Wanda and magnitude each prune 2:4 through ``prune_model`` (K1 carries
+    every Hessian), compress and serve the phase-4 request set (K2); then
+    the four methods prune layer 0's gate, (5632, 2048), unstructured
+    p = 0.5 on the Hessian K1 captured, and SparseGPT 2:4 on that (w, H)
+    runs on the card and on the CPU.  The path's launch counts are each
+    method's prune → compress → serve, zeroed before and read after it:
+    neither the first-step comparison nor the gate's launches are in them."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import (PruneConfig, prune_layer,
+                                      reconstruction_error)
+    from repro_torch.core.masks import check_nm
+    from repro_torch.core.schedule import prune_model
+    from repro_torch.data.pipeline import calibration_batches, heldout_loss
+    from repro_torch.models.model_builder import ModelAdapter, build_model
+    from repro_torch.serve.compressed import compress_params, compressed_bytes
+
+    cfg = get_config("tinyllama-1.1b")
+    model = build_model(cfg, device=dev)
+    adapter = ModelAdapter(model)
+    # phase 3's calibration: 2 batches × 8 × 128 tokens (prune_arch's)
+    batches = calibration_batches(cfg, num_samples=16, seq_len=128, batch=8,
+                                  device=dev)
+    prompts = request_prompts(cfg.vocab_size)
+    out: dict = {"methods": {}}
+    counts: dict = {}
+    t_path = time.perf_counter()
+    for method in BASELINES:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pruned, report = prune_model(
+            dense, adapter, batches,
+            PruneConfig(method, "nm", n=2, m=4, block_size=64))
+        torch.cuda.synchronize()
+        t_prune = time.perf_counter() - t0
+        k1 = path_counts()["hessian_update_cuda"][0]
+        pruned_loss = heldout_loss(model, pruned, cfg)
+        check(len(report.masks) == 7 * cfg.num_layers and
+              all(check_nm(mk.T, 2, 4) for mk in report.masks.values()),
+              f"{method}: a pruned linear breaks 2:4")
+        check(math.isfinite(pruned_loss),
+              f"{method}: non-finite held-out loss")
+        check(k1 == 2 * 7 * cfg.num_layers, f"{method}: K1 launches {k1}")
+        solve = sum(r.seconds for r in report.layers)
+        comp = compress_params(pruned, report.masks, 2, 4)
+        cb, db = compressed_bytes(comp)
+        check(cb / db == 0.625, f"{method}: compressed ratio {cb / db}")
+        done, t_serve, engine = serve_requests(model, comp, prompts,
+                                               cfg.vocab_size)
+        got = path_counts()
+        add_counts(counts, got)
+        st = engine.stats
+        steps = st["prefill_tokens"] + st["decode_steps"]
+        k2 = got["nm_matmul_cuda"][0]
+        check(k2 == 7 * cfg.num_layers * steps,
+              f"{method}: K2 launches {k2}, expected "
+              f"{7 * cfg.num_layers * steps}")
+        ntok = sum(len(r.out) for r in done)
+        print(f"phase baselines {method} 2:4: prune_model "
+              f"{report.seconds:.1f} s (per-layer solves {solve:.1f} s; "
+              f"with the sync {t_prune:.1f} s), held-out loss dense "
+              f"{dense_loss:.4f} (phase 3) → pruned {pruned_loss:.4f}, every "
+              f"mask 2:4, K1 launches {k1}; compressed {cb / db:.4f}; {ntok} "
+              f"tokens in {t_serve:.2f} s ({ntok / t_serve:.1f} tok/s), K2 "
+              f"launches {k2} ({7 * cfg.num_layers} a model step × {steps})")
+        e = first_step_line(model, comp, prompts)
+        out["methods"][method] = dict(
+            dense_loss=dense_loss, pruned_loss=pruned_loss,
+            prune_seconds=report.seconds, solve_seconds=solve,
+            prune_sync_seconds=t_prune,
+            k1_launches=k1, k2_launches=k2, ratio=cb / db,
+            tok_per_s=ntok / t_serve, serve_seconds=t_serve, stats=st,
+            logits_max_abs_err=e[0], logits_rel_err=e[1], argmax_agree=e[2])
+        del pruned, comp, engine, report
+        torch.cuda.empty_cache()
+
+    # ---- one full-width linear, the four methods --------------------------
+    w, h = gate_hessian(model, dense, batches)
+    errs_ = {}
+    for method in ("thanos",) + BASELINES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = prune_layer(w, h, PruneConfig(method, "unstructured", p=0.5,
+                                            block_size=64))
+        torch.cuda.synchronize()
+        errs_[method] = (float(reconstruction_error(w, res.weights, h)),
+                         time.perf_counter() - t0)
+    line = ", ".join(f"{k} {v[0]:.6g} ({v[1]:.2f} s)"
+                     for k, v in errs_.items())
+    print(f"phase baselines: layer 0 gate {tuple(w.shape)} bf16, "
+          f"unstructured p 0.5 B 64, reconstruction error ‖ΔX‖²: {line}")
+    e = {k: v[0] for k, v in errs_.items()}
+    check(e["thanos"] < e["magnitude"] and e["sparsegpt"] < e["magnitude"],
+          f"reconstruction errors: Thanos or SparseGPT not below magnitude "
+          f"({e})")
+    print(f"  gated: Thanos < magnitude {e['thanos'] < e['magnitude']}, "
+          f"SparseGPT < magnitude {e['sparsegpt'] < e['magnitude']}; not "
+          f"gated: Thanos < Wanda {e['thanos'] < e['wanda']}, Thanos ≤ 1.05 "
+          f"× SparseGPT {e['thanos'] <= 1.05 * e['sparsegpt']} (ratio "
+          f"{e['thanos'] / e['sparsegpt']:.4f})")
+    sg = {}
+    for where in ("cuda", "cpu"):
+        wd, hd = (w, h) if where == "cuda" else (w.cpu(), h.cpu())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = prune_layer(wd, hd, PruneConfig("sparsegpt", "nm", n=2, m=4,
+                                              block_size=64))
+        torch.cuda.synchronize()
+        sg[where] = (res, float(reconstruction_error(wd, res.weights, hd)),
+                     time.perf_counter() - t0)
+    agree = float((sg["cuda"][0].mask.cpu() == sg["cpu"][0].mask).float()
+                  .mean())
+    rel = abs(sg["cuda"][1] - sg["cpu"][1]) / sg["cpu"][1]
+    check(rel <= 0.01 and agree >= 0.99,
+          f"SparseGPT 2:4 card vs CPU: errors {sg['cuda'][1]:.6g} / "
+          f"{sg['cpu'][1]:.6g} (rel {rel:.3g}), masks agree {agree:.4f}")
+    print(f"  SparseGPT 2:4 B 64 on that (w, H): card error "
+          f"{sg['cuda'][1]:.6g} in {sg['cuda'][2]:.2f} s, CPU error "
+          f"{sg['cpu'][1]:.6g} in {sg['cpu'][2]:.2f} s (rel {rel:.3g}, limit "
+          f"0.01); mask entries agreeing {agree:.6f} (limit 0.99)")
+    out.update(gate_errors={k: v[0] for k, v in errs_.items()},
+               gate_seconds={k: v[1] for k, v in errs_.items()},
+               sparsegpt_card_vs_cpu={
+                   "card_error": sg["cuda"][1], "cpu_error": sg["cpu"][1],
+                   "card_seconds": sg["cuda"][2],
+                   "cpu_seconds": sg["cpu"][2], "rel": rel,
+                   "mask_agree": agree})
+    for name in ("hessian_update_cuda", "nm_matmul_cuda"):
+        check(counts[name][0] > 0, f"baselines path: {name} never launched")
+    out["counts"] = counts
+    out["seconds"] = time.perf_counter() - t_path
+    print(f"phase baselines: {out['seconds']:.1f} s; path launches K1 "
+          f"{counts['hessian_update_cuda'][0]}, K2 "
+          f"{counts['nm_matmul_cuda'][0]}")
+    return out
+
+
+def plan_phase(dev, dense, dense_loss: float) -> dict:
+    """Phase plan: tinyllama-1.1b at full width under the recipe
+    ``examples/recipes/mixed_2to4_serve.json`` (MLP 2:4, attention
+    unstructured p = 0.5, embeddings and head dense): ``prune_model`` with
+    the plan on phase 3's dense tree (``dense_loss``: phase 3's held-out
+    loss of it), ``compress_params(plan=report.plan)`` — MLP leaves packed,
+    attention dense — and the phase-4 request set served with mixed
+    residency (K2 for the MLP, ``x @ W`` for attention); then the sparsity
+    allocation of ``besa_trace_budget.json`` over the stats of one dense
+    capture pass (K1), without a prune."""
+    import json as json_
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.masks import check_nm
+    from repro_torch.core.plan import PrunePlan
+    from repro_torch.core.schedule import (collect_hessian_stats, get_path,
+                                           prune_model)
+    from repro_torch.core.sparsity import NmCompressed
+    from repro_torch.data.pipeline import calibration_batches, heldout_loss
+    from repro_torch.models.model_builder import ModelAdapter, build_model
+    from repro_torch.serve.compressed import compress_params, compressed_bytes
+
+    cfg = get_config("tinyllama-1.1b")
+    L = cfg.num_layers
+    model = build_model(cfg, device=dev)
+    adapter = ModelAdapter(model)
+    # phase 3's calibration: 2 batches × 8 × 128 tokens (prune_arch's)
+    batches = calibration_batches(cfg, num_samples=16, seq_len=128, batch=8,
+                                  device=dev)
+    recipe = ROOT / "examples" / "recipes" / "mixed_2to4_serve.json"
+    plan = PrunePlan.load(str(recipe))
+    zero_counts()
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    pruned, report = prune_model(dense, adapter, batches, plan)
+    pruned_loss = heldout_loss(model, pruned, cfg)
+    attn = [r for r in report.layers if "attn" in r.path]
+    mlp = [r for r in report.layers if "mlp" in r.path]
+    check(len(attn) == 4 * L and len(mlp) == 3 * L
+          and not any(r.skipped for r in report.layers),
+          f"plan: {len(attn)} attention and {len(mlp)} MLP layers pruned")
+    check(all(check_nm(report.masks[r.path].T, 2, 4) for r in mlp)
+          and all(r.tag == "thanos_2:4" for r in mlp),
+          "plan: an MLP linear is not exactly 2:4")
+    a_ones = sum(float(report.masks[r.path].sum()) for r in attn)
+    a_all = sum(report.masks[r.path].numel() for r in attn)
+    check(all(r.tag == "thanos_p0.5" for r in attn)
+          and abs(a_ones / a_all - 0.5) < 1e-9,
+          f"plan: attention mean sparsity {a_ones / a_all}")
+    check(math.isfinite(pruned_loss), "plan: non-finite held-out loss")
+    comp = compress_params(pruned, report.masks, plan=report.plan,
+                           strict=True)
+    check(all(isinstance(get_path(comp, r.path), NmCompressed) for r in mlp)
+          and all(torch.is_tensor(get_path(comp, r.path)) for r in attn),
+          "plan: the serve tree is not MLP compressed, attention dense")
+    cb, db = compressed_bytes(comp)
+    attn_bytes = sum(get_path(comp, r.path).numel() * 2 for r in attn)
+    mlp_params = 3 * L * cfg.d_model * cfg.d_ff
+    attn_params = sum(r.params for r in attn)
+    want = (0.625 * mlp_params + attn_params) / (mlp_params + attn_params)
+    ratio_all = (cb + attn_bytes) / (db + attn_bytes)
+    check(cb / db == 0.625 and db == 2 * mlp_params
+          and attn_bytes == 2 * attn_params
+          and abs(ratio_all - want) < 1e-12,
+          f"plan: bytes ratio {cb / db} on the compressed kernels, "
+          f"{ratio_all} over all prunable linears (expected {want})")
+    prompts = request_prompts(cfg.vocab_size)
+    done, t_serve, engine = serve_requests(model, comp, prompts,
+                                           cfg.vocab_size)
+    st = engine.stats
+    steps = st["prefill_tokens"] + st["decode_steps"]
+    counts = path_counts()
+    k1, k2 = counts["hessian_update_cuda"][0], counts["nm_matmul_cuda"][0]
+    check(k1 == 2 * 7 * L, f"plan: K1 launches {k1}")
+    check(k2 == 3 * L * steps,
+          f"plan: K2 launches {k2}, expected {3 * L * steps}")
+    ntok = sum(len(r.out) for r in done)
+    rollup = json_.loads(report.to_json())["rules"]
+    check([(r["match"], r["layers"]) for r in rollup]
+          == [("*/mlp/*", 3 * L), ("*/attn/*", 4 * L)]
+          and all(report.plan.rules[r["rule"]].match == r["match"]
+                  for r in rollup),
+          f"plan: report rollup {rollup}")
+    print(f"phase plan: {recipe.name} ({len(plan.rules)} rules): "
+          f"prune_model {report.seconds:.1f} s, held-out loss dense "
+          f"{dense_loss:.4f} (phase 3) → pruned {pruned_loss:.4f}; MLP {len(mlp)} linears 2:4, "
+          f"attention {len(attn)} linears unstructured at mean sparsity "
+          f"{a_ones / a_all:.4f}; compressed {cb / db:.4f} of dense bf16 "
+          f"bytes on the compressed kernels ({mlp_params} params), "
+          f"{ratio_all:.4f} over all prunable linears (attention "
+          f"{attn_params} params dense); {ntok} tokens in {t_serve:.2f} s "
+          f"({ntok / t_serve:.1f} tok/s), K2 launches {k2} ({3 * L} a "
+          f"model step × {steps}, against {7 * L} in phase 4), K1 {k1}")
+    for r in rollup:
+        print(f"  rule {r['rule']} {r['match']:10s} {r['tag']:12s} layers "
+              f"{r['layers']:3d} params {r['params']} sparsity "
+              f"{r['mean_sparsity']:.4f} solve {r['seconds']:.2f} s")
+    e = first_step_line(model, comp, prompts)
+    plan_counts, report_seconds = counts, report.seconds
+    del pruned, comp, engine, report
+    torch.cuda.empty_cache()
+
+    # ---- the sparsity allocation over one dense capture pass --------------
+    besa = PrunePlan.load(str(ROOT / "examples" / "recipes" /
+                              "besa_trace_budget.json"))
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = collect_hessian_stats(dense, adapter, batches)
+    torch.cuda.synchronize()
+    t_stats = time.perf_counter() - t0
+    k1_stats = path_counts()["hessian_update_cuda"][0]
+    alloc = besa.allocate_sparsity(stats)
+    ps = [alloc.cfg_for(k).p for k in stats]
+    sizes = [stats[k].size for k in stats]
+    mean_p = sum(p * s for p, s in zip(ps, sizes)) / sum(sizes)
+    check(len(stats) == 7 * L and abs(mean_p - 0.5) <= 1e-6
+          and all(besa.allocation.p_min <= p <= besa.allocation.p_max
+                  for p in ps),
+          f"allocation: {len(stats)} layers, size-weighted mean p {mean_p}, "
+          f"p in [{min(ps)}, {max(ps)}]")
+    check(k1_stats == 2 * 7 * L, f"allocation: K1 launches {k1_stats}")
+    print(f"phase plan allocation: besa_trace_budget.json "
+          f"(hessian_trace, budget {besa.allocation.budget}) over "
+          f"{len(stats)} layers' stats ({t_stats:.2f} s, K1 launches "
+          f"{k1_stats}, expect {2 * 7 * L}): size-weighted mean p "
+          f"{mean_p:.8f}, p in [{min(ps):.4f}, {max(ps):.4f}]")
+    seconds = time.perf_counter() - t_path
+    print(f"phase plan: {seconds:.1f} s")
+    return {"dense_loss": dense_loss, "pruned_loss": pruned_loss,
+            "prune_seconds": report_seconds, "ratio": cb / db,
+            "ratio_all": ratio_all,
+            "attn_sparsity": a_ones / a_all, "tok_per_s": ntok / t_serve,
+            "serve_seconds": t_serve, "stats": st, "k1_launches": k1,
+            "k2_launches": k2, "rules": rollup, "counts": plan_counts,
+            "logits_max_abs_err": e[0], "logits_rel_err": e[1],
+            "argmax_agree": e[2], "alloc_mean_p": mean_p,
+            "alloc_p_range": [min(ps), max(ps)],
+            "alloc_k1_launches": k1_stats, "stats_seconds": t_stats,
+            "seconds": seconds}
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -1519,9 +1879,7 @@ def main() -> None:
     mla_chk = mla_kernel_checks(gen, dev)
 
     # ---- 3. main path: prune ----------------------------------------------
-    for fn in (K1.hessian_update_cuda, K2.nm_matmul_cuda):
-        fn.launches = 0
-        fn.by_shape.clear()
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pruned, report, out = prune_arch(
@@ -1595,6 +1953,21 @@ def main() -> None:
     del pruned, comp, engine, model
     torch.cuda.empty_cache()
 
+    # ---- baselines: SparseGPT, Wanda, magnitude on phase 3's dense tree ---
+    # prune_arch's dense tree: the same seed-0 init, so phase 3's held-out
+    # loss of it holds
+    dense = build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    base = baselines_phase(dev, dense, out["dense_loss"])
+    results["baselines"] = {k: v for k, v in base.items() if k != "counts"}
+    torch.cuda.empty_cache()
+
+    # ---- plan: the mixed recipe, then the sparsity allocation -------------
+    plan = plan_phase(dev, dense, out["dense_loss"])
+    results["plan"] = {k: v for k, v in plan.items() if k != "counts"}
+    del dense
+    torch.cuda.empty_cache()
+
     # ---- 4m. MoE path: prune → stacked compress → serve --------------------
     moe = moe_phase(dev)
     results["moe"] = {k: v for k, v in moe.items() if k != "by_shape"}
@@ -1621,6 +1994,8 @@ def main() -> None:
         ops = 2 * 1024 * b * b
         t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bfloat16"]
         key = (1024, b, str(torch.bfloat16))
+        path_launches = {name: ph["counts"]["hessian_update_cuda"][1].get(
+            key, 0) for name, ph in (("baselines", base), ("plan", plan))}
         entries.append({
             "name": "hessian_xtx", "shape": f"x (1024, {b}) bf16",
             "route": "cuda",
@@ -1631,8 +2006,12 @@ def main() -> None:
             "plain_ms": plain,
             "bound_ms": 1e3 * max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations",
-            "library_ms": lib, "library_bf16_ms": lib_bf16})
-    entries += k2_times(gen, dev, packs, k2_err, k2_main, "tinyllama-1.1b")
+            "library_ms": lib, "library_bf16_ms": lib_bf16,
+            "path_launches": path_launches})
+    entries += k2_times(gen, dev, packs, k2_err, k2_main, "tinyllama-1.1b",
+                        {name: ph["counts"]["nm_matmul_cuda"][1]
+                         for name, ph in (("baselines", base),
+                                          ("plan", plan))})
     entries += moe_times(gen, dev, moe_chk, moe)
     entries += mla_times(gen, dev, mla_chk, mla)
     torch.cuda.synchronize()

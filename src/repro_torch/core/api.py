@@ -1,17 +1,23 @@
-"""Public pruning API — config dataclass + method/pattern registry (port of
-``repro/core/api.py``; the port registers ``thanos`` and ``magnitude``).
+"""Public pruning API — config dataclass + pluggable method/pattern registry
+(port of ``repro/core/api.py``).
 
 Layout: ``W ∈ R^{c×b}``, rows = outputs, columns = inputs; model kernels are
 stored (in, out) and ``core/schedule.py`` transposes.
+
+Methods are registered, not hard-coded: ``register_method(name, {pattern:
+fn})`` makes a method available to ``prune_layer``, the ``PruneConfig``
+validator, the CLIs' ``--method``/``--pattern`` choices and the recipe layer
+(``core/plan.py``).  ``METHODS`` and ``PATTERNS`` are live tuple-like views
+over the registry.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Mapping
+from typing import Callable, Iterator, Mapping, Sequence
 
 import torch
 
-from repro_torch.core import magnitude, thanos
+from repro_torch.core import magnitude, sparsegpt, thanos, wanda
 from repro_torch.core.hessian import h_finite
 from repro_torch.core.solver import solution_finite
 from repro_torch.core.thanos import PruneResult
@@ -32,31 +38,72 @@ class MethodSpec:
     data_aware: bool = True      # True → prune_layer demands a Hessian
 
 
-# live, insertion-ordered registries: ``name in METHODS``, ``list(PATTERNS)``
-METHODS: dict[str, MethodSpec] = {}
-PATTERNS: dict[str, None] = {}
+class _RegistryView(Sequence):
+    """Tuple-like live view over registry keys (insertion-ordered)."""
+
+    def __init__(self, mapping: Mapping):
+        self._mapping = mapping
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._mapping)
+
+    def __contains__(self, item) -> bool:
+        return item in self._mapping
+
+    def __len__(self) -> int:
+        return len(self._mapping)
+
+    def __getitem__(self, i):
+        return tuple(self._mapping)[i]
+
+    def __eq__(self, other):
+        # equal to any sequence of the same names, False (not TypeError)
+        # for everything else; unhashable because the registry is mutable
+        if isinstance(other, (_RegistryView, tuple, list)):
+            return tuple(self) == tuple(other)
+        return NotImplemented
+
+    __hash__ = None
+
+    def __repr__(self) -> str:
+        return repr(tuple(self._mapping))
+
+
+_REGISTRY: dict[str, MethodSpec] = {}
+_PATTERN_ORDER: dict[str, None] = {}     # insertion-ordered set of patterns
+
+METHODS = _RegistryView(_REGISTRY)
+PATTERNS = _RegistryView(_PATTERN_ORDER)
 
 
 def register_method(name: str, patterns: Mapping[str, PatternFn], *,
-                    data_aware: bool = True) -> MethodSpec:
-    """Register a pruning method under ``name``."""
+                    data_aware: bool = True,
+                    overwrite: bool = False) -> MethodSpec:
+    """Register a pruning method under ``name``; new pattern names join
+    ``PATTERNS`` in first-seen order."""
     if not patterns:
         raise ValueError(f"method {name!r}: at least one pattern required")
-    if name in METHODS:
-        raise ValueError(f"method {name!r} already registered")
+    if name in _REGISTRY and not overwrite:
+        raise ValueError(f"method {name!r} already registered "
+                         "(pass overwrite=True to replace)")
     spec = MethodSpec(name=name, patterns=dict(patterns),
                       data_aware=data_aware)
-    METHODS[name] = spec
+    _REGISTRY[name] = spec
     for p in patterns:
-        PATTERNS.setdefault(p, None)
+        _PATTERN_ORDER.setdefault(p, None)
     return spec
 
 
+def unregister_method(name: str) -> None:
+    """Remove a registered method (pattern names stay in ``PATTERNS``)."""
+    _REGISTRY.pop(name, None)
+
+
 def method_spec(name: str) -> MethodSpec:
-    spec = METHODS.get(name)
+    spec = _REGISTRY.get(name)
     if spec is None:
         raise ValueError(
-            f"unknown method {name!r}; registered: {tuple(METHODS)}")
+            f"unknown method {name!r}; registered: {tuple(_REGISTRY)}")
     return spec
 
 
@@ -99,6 +146,19 @@ class PruneConfig:
                                                     self.pattern)
         a = f"_a{self.alpha}" if self.alpha else ""
         return f"{self.method}_{pat}{a}"
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "PruneConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(
+                f"unknown PruneConfig fields {sorted(unknown)}; "
+                f"known: {sorted(known)}")
+        return cls(**d)
 
 
 def prune_layer(w: Tensor, h: "Tensor | None", cfg: PruneConfig
@@ -196,7 +256,8 @@ def reconstruction_error(w0: Tensor, w1: Tensor, h: Tensor) -> Tensor:
 
 
 # --------------------------------------------------------------------------
-# built-in registrations: the paper's method + the data-free baseline
+# built-in registrations (the paper's method + the three baselines), in the
+# JAX module's order
 # --------------------------------------------------------------------------
 register_method("thanos", {
     "unstructured": lambda w, h, cfg: thanos.prune_unstructured(
@@ -207,6 +268,22 @@ register_method("thanos", {
         percdamp=cfg.percdamp, row_chunk=cfg.row_chunk, alpha=cfg.alpha),
     "structured": lambda w, h, cfg: thanos.prune_structured(
         w, h, p=cfg.p, alpha=cfg.alpha, percdamp=cfg.percdamp),
+})
+
+register_method("sparsegpt", {
+    "unstructured": lambda w, h, cfg: sparsegpt.prune_unstructured(
+        w, h, p=cfg.p, mask_blocksize=cfg.block_size, percdamp=cfg.percdamp),
+    "nm": lambda w, h, cfg: sparsegpt.prune_nm(
+        w, h, n=cfg.n, m=cfg.m, blocksize=cfg.block_size,
+        percdamp=cfg.percdamp),
+    "structured": lambda w, h, cfg: sparsegpt.prune_structured(
+        w, h, p=cfg.p, blocksize=cfg.block_size, percdamp=cfg.percdamp),
+})
+
+register_method("wanda", {
+    "unstructured": lambda w, h, cfg: wanda.prune_unstructured(w, h, p=cfg.p),
+    "nm": lambda w, h, cfg: wanda.prune_nm(w, h, n=cfg.n, m=cfg.m),
+    "structured": lambda w, h, cfg: wanda.prune_structured(w, h, p=cfg.p),
 })
 
 register_method("magnitude", {

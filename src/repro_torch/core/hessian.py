@@ -123,6 +123,19 @@ def factor_finite(u: Tensor) -> bool:
     return bool(torch.isfinite(u).all())
 
 
+def trailing_inverse(u_hinv: Tensor, j: int) -> Tensor:
+    """``[H_{j:,j:}]⁻¹ = U[j:,j:]ᵀ U[j:,j:]``."""
+    ut = u_hinv[j:, j:]
+    return ut.T @ ut
+
+
+def trailing_inverse_rows(u_hinv: Tensor, j: int, rows: Tensor) -> Tensor:
+    """Rows ``rows`` (relative to the trailing block) of ``[H_{j:,j:}]⁻¹``
+    without forming all of it: ``U[j:, j:][:, rows]ᵀ @ U[j:, j:]``."""
+    ut = u_hinv[j:, j:]
+    return ut[:, rows].T @ ut
+
+
 def inverse_from_upper(u_hinv: Tensor) -> Tensor:
     """Dense ``H⁻¹ = UᵀU`` — the starting state for ``block_downdate``."""
     return u_hinv.T @ u_hinv

@@ -1,14 +1,20 @@
 """Block-wise model pruning driver — the paper's Alg. 3 (port of
-``repro/core/schedule.py`` for a bare ``PruneConfig``).
+``repro/core/schedule.py``).
 
 For each transformer block: pass 1 forwards the calibration carries through
 it, capturing the input of every prunable linear and accumulating its
 Hessian (K1 on the card); every linear is then pruned independently; pass 2
 re-forwards through the pruned block to produce the next block's inputs.
+
+Which cell prunes which layer is a ``PrunePlan`` (``core/plan.py``): each
+param path resolves through the plan's ordered rules to a ``PruneConfig``
+or to *skip* (the layer stays dense and no Hessian is accumulated for it).
+A bare ``PruneConfig`` is the shim ``PrunePlan.uniform(cfg)``.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Any, Iterable, Protocol
 
@@ -17,14 +23,10 @@ import torch
 from repro_torch.core.api import (PruneConfig, method_spec,
                                   prune_layer_guarded)
 from repro_torch.core.hessian import HessianAccumulator
+from repro_torch.core.plan import LayerStat, PrunePlan, as_plan, path_str
 
 Tensor = torch.Tensor
 Path = tuple[Any, ...]
-
-
-def path_str(path: Path) -> str:
-    """Canonical string form of a param path: elements joined with '/'."""
-    return "/".join(str(k) for k in path)
 
 
 def get_path(tree, path: Path):
@@ -83,8 +85,10 @@ class LayerReport:
     sparsity: float
     obs_loss: float
     seconds: float
-    tag: str = ""           # PruneConfig.tag()
-    params: int = 0         # kernel parameter count
+    rule: int = -1          # index of the PrunePlan rule that claimed it
+    tag: str = ""           # resolved PruneConfig.tag(), or "skip"
+    params: int = 0         # kernel parameter count (rollup weighting)
+    skipped: bool = False   # True = a skip rule / no rule matched: dense
     damp_attempts: int = 0  # failed solve attempts before success/fallback
     percdamp_used: float = 0.0
     fallback: str = ""      # "magnitude" when on_singular fell back
@@ -96,28 +100,117 @@ class PruneReport:
     layers: list[LayerReport]
     masks: dict[Path, Tensor]
     seconds: float
-    cfg: PruneConfig | None = None
+    plan: PrunePlan | None = None
 
     def mean_sparsity(self) -> float:
         tot = sum(m.numel() for m in self.masks.values())
         ones = sum(float(m.sum()) for m in self.masks.values())
         return ones / max(tot, 1)
 
+    def rule_rollup(self) -> list[dict]:
+        """Per-rule attribution: which rule claimed which layers, with a
+        size-weighted sparsity and summed-loss rollup.  Rule -1 collects
+        the layers no rule matched (skipped)."""
+        by_rule: dict[int, list[LayerReport]] = {}
+        for rep in self.layers:
+            by_rule.setdefault(rep.rule, []).append(rep)
+        out = []
+        for idx in sorted(by_rule):
+            reps = by_rule[idx]
+            rule = (self.plan.rules[idx]
+                    if self.plan is not None
+                    and 0 <= idx < len(self.plan.rules) else None)
+            size = sum(r.params for r in reps)
+            out.append({
+                "rule": idx,
+                "match": rule.match if rule else None,
+                "action": ("skip" if rule is None or rule.skip else "prune"),
+                "tag": (rule.cfg.tag() if rule is not None
+                        and rule.cfg is not None else "skip"),
+                "layers": len(reps),
+                "params": size,
+                "mean_sparsity": (sum(r.params * r.sparsity for r in reps)
+                                  / size if size else 0.0),
+                "obs_loss": sum(r.obs_loss for r in reps),
+                "seconds": sum(r.seconds for r in reps),
+            })
+        return out
+
+    def to_dict(self) -> dict:
+        """JSON-able artifact; the embedded plan makes the run reproducible
+        (``PrunePlan.from_dict(report['plan'])``); masks stay out."""
+        return {
+            "plan": None if self.plan is None else self.plan.to_dict(),
+            "seconds": self.seconds,
+            "mean_sparsity": self.mean_sparsity(),
+            "rules": self.rule_rollup(),
+            "layers": [{
+                "path": path_str(r.path),
+                "rule": r.rule,
+                "tag": r.tag,
+                "skipped": r.skipped,
+                "sparsity": r.sparsity,
+                "obs_loss": r.obs_loss,
+                "params": r.params,
+                "seconds": r.seconds,
+                "damp_attempts": r.damp_attempts,
+                "percdamp_used": r.percdamp_used,
+                "fallback": r.fallback,
+                "calib_skipped": r.calib_skipped,
+            } for r in self.layers],
+        }
+
+    def to_json(self, *, indent: int | None = 1) -> str:
+        return json.dumps(self.to_dict(), indent=indent)
+
+    def save(self, path: str) -> None:
+        """Crash-safe artifact write (tmp + ``os.replace``)."""
+        from repro_torch.util.io import atomic_write_text
+
+        atomic_write_text(path, self.to_json() + "\n")
+
+
+def _capture(adapter, params, i: int, carries: list, accs: dict,
+             keep=None) -> None:
+    """Pass 1 of block i: forward every carry with the tape on and add each
+    captured linear input into its accumulator (K1 on the card).  MoE
+    expert slices tape (activations, row validity) pairs: only routed
+    capacity rows count.  ``keep(path)`` False leaves a path out."""
+    for carry in carries:
+        _, caps = adapter.block_apply(params, i, carry, capture=True)
+        for path, x in caps.items():
+            if keep is not None and path not in accs and not keep(path):
+                continue
+            valid = None
+            if isinstance(x, tuple):
+                x, valid = x
+            if path not in accs:
+                accs[path] = HessianAccumulator.init(x.shape[-1], x.device)
+            accs[path].update(x, valid)
+
 
 def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
-                cfg: PruneConfig, *, on_singular: str = "escalate",
-                max_escalations: int = 4,
+                plan: "PrunePlan | PruneConfig", *,
+                on_singular: str = "escalate", max_escalations: int = 4,
                 min_calib_samples: int = 1) -> tuple[Any, PruneReport]:
     """Run Alg. 3 over the whole model.  Returns (pruned params, report).
 
-    ``on_singular`` / ``max_escalations`` are the numerical-failure policy
-    of ``prune_layer_guarded``; a data-aware layer whose accumulator closed
-    with fewer than ``min_calib_samples`` tokens raises
+    ``plan`` is a ``PrunePlan`` or a bare ``PruneConfig``.  A plan with an
+    ``allocation`` block expands itself first (one dense capture pass,
+    ``collect_hessian_stats``); the report embeds the expanded plan.
+    ``on_singular`` / ``max_escalations`` are the run-level
+    numerical-failure policy of ``prune_layer_guarded`` (a rule's own
+    ``on_singular`` overrides it); a data-aware layer whose accumulator
+    closed with fewer than ``min_calib_samples`` tokens raises
     ``InsufficientCalibration``.
     """
+    plan = as_plan(plan)
     t_start = time.perf_counter()
+    batches = list(batches)
+    if plan.allocation is not None:
+        plan = plan.allocate_sparsity(
+            collect_hessian_stats(params, adapter, batches))
     carries = [adapter.prepare(params, b) for b in batches]
-    data_aware = method_spec(cfg.method).data_aware
     reports: list[LayerReport] = []
     masks: dict[Path, Tensor] = {}
     owned: set[Path] = set()          # expert stacks copied by this run
@@ -126,50 +219,78 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
         for i in range(adapter.num_blocks(params)):
             # ---- pass 1: capture inputs, accumulate Hessians -------------
             accs: dict[Path, HessianAccumulator] = {}
-            for carry in carries:
-                _, caps = adapter.block_apply(params, i, carry, capture=True)
-                for path, x in caps.items():
-                    # MoE expert slices tape (activations, row validity):
-                    # only routed capacity rows count as samples
-                    valid = None
-                    if isinstance(x, tuple):
-                        x, valid = x
-                    if path not in accs:
-                        accs[path] = HessianAccumulator.init(x.shape[-1],
-                                                             x.device)
-                    accs[path].update(x, valid)
+            _capture(adapter, params, i, carries, accs,
+                     keep=lambda path: plan.cfg_for(path) is not None)
 
             # ---- prune every linear in the block --------------------------
             for path in adapter.block_linear_paths(params, i):
                 t0 = time.perf_counter()
                 kernel = get_path(params, path)          # (in, out)
+                rule_idx, cfg = plan.resolve(path)
                 acc = accs.pop(path, None)
+                if cfg is None:                          # dense: skip
+                    reports.append(LayerReport(
+                        path=path, sparsity=0.0, obs_loss=0.0,
+                        seconds=time.perf_counter() - t0, rule=rule_idx,
+                        tag="skip", params=kernel.numel(), skipped=True))
+                    continue
                 h = None
                 calib_skipped = 0
                 if acc is not None:
                     h = acc.finalize(
-                        min_count=min_calib_samples if data_aware else 0)
+                        min_count=(min_calib_samples
+                                   if method_spec(cfg.method).data_aware
+                                   else 0))
                     calib_skipped = int(float(acc.skipped))
+                pol = (plan.rules[rule_idx].on_singular
+                       if rule_idx >= 0 else "") or on_singular
                 res, guard = prune_layer_guarded(     # paper layout (out, in)
-                    kernel.T, h, cfg, on_singular=on_singular,
+                    kernel.T, h, cfg, on_singular=pol,
                     max_escalations=max_escalations, path=path_str(path))
                 params = _write_layer(
                     params, path, res.weights.T.contiguous().to(kernel.dtype),
                     owned)
                 masks[path] = res.mask.T.contiguous()       # (in, out)
-                rep = LayerReport(
+                reports.append(LayerReport(
                     path=path, sparsity=float(res.mask.mean()),
                     obs_loss=float(res.loss),
-                    seconds=time.perf_counter() - t0, tag=cfg.tag(),
-                    params=kernel.numel(),
+                    seconds=time.perf_counter() - t0, rule=rule_idx,
+                    tag=cfg.tag(), params=kernel.numel(),
                     damp_attempts=guard.damp_attempts,
                     percdamp_used=guard.percdamp_used,
-                    fallback=guard.fallback, calib_skipped=calib_skipped)
-                reports.append(rep)
+                    fallback=guard.fallback, calib_skipped=calib_skipped))
 
             # ---- pass 2: propagate through the pruned block ---------------
             carries = [adapter.block_apply(params, i, c, capture=False)[0]
                        for c in carries]
 
     return params, PruneReport(layers=reports, masks=masks,
-                               seconds=time.perf_counter() - t_start, cfg=cfg)
+                               seconds=time.perf_counter() - t_start,
+                               plan=plan)
+
+
+def collect_hessian_stats(params, adapter: BlockwiseAdapter,
+                          batches: Iterable[Any]) -> dict[str, LayerStat]:
+    """One dense calibration pass → {path_str: LayerStat(size, trace)}.
+
+    Alg. 3's pass 1 (capture + Hessian accumulation, K1 on the card) over
+    the unpruned model, each layer's Hessian reduced to its mean diagonal
+    tr(H)/b — the saliency proxy ``PrunePlan.allocate_sparsity`` reads.
+    No pruning, no weight change; one forward per block and batch.
+    """
+    carries = [adapter.prepare(params, b) for b in batches]
+    stats: dict[str, LayerStat] = {}
+    with torch.no_grad():
+        for i in range(adapter.num_blocks(params)):
+            accs: dict[Path, HessianAccumulator] = {}
+            _capture(adapter, params, i, carries, accs)
+            for path in adapter.block_linear_paths(params, i):
+                if path not in accs:
+                    continue
+                h = accs.pop(path).finalize()
+                stats[path_str(path)] = LayerStat(
+                    size=get_path(params, path).numel(),
+                    trace=float(torch.trace(h)) / h.shape[0])
+            carries = [adapter.block_apply(params, i, c, capture=False)[0]
+                       for c in carries]
+    return stats

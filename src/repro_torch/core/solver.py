@@ -60,6 +60,37 @@ def _multipliers_chunked(hinv: Tensor, w: Tensor, q_abs: Tensor,
     return batched_multipliers(hinv, w, q_abs, valid)
 
 
+def _scatter(q: Tensor, valid: Tensor, lam: Tensor, width: int,
+             dtype: torch.dtype) -> tuple[Tensor, Tensor]:
+    """Λ (c, width): each row's multipliers scatter-added at its pruned
+    columns ``q``, and the mask of those columns (where the update is
+    clamped to exact zeros).  Invalid slots carry λ̂ = 0 / valid = False, so
+    their scatter is a no-op."""
+    c = q.shape[0]
+    lam_dense = torch.zeros((c, width), dtype=dtype,
+                            device=lam.device).scatter_add_(
+        1, q, torch.where(valid, lam, 0.0))
+    hit = torch.zeros((c, width), dtype=torch.int32, device=q.device
+                      ).scatter_add_(1, q, valid.to(torch.int32))
+    return lam_dense, hit > 0
+
+
+def apply_update(hinv: Tensor, w: Tensor, q_abs: Tensor, valid: Tensor,
+                 lam: Tensor) -> Tensor:
+    """``W − Λ @ Hinv`` with Λ (c, b) the multipliers scatter-added at each
+    row's pruned columns; the pruned positions are then set to exact zeros
+    (the analytic update sends them to 0 up to roundoff)."""
+    lam_dense, hit = _scatter(q_abs, valid, lam, w.shape[1], hinv.dtype)
+    return (w - lam_dense @ hinv).masked_fill(hit, 0.0)
+
+
+def prune_rows_block(hinv: Tensor, w: Tensor, q_abs: Tensor, valid: Tensor,
+                     *, row_chunk: int = 0) -> Tensor:
+    """Full padded solve + update, optionally chunked over rows (App. H.2)."""
+    lam = _multipliers_chunked(hinv, w, q_abs, valid, row_chunk)
+    return apply_update(hinv, w, q_abs, valid, lam)
+
+
 def prune_block(hinv: Tensor, w: Tensor, q_abs: Tensor, valid: Tensor,
                 j1: int, block_size: int, *, row_chunk: int = 0
                 ) -> tuple[Tensor, Tensor]:
@@ -71,22 +102,25 @@ def prune_block(hinv: Tensor, w: Tensor, q_abs: Tensor, valid: Tensor,
     and masked out of the update; a ragged last block anchors the slice at
     ``min(j1, b − B)``.
     """
-    c, b = w.shape
+    b = w.shape[1]
     lam = _multipliers_chunked(hinv, w, q_abs, valid, row_chunk)
     u = torch.where(valid, torch.gather(w, 1, q_abs), 0.0)
     loss = 0.5 * (lam * u).sum()
 
     start = min(j1, b - block_size)
-    q_rel = q_abs - start
-    # invalid slots carry λ̂ = 0 / valid = False, so their scatter is a no-op
-    lam_blk = torch.zeros((c, block_size), dtype=hinv.dtype,
-                          device=hinv.device).scatter_add_(
-        1, q_rel, torch.where(valid, lam, 0.0))
+    lam_blk, hit = _scatter(q_abs - start, valid, lam, block_size,
+                            hinv.dtype)
     delta = lam_blk @ hinv[start:start + block_size]
     delta[:, :j1] = 0.0
     w_new = w - delta
-    hit = torch.zeros((c, block_size), dtype=torch.int32,
-                      device=w.device).scatter_add_(1, q_rel,
-                                                    valid.to(torch.int32))
-    w_new[:, start:start + block_size].masked_fill_(hit > 0, 0.0)
+    w_new[:, start:start + block_size].masked_fill_(hit, 0.0)
     return w_new, loss
+
+
+def obs_loss(hinv: Tensor, w: Tensor, q_abs: Tensor, valid: Tensor
+             ) -> Tensor:
+    """S_k per row (Eq. 61) in its closed form ½ u R̂⁻¹ uᵀ (R H Rᵀ = R̂): a
+    standalone diagnostic; ``prune_block`` gets the loss from its solve."""
+    lam = batched_multipliers(hinv, w, q_abs, valid)
+    u = torch.where(valid, torch.gather(w, 1, q_abs), 0.0)
+    return 0.5 * (lam * u).sum(dim=1)

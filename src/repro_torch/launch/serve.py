@@ -6,9 +6,12 @@ continuous batching).
         --requests 8 --prompt-len 16 --max-new 12 --nm --full
 
 ``--nm`` prunes 2:4 with Thanos first and serves from the NmCompressed
-representation, every pruned linear through K2 on the card.  ``--full``
-runs the published widths and depth (default: reduced); ``--device``
-defaults to ``cuda``.
+representation, every pruned linear through K2 on the card.  ``--plan
+recipe.json`` prunes with a ``PrunePlan`` instead and serves with per-layer
+residency: paths whose cell is n:m stay NmCompressed (K2), every other
+path (unstructured cells, skip rules) serves dense through ``x @ W`` (try
+examples/recipes/mixed_2to4_serve.json).  ``--full`` runs the published
+widths and depth (default: reduced); ``--device`` defaults to ``cuda``.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.core.api import PruneConfig
+from repro_torch.core.plan import PrunePlan
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.models.model_builder import build_model
@@ -37,6 +41,9 @@ def main():
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--nm", action="store_true",
                     help="Thanos-prune 2:4 and serve compressed-resident")
+    ap.add_argument("--plan", default="",
+                    help="PrunePlan recipe: prune per layer and serve with "
+                         "mixed dense/NmCompressed residency")
     ap.add_argument("--nm-impl", default="auto", choices=IMPLS,
                     help="compressed matmul impl (default: auto)")
     ap.add_argument("--full", action="store_true",
@@ -48,7 +55,24 @@ def main():
     dev = resolve_device(args.device)
     cfg = registry.get_config(args.arch, reduced=not args.full)
     model = build_model(cfg, device=dev)
-    if args.nm:
+    if args.plan:
+        from repro_torch.launch.prune import prune_arch
+
+        plan = PrunePlan.load(args.plan)
+        print(f"pruning with recipe {args.plan} ({len(plan.rules)} rules)…")
+        pruned, report, _ = prune_arch(args.arch, plan,
+                                       reduced=not args.full, log=None,
+                                       device=dev)
+        params = compress_params(pruned, report.masks, plan=report.plan)
+        comp, dense = compressed_bytes(params)
+        if dense:
+            print(f"compressed weight bytes: {comp / dense:.3f} of their "
+                  f"dense bytes (non-n:m cells stay dense)")
+        for row in report.rule_rollup():
+            print(f"  rule {row['rule']:3d} {str(row['match']):20s} "
+                  f"{row['tag']:18s} layers={row['layers']:3d} "
+                  f"sparsity={row['mean_sparsity']:.3f}")
+    elif args.nm:
         from repro_torch.launch.prune import prune_arch
 
         print("pruning 2:4 with Thanos first…")

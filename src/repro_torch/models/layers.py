@@ -128,8 +128,13 @@ def rmsnorm(p: dict, x: Tensor, eps: float = 1e-6) -> Tensor:
     return y * p["scale"]
 
 
+def _gelu_tanh(x: Tensor) -> Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation, not the erf form."""
+    return F.gelu(x, approximate="tanh")
+
+
 def act_fn(name: str):
-    return {"silu": F.silu, "gelu": F.gelu, "relu": F.relu}[name]
+    return {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu}[name]
 
 
 # --------------------------------------------------------------------------

@@ -58,8 +58,12 @@ def moe_ffn(p: dict, x: Tensor, cfg, *, tape=None, path=()) -> Tensor:
 
     # ---- routing (the router stays dense and unpruned) --------------------
     logits = xt @ p["router"]["w"]                             # (T, E)
-    gates, ids = torch.topk(torch.softmax(logits.to(torch.float32), dim=-1),
-                            k, dim=-1)
+    # a stable descending sort cut to k: equal probabilities (common with
+    # bf16 logits) keep the lower expert first, as jax.lax.top_k does;
+    # torch.topk gives no tie order
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    ids = torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :k]
+    gates = torch.gather(probs, -1, ids)
 
     # ---- sort-based dispatch ----------------------------------------------
     flat_ids = ids.reshape(-1)                                 # (T*k,)

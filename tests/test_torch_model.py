@@ -135,3 +135,17 @@ def test_decode_equals_forward_last_position(pair):
         lt, tc = tmodel.decode_step(tparams, tc, toks[:, i:i + 1], i)
     full = tmodel.forward(tparams, {"tokens": toks})
     torch.testing.assert_close(lt[:, 0], full[:, -1], **TOL)
+
+
+@pytest.mark.parametrize("name", ["gelu", "silu", "relu"])
+def test_act_fn_matches_jax(name):
+    """``act_fn`` against ``repro.models.layers.act_fn`` on [-4, 4] in fp32:
+    max |Δ| ≤ 1e-6.  JAX's gelu is the tanh form (``jax.nn.gelu``'s
+    default), not the erf form ``F.gelu`` computes by default."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as TL
+
+    x = np.linspace(-4.0, 4.0, 4001, dtype=np.float32)
+    got = n(TL.act_fn(name)(torch.from_numpy(x)))
+    want = np.asarray(JL.act_fn(name)(jnp.asarray(x)))
+    assert np.abs(got - want).max() <= 1e-6

@@ -47,7 +47,7 @@ from repro_torch.serve.compressed import (compress_params,  # noqa: E402
                                           decompress_params)
 from repro_torch.serve.engine import (Request, ServeConfig,  # noqa: E402
                                       ServingEngine)
-from test_torch_fixtures import jax_tree_to_numpy, n  # noqa: E402
+from test_torch_fixtures import jax_tree_to_numpy, n, t  # noqa: E402
 
 ARCH = "qwen3-moe-30b-a3b"
 TOL = {"rtol": 1e-4, "atol": 1e-4}
@@ -310,3 +310,44 @@ def test_serve_cli_on_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "compressed weight bytes: 0.562 of dense" in out
     assert "2 requests, 6 tokens" in out
+
+
+def test_bf16_router_ties_route_like_jax_top_k():
+    """bf16 routing with forced boundary ties: router columns repeated in
+    groups of three make many tokens' k-th and (k+1)-th probabilities
+    exactly equal.  ``jax.lax.top_k`` keeps the lower expert; so must the
+    port (a stable descending sort cut to k, not ``torch.topk``).  Every
+    expert's routed rows (the tape's (E, C) masks and the dispatched
+    activations) equal JAX's exactly, and so do the per-token expert ids
+    that ``jax.lax.top_k`` gives on the same probabilities; the outputs
+    agree at bf16 rounding."""
+    cfg = j_get_config(ARCH, reduced=True).replace(dtype="bfloat16")
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    jp = JM.moe_params(jax.random.PRNGKey(3), cfg, jnp.bfloat16)
+    router = np.asarray(jp["router"]["w"].astype(jnp.float32))
+    router = router[:, [0, 0, 0, 3, 3, 3, 6, 6][:E]]     # tied columns
+    jp = dict(jp, router={"w": jnp.asarray(router, jnp.bfloat16)})
+    x = np.random.default_rng(4).normal(size=(2, 32, cfg.d_model))
+    xj = jnp.asarray(x, jnp.bfloat16)
+    jtape: dict = {}
+    y_j = JM.moe_ffn(jp, xj, cfg, tape=jtape)
+    ttape: dict = {}
+    tcfg = get_config(ARCH, reduced=True).replace(dtype="bfloat16")
+    y_t = M.moe_ffn(_carry(jp), t(xj), tcfg, tape=ttape)
+
+    probs = jax.nn.softmax((xj.reshape(-1, cfg.d_model)
+                            @ jp["router"]["w"]).astype(jnp.float32))
+    p_sorted = np.sort(np.asarray(probs), axis=-1)[:, ::-1]
+    assert (p_sorted[:, k - 1] == p_sorted[:, k]).mean() > 0.5  # ties forced
+    gates_j, ids_j = jax.lax.top_k(probs, k)
+    counts = np.zeros(E, np.int64)
+    for e in range(E):
+        xe, valid = ttape[("gate", "w", e)]
+        xej, validj = jtape[("gate", "w", e)]
+        np.testing.assert_array_equal(n(valid), np.asarray(validj))
+        np.testing.assert_array_equal(n(xe), np.asarray(xej, np.float32))
+        counts[e] = int(valid.sum())
+    np.testing.assert_array_equal(
+        counts, np.bincount(np.asarray(ids_j).ravel(), minlength=E))
+    np.testing.assert_allclose(n(y_t), np.asarray(y_j, np.float32),
+                               rtol=2e-2, atol=2e-2)
