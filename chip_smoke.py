@@ -17,7 +17,8 @@ non-zero without the final result line):
              row mask, K2 at qwen3-moe's attention shapes, K3 (stacked
              expert matmul) at both full-width expert leaves and odd shapes;
              then K1 and K2 at deepseek-v3's MLA and MLP shapes (MLA_K1,
-             MLA_K2), each K2 launch's plan printed.
+             MLA_K2) and at gemma3-1b's (GEMMA_K1, GEMMA_K2), each K2
+             launch's plan printed.
 3. prune   — the dense path: Thanos 2:4 prunes tinyllama-1.1b at full width
              and depth from a seeded random init (K1 carries the Hessians).
 4. serve   — compress the pruned linears and serve 4 requests through the
@@ -55,6 +56,22 @@ plan. plan — tinyllama under examples/recipes/mixed_2to4_serve.json: MLP
              with the int8 one (QuantMlaCache); exact launch counts, the
              first-step logits against the decompressed params and the
              int8 logits against the bf16 cache's.
+paged. paged — the paged KV cache (page pools shared by the slots, prefix
+             reuse, copy-on-write, preemption), every engine auditing its
+             pager after every step: tinyllama (phase 4's tree) serves the
+             phase-4 set on an auto-sized pool (tokens identical to phase
+             4's), a prefix trace (prefix hits and copies required, tokens
+             identical to the contiguous engine's), the phase-4 set on the
+             progress-floor pool (preemptions required, pool drained) and
+             with the int8 pool (tokens identical to phase 4's int8 run);
+             after the mla phase, deepseek-v3 serves it with both paged
+             latent caches (tokens identical to that phase's); then
+             gemma3-1b at full width and depth: Thanos 2:4 prune (K1,
+             2 · 7 · 26 launches), compress, and 4 requests — one of 528
+             tokens, which wraps every window-512 ring — served contiguous
+             and paged in the mixed layout (4 page pools beside 22 rings),
+             tokens identical, K2 in every serve, and the first-step logits
+             against the decompressed params.
    Then the redesigned kernels at odd shapes: K1 at ragged tokens and b
              with and without a row mask (xtx exactly symmetric, NaN batch
              skipped); K3 with all-zero and filled row groups mixed (their
@@ -74,17 +91,20 @@ plan. plan — tinyllama under examples/recipes/mixed_2to4_serve.json: MLP
              total, each beside the library's.
 
 Kernel launch counts are zeroed just before each path (phases 3,
-baselines, plan, 4m and mla) and read just after its serve (the mla path:
-after both serves; baselines and plan also per method and per step); the
-comparison and timing launches are not counted.  The tinyllama rows of
-phase 5 carry the baselines and plan paths' launches at the same shapes
-(``path_launches``).  The line before the
+baselines, plan, 4m, mla and each part of paged) and read just after its
+serve (the mla path: after both serves; gemma3: after its paged serve;
+baselines and plan also per method and per step); the comparison and
+timing launches are not counted, nor are the contiguous serves the paged
+ones are held against (``uncounted``).  The tinyllama rows of phase 5 carry the baselines, plan and
+paged paths' launches at the same shapes (``path_launches``), the
+deepseek-v3 rows the paged path's.  The line before the
 last is the kernels JSON; the last line is the device JSON.  Results are
 also written to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -121,6 +141,25 @@ MLA_K2 = [(1536, 7168), (24576, 1536), (576, 7168), (7168, 16384),
           (18432, 7168), (7168, 18432)]
 # K1 at x (1024, b): the inputs of wq_a/wkv_a/gate/up, wq_b, wkv_b, wo, down
 MLA_K1 = [7168, 1536, 512, 16384, 18432]
+# tokens a page in the paged phase; the request set's rows (16 prompt + 12
+# new + 8) rounded up to a multiple of it, so a paged slot's logical row is
+# as long as a contiguous one — the condition of their bitwise parity
+PAGE = 16
+SERVE_MAX_LEN = 48
+# the prefix trace: 4 prompts of one 40-token head (2½ pages) and distinct
+# 7-token tails, so each prompt ends inside its third page and its first
+# decode write copies that registered page, then request 0's prompt again;
+# rows of 64 tokens (4 pages) hold a prompt and its 12 new tokens
+PREFIX_HEAD, PREFIX_TAIL, PREFIX_MAX_LEN = 40, 7, 64
+GEMMA_ARCH = "gemma3-1b"
+# one 528-token prompt wraps every local ring (window 512); rows of 544
+# tokens (34 pages) hold it and its 12 new tokens
+GEMMA_LONG, GEMMA_MAX_LEN = 528, 544
+# K1 at x (1024, b): the inputs of wq/wk/wv/gate/up, wo, down; K2, (c, b):
+# wq, wk/wv, gate/up, wo, down
+GEMMA_K1 = [1152, 1024, 6912]
+GEMMA_K2 = [(1024, 1152), (256, 1152), (6912, 1152), (1152, 1024),
+            (1152, 6912)]
 K3_REPLACES = ("src/repro/kernels/ops.py:151-161 (loops the pallas_call of "
                "src/repro/kernels/nm_spmm.py:135)")
 MAXB_ROWS = 8                 # capacity rows K3 computes per row group
@@ -655,8 +694,7 @@ def moe_phase(dev) -> dict:
     cb, db = compressed_bytes(comp)
     check(cb / db == 0.625, f"compressed ratio {cb / db}")
     prompts = request_prompts(cfg.vocab_size)
-    done, t_serve, engine = serve_requests(model, comp, prompts,
-                                           cfg.vocab_size)
+    done, t_serve, engine = serve_requests(model, comp, prompts)
     launches = {fn.__name__: fn.launches for fn in kernels}
     by_shape = {fn.__name__: dict(fn.by_shape) for fn in kernels}
     st = engine.stats
@@ -1029,28 +1067,45 @@ def request_prompts(vocab: int) -> list:
     return [rng.integers(0, vocab, size=16) for _ in range(4)]
 
 
-def serve_requests(model, params, prompts, vocab: int):
-    """The phase-4 request set — 4 requests × (16 prompt + 12 new) on 4
-    slots — through the continuous-batching engine → (finished requests,
-    seconds, engine)."""
+def run_engine(model, params, specs: list, label: str, *, max_len: int,
+               **paged) -> tuple:
+    """Serve ``specs`` [(prompt, max_new), …] on 4 slots through the
+    continuous-batching engine; ``paged`` holds the ServeConfig's paged
+    options, and a paged engine audits its pager after every step
+    (``debug_checks``: an audit error fails the run).  Fails unless every
+    request completes with its max_new in-vocabulary tokens → (finished
+    requests, seconds, engine)."""
     import torch
 
     from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 
-    engine = ServingEngine(model, params, ServeConfig(batch_slots=4,
-                                                      max_len=16 + 12 + 8))
-    for uid, p in enumerate(prompts):
-        engine.submit(Request(uid, p, max_new=12))
+    engine = ServingEngine(model, params, ServeConfig(
+        batch_slots=4, max_len=max_len,
+        debug_checks=paged.get("paged", False), **paged))
+    for uid, (prompt, new) in enumerate(specs):
+        engine.submit(Request(uid, prompt, max_new=new))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = engine.run()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    check(len(done) == 4 and all(r.done and len(r.out) == 12 for r in done)
+    vocab = model.cfg.vocab_size
+    check(len(done) == len(specs)
+          and all(r.done and len(r.out) == new
+                  for r, (_, new) in zip(done, specs))
           and all(0 <= t < vocab for r in done for t in r.out),
-          f"{model.cfg.name} ({model.cfg.kv_cache_dtype or 'model dtype'} "
-          "cache): served requests incomplete or out of vocabulary")
+          f"{label}: served requests incomplete or out of vocabulary")
     return done, seconds, engine
+
+
+def serve_requests(model, params, prompts):
+    """The phase-4 request set — 4 requests × (16 prompt + 12 new) on 4
+    slots — through the continuous-batching engine → (finished requests,
+    seconds, engine)."""
+    kind = model.cfg.kv_cache_dtype or "model dtype"
+    return run_engine(model, params, [(p, 12) for p in prompts],
+                      f"{model.cfg.name} ({kind} cache)",
+                      max_len=SERVE_MAX_LEN)
 
 
 def first_step_line(model, comp, prompts) -> tuple:
@@ -1135,11 +1190,12 @@ def int8_cache_line(name: str, model, model8, params, prompts, engine,
             "argmax_agree": agree}
 
 
-def mla_kernel_checks(gen, dev) -> dict:
-    """Phase 2 at the MLA path's shapes (bf16, the served format): K1 at
-    x (1024, b) for every b of MLA_K1, K2 at every (c, b) of MLA_K2 for
-    B ∈ {1, 4} and 4-/8-bit indices, each launch's plan printed.
-    Tolerances as above: K1 rtol 1e-3 / atol 2e-2 (xtx exactly
+def path_kernel_checks(gen, dev, label: str, k1_bs: list,
+                       k2_shapes: list) -> dict:
+    """Phase 2 at one path's shapes (bf16, the served format): K1 at
+    x (1024, b) for every b of ``k1_bs``, K2 at every (c, b) of
+    ``k2_shapes`` for B ∈ {1, 4} and 4-/8-bit indices, each launch's plan
+    printed.  Tolerances as above: K1 rtol 1e-3 / atol 2e-2 (xtx exactly
     symmetric); K2 rtol 2e-2 / atol 1e-2.  → errors and operands for
     phase 5."""
     import torch
@@ -1150,7 +1206,7 @@ def mla_kernel_checks(gen, dev) -> dict:
 
     bf16 = torch.bfloat16
     out: dict = {"k1": {}, "k2": {}, "packs2": {}}
-    for b in MLA_K1:
+    for b in k1_bs:
         x = torch.randn((1024, b), generator=gen, device=dev).to(bf16)
         acc_k = [torch.zeros((b, b), device=dev), torch.zeros((), device=dev),
                  torch.zeros((), device=dev)]
@@ -1164,10 +1220,11 @@ def mla_kernel_checks(gen, dev) -> dict:
               and torch.equal(acc_k[0], acc_k[0].T)
               and float(acc_k[1]) == float(acc_p[1]) == 2048.0
               and float(acc_k[2]) == 0.0,
-              f"K1 MLA (1024, {b}): err {e[0]:.3g}, count {float(acc_k[1])}")
+              f"K1 {label} (1024, {b}): err {e[0]:.3g}, count "
+              f"{float(acc_k[1])}")
         out["k1"][(1024, b, str(bf16))] = e
         del x, acc_k, acc_p
-    for c, b in MLA_K2:
+    for c, b in k2_shapes:
         w = (torch.randn((c, b), generator=gen, device=dev)
              / math.sqrt(b)).to(bf16)
         mask = nm_mask(w.float(), torch.ones((b,), device=dev), 2, 4)
@@ -1183,7 +1240,7 @@ def mla_kernel_checks(gen, dev) -> dict:
             e = errs(y_k, y_p)
             check(y_k.shape == (B, c) and torch.allclose(
                 y_k.float(), y_p.float(), rtol=2e-2, atol=1e-2),
-                f"K2 MLA ({c}, {b}) B={B} idx{bits}: plan {plan}, max abs "
+                f"K2 {label} ({c}, {b}) B={B} idx{bits}: plan {plan}, max abs "
                 f"err {e[0]:.3g}")
             print(f"  K2 ({c}, {b}) B={B} idx{bits}: plan mode {plan[0]} CS "
                   f"{plan[1]} smem {plan[2]} B, {K2._k2_ctas(c, B, plan)} "
@@ -1192,8 +1249,8 @@ def mla_kernel_checks(gen, dev) -> dict:
             if bits == 4:
                 out["packs2"][(c, b)] = (pk, w.masked_fill(mask > 0.5, 0))
         del w, mask
-    print(f"kernels: MLA shapes: hessian_xtx {len(out['k1'])} checks ok at "
-          f"b ∈ {MLA_K1} (rtol 1e-3 / atol 2e-2, xtx exactly symmetric); "
+    print(f"kernels: {label} shapes: hessian_xtx {len(out['k1'])} checks ok "
+          f"at b ∈ {k1_bs} (rtol 1e-3 / atol 2e-2, xtx exactly symmetric); "
           f"nm_matmul {len(out['k2'])} checks ok (rtol 2e-2 / atol 1e-2)")
     return out
 
@@ -1205,7 +1262,8 @@ def mla_phase(dev) -> dict:
     dense (the absorbed decode reads it raw); the engine serves the
     phase-4 request set with the bf16 latent cache (``MlaCache``) and
     again with the int8 one (``QuantMlaCache``).  Exact K1/K2 launch
-    counts over the path."""
+    counts over the path.  Then the paged phase's deepseek serves
+    (``paged_mla``), counted apart."""
     import warnings
 
     import torch
@@ -1297,8 +1355,7 @@ def mla_phase(dev) -> dict:
     check(cb / db == 0.625, f"compressed ratio {cb / db}")
 
     prompts = request_prompts(cfg.vocab_size)
-    done, t_serve, engine = serve_requests(model, comp, prompts,
-                                           cfg.vocab_size)
+    done, t_serve, engine = serve_requests(model, comp, prompts)
     st = engine.stats
     steps = st["prefill_tokens"] + st["decode_steps"]
     k2_expect = (5 - 1 + 3) * L * steps          # wkv_b serves dense
@@ -1318,8 +1375,7 @@ def mla_phase(dev) -> dict:
     print(f"  req 0: {done[0].out}")
 
     model8 = build_model(cfg.replace(kv_cache_dtype="int8"), device=dev)
-    done8, t_serve8, engine8 = serve_requests(model8, comp, prompts,
-                                              cfg.vocab_size)
+    done8, t_serve8, engine8 = serve_requests(model8, comp, prompts)
     st8 = engine8.stats
     steps8 = st8["prefill_tokens"] + st8["decode_steps"]
     launches = {fn.__name__: fn.launches for fn in kernels}
@@ -1338,6 +1394,7 @@ def mla_phase(dev) -> dict:
     # 5e-2 of the logits' max magnitude, as the other logit checks
     q8 = int8_cache_line(MLA_ARCH, model, model8, comp, prompts, engine,
                          engine8, ntok / t_serve, ntok8 / t_serve8, 5e-2)
+    paged = paged_mla(model, model8, comp, prompts, done, done8)
     stats = {k: st[k] + st8[k] for k in st}
     return {"layers": L, "layers_full": full.num_layers,
             "dense_loss": dense_loss, "pruned_loss": pruned_loss,
@@ -1348,20 +1405,22 @@ def mla_phase(dev) -> dict:
             "stats": st, "stats_both": stats, "steps": steps,
             "launches": launches, "by_shape": by_shape,
             "logits_max_abs_err": e[0], "logits_rel_err": e[1],
-            "argmax_agree": e[2], "int8": q8}
+            "argmax_agree": e[2], "int8": q8, "paged": paged}
 
 
-def mla_times(gen, dev, chk: dict, mla: dict) -> list:
-    """Phase 5 rows at the MLA path's shapes (bf16): K1 at x (1024, b) for
-    every b of MLA_K1, K2 at every (c, b) of MLA_K2 (``k2_times``)."""
+def path_times(gen, dev, chk: dict, main: dict, path: str, k1_bs: list,
+               others: "dict | None" = None) -> list:
+    """Phase 5 rows at one path's shapes (bf16): K1 at x (1024, b) for
+    every b of ``k1_bs``, K2 at every (c, b) checked in ``chk``
+    (``k2_times``); ``main`` is the path's launches by shape, ``others``
+    another path's K2 launches at the same shapes."""
     import torch
 
     from repro_torch.kernels import hessian_accum as K1
 
     bf16 = torch.bfloat16
-    main = mla["by_shape"]
     rows = []
-    for b in MLA_K1:
+    for b in k1_bs:
         x = torch.randn((1024, b), generator=gen, device=dev).to(bf16)
         x32 = x.float()
         acc = [torch.zeros((b, b), device=dev), torch.zeros((), device=dev),
@@ -1372,7 +1431,7 @@ def mla_times(gen, dev, chk: dict, mla: dict) -> list:
         key = (1024, b, str(bf16))
         rows.append({
             "name": "hessian_xtx", "shape": f"x (1024, {b}) bf16",
-            "path": MLA_ARCH, "route": "cuda",
+            "path": path, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/hessian_xtx.cu",
             "replaces": "src/repro/kernels/hessian_accum.py:66",
             "launches": main["hessian_update_cuda"].get(key, 0),
@@ -1391,8 +1450,295 @@ def mla_times(gen, dev, chk: dict, mla: dict) -> list:
         del x, x32, acc
         torch.cuda.empty_cache()
     rows += k2_times(gen, dev, chk["packs2"], chk["k2"],
-                     main["nm_matmul_cuda"], MLA_ARCH)
+                     main["nm_matmul_cuda"], path, others)
     return rows
+
+
+def serve_trace(model, params, specs: list, label: str, *, max_len: int,
+                **paged) -> tuple:
+    """``run_engine``, failing unless K2 launched in this serve, and
+    printing tok/s, the model steps, the K2 launches and the paged
+    statistics → (tokens by uid, seconds, engine)."""
+    from repro_torch.kernels import nm_spmm as K2
+
+    k2 = K2.nm_matmul_cuda.launches
+    done, seconds, engine = run_engine(model, params, specs, label,
+                                       max_len=max_len, **paged)
+    k2 = K2.nm_matmul_cuda.launches - k2
+    check(k2 > 0, f"{label}: K2 never launched")
+    st = engine.stats
+    ntok = sum(len(r.out) for r in done)
+    line = ""
+    if engine.pager is not None:
+        line = (f"; paged: hwm {st['pages_hwm']} of "
+                f"{engine.pager.pool.num_pages - 1} pages, "
+                f"{st['page_faults']} faults, {st['cow_copies']} COW, "
+                f"{st['prefix_hit_tokens']} prefix-hit tokens, "
+                f"{st['preemptions']} preemptions, "
+                f"{engine.pager.pool.used_pages} pages used after")
+    print(f"  {label}: {len(done)} requests, {ntok} tokens in {seconds:.2f} "
+          f"s ({ntok / seconds:.1f} tok/s; {st['decode_steps']} decode "
+          f"steps, {st['prefill_tokens']} prefill tokens); K2 launches "
+          f"{k2}{line}")
+    return {r.uid: r.out for r in done}, seconds, engine
+
+
+def serve_record(got: dict, seconds: float, engine) -> dict:
+    """One serve's numbers for the results file."""
+    ntok = sum(len(v) for v in got.values())
+    return {"tokens": ntok, "seconds": seconds, "tok_per_s": ntok / seconds,
+            "stats": dict(engine.stats), "cache_bytes":
+            cache_bytes(engine._cache)}
+
+
+def agreement(a: dict, b: dict) -> float:
+    """Share of token positions where two runs of one trace agree."""
+    pairs = [(x, y) for uid in a for x, y in zip(a[uid], b[uid])]
+    return sum(x == y for x, y in pairs) / len(pairs)
+
+
+def paged_tinyllama(cfg, model, model8, comp, prompts, done, done8) -> dict:
+    """Paged phase, tinyllama-1.1b (phase 4's compressed tree, full width
+    and depth, pages of PAGE tokens): (a) the phase-4 request set on an
+    auto-sized pool, tokens identical to phase 4's contiguous engine's;
+    (b) the prefix trace, on the contiguous and the paged engine, tokens
+    identical, prefix hits and copy-on-write required; (c) the phase-4 set
+    on a pool of 1 + pages_per_slot pages (the progress floor, prefix reuse
+    off): preemptions required, every request complete, the pool drained
+    after, the tokens' agreement with (a) printed (a resumed request
+    re-prefills at B=1 what it decoded at B=4, which may round otherwise);
+    (d) (a) with the int8 pool, tokens identical to phase 4's int8
+    contiguous engine's.  Launch counts zeroed before, read after; (b)'s
+    contiguous serve is the reference and is not counted."""
+    import numpy as np
+
+    zero_counts()
+    t0 = time.perf_counter()
+    vocab = cfg.vocab_size
+    specs = [(p, 12) for p in prompts]
+    kw = dict(paged=True, page_size=PAGE)
+    want = {r.uid: r.out for r in done}
+    out: dict = {}
+    print(f"phase paged: tinyllama-1.1b (phase 4's compressed tree), pages "
+          f"of {PAGE} tokens, rows of {SERVE_MAX_LEN}")
+    got, secs, eng = serve_trace(model, comp, specs, "(a) phase-4 set, paged",
+                                 max_len=SERVE_MAX_LEN, **kw)
+    check(got == want, f"(a) paged tokens {got} differ from phase 4's "
+          f"contiguous engine's {want}")
+    kinds = {type(c).__name__ for c in eng._cache.values()}
+    check(kinds == {"PagedGqaCache"}, f"(a) the paged engine holds {kinds}")
+    pool_b = cache_bytes(eng._cache)
+    cont_b = cache_bytes(model.init_cache(4, SERVE_MAX_LEN))
+    print(f"    tokens identical to phase 4's; paged pool {pool_b} B vs the "
+          f"contiguous cache {cont_b} B ({pool_b / cont_b:.4f}; "
+          f"{eng.pager.pool.num_pages} pages of which 1 scratch), hwm "
+          f"{eng.stats['pages_hwm']} pages")
+    out["a"] = dict(serve_record(got, secs, eng), contiguous_bytes=cont_b)
+
+    rng = np.random.default_rng(1)
+    head = rng.integers(0, vocab, size=PREFIX_HEAD)
+    trace = [np.concatenate([head, rng.integers(0, vocab, size=PREFIX_TAIL)])
+             for _ in range(4)]
+    spec_b = [(p, 12) for p in trace + [trace[0].copy()]]
+    with uncounted():
+        got_c, secs_c, eng_c = serve_trace(model, comp, spec_b,
+                                           "(b) prefix trace, contiguous "
+                                           "(the reference, not counted)",
+                                           max_len=PREFIX_MAX_LEN)
+    got_p, secs_p, eng_p = serve_trace(model, comp, spec_b,
+                                       "(b) prefix trace, paged",
+                                       max_len=PREFIX_MAX_LEN, **kw)
+    st = eng_p.stats
+    check(got_p == got_c, "(b) paged tokens differ from the contiguous "
+          "engine's on the prefix trace")
+    check(st["prefix_hit_tokens"] > 0 and st["cow_copies"] > 0,
+          f"(b) prefix hits {st['prefix_hit_tokens']}, copies "
+          f"{st['cow_copies']}")
+    print(f"    tokens identical to the contiguous engine's; prefill tokens "
+          f"{st['prefill_tokens']} paged vs "
+          f"{eng_c.stats['prefill_tokens']} contiguous")
+    out["b"] = {"paged": serve_record(got_p, secs_p, eng_p),
+                "contiguous": serve_record(got_c, secs_c, eng_c)}
+
+    floor = 1 + SERVE_MAX_LEN // PAGE
+    got_f, secs_f, eng_f = serve_trace(
+        model, comp, specs, f"(c) phase-4 set, {floor}-page pool",
+        max_len=SERVE_MAX_LEN, num_pages=floor, prefix_reuse=False, **kw)
+    st = eng_f.stats
+    check(st["preemptions"] > 0, "(c) the constrained pool never preempted")
+    check(eng_f.pager.pool.used_pages == 0,
+          f"(c) {eng_f.pager.pool.used_pages} pages used after the run")
+    agree = agreement(got_f, got)
+    print(f"    {st['preemptions']} preemptions, pool drained; tokens agree "
+          f"with (a) at {agree:.3f} of positions (not gated)")
+    out["c"] = dict(serve_record(got_f, secs_f, eng_f), agree_with_a=agree)
+
+    want8 = {r.uid: r.out for r in done8}
+    got8, secs8, eng8 = serve_trace(model8, comp, specs,
+                                    "(d) phase-4 set, int8 paged",
+                                    max_len=SERVE_MAX_LEN, **kw)
+    kinds = {type(c).__name__ for c in eng8._cache.values()}
+    check(kinds == {"PagedQuantGqaCache"}, f"(d) the engine holds {kinds}")
+    check(got8 == want8, "(d) int8 paged tokens differ from phase 4's int8 "
+          "contiguous engine's")
+    print(f"    tokens identical to phase 4's int8 engine's; int8 pool "
+          f"{cache_bytes(eng8._cache)} B")
+    out["d"] = serve_record(got8, secs8, eng8)
+    out["counts"] = path_counts()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase paged, tinyllama-1.1b: {out['seconds']:.1f} s")
+    return out
+
+
+def paged_mla(model, model8, comp, prompts, done, done8) -> dict:
+    """Paged phase, deepseek-v3-671b (the mla phase's compressed tree):
+    the phase-4 request set with ``PagedMlaCache`` and with
+    ``PagedQuantMlaCache``, tokens identical to the mla phase's bf16 and
+    int8 contiguous engines'.  Launch counts zeroed before, read after."""
+    zero_counts()
+    t0 = time.perf_counter()
+    specs = [(p, 12) for p in prompts]
+    out: dict = {}
+    print(f"phase paged: {MLA_ARCH} (the mla phase's compressed tree)")
+    for key, mdl, ref, kind in (("bf16", model, done, "PagedMlaCache"),
+                                ("int8", model8, done8,
+                                 "PagedQuantMlaCache")):
+        got, secs, eng = serve_trace(mdl, comp, specs,
+                                     f"phase-4 set, {kind}",
+                                     max_len=SERVE_MAX_LEN, paged=True,
+                                     page_size=PAGE)
+        kinds = {type(c).__name__ for c in eng._cache.values()}
+        check(kinds == {kind}, f"{MLA_ARCH} paged {key}: holds {kinds}")
+        want = {r.uid: r.out for r in ref}
+        check(got == want, f"{MLA_ARCH} paged {key} tokens differ from the "
+              f"contiguous engine's")
+        print(f"    tokens identical to the {key} contiguous engine's; pool "
+              f"{cache_bytes(eng._cache)} B")
+        out[key] = serve_record(got, secs, eng)
+    out["counts"] = path_counts()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase paged, {MLA_ARCH}: {out['seconds']:.1f} s")
+    return out
+
+
+def gemma3_phase(dev) -> dict:
+    """Paged phase, gemma3-1b at full width and depth (26 layers, 5 local
+    window-512 layers to 1 global, head_dim 256, one kv head, vocab
+    262 144, tied embeddings), bf16 from seed 0: ``prune_arch``'s Thanos
+    2:4 with its calibration (K1, exactly 2 · 7 · 26 launches), compress,
+    and serve 4 requests — one of GEMMA_LONG tokens, which wraps every
+    local ring, and three phase-4 prompts, 12 new tokens each — on the
+    contiguous engine and on the paged one in the mixed layout (4 page
+    pools beside 22 rings, prefix reuse off), tokens identical (K2 for
+    every pruned linear).  Then the first-step logits against the
+    decompressed params.  Launch counts zeroed before the prune, read
+    after the paged serve; the contiguous serve is the reference and is
+    not counted."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import PruneConfig
+    from repro_torch.core.masks import check_nm
+    from repro_torch.kernels import hessian_accum as K1
+    from repro_torch.launch.prune import prune_arch
+    from repro_torch.models.model_builder import build_model
+    from repro_torch.serve.compressed import (compress_params,
+                                              compressed_bytes)
+
+    cfg = get_config(GEMMA_ARCH)
+    L = cfg.num_layers
+    local = sum(not cfg.layer_is_global(i) for i in range(L))
+    print(f"phase paged: {GEMMA_ARCH} at full width and depth (d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, kv "
+          f"heads {cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {L} layers: {local} local window "
+          f"{cfg.sliding_window} θ {cfg.rope_theta_local:g}, {L - local} "
+          f"global θ {cfg.rope_theta:g}), {cfg.dtype}")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pruned, report, out = prune_arch(
+        GEMMA_ARCH, PruneConfig("thanos", "nm", n=2, m=4, block_size=64),
+        reduced=False, device=dev, log=None)
+    torch.cuda.synchronize()
+    t_prune = time.perf_counter() - t0
+    check(len(report.masks) == 7 * L, f"{len(report.masks)} pruned linears")
+    check(all(check_nm(mk.T, 2, 4) for mk in report.masks.values()),
+          "a pruned linear breaks 2:4")
+    check(all(r.fallback == "" for r in report.layers),
+          "a layer fell back to magnitude pruning")
+    check(abs(out["mean_sparsity"] - 0.5) < 1e-9,
+          f"sparsity {out['mean_sparsity']}")
+    check(math.isfinite(out["dense_loss"])
+          and math.isfinite(out["pruned_loss"]), "non-finite held-out loss")
+    k1_expect = 2 * 7 * L
+    k1 = K1.hessian_update_cuda.launches
+    check(k1 == k1_expect, f"K1 launches {k1}, expected {k1_expect}")
+    k1_shapes = {b: k for (_, b, _), k in
+                 sorted(K1.hessian_update_cuda.by_shape.items())}
+    check(set(k1_shapes) == set(GEMMA_K1), f"K1 shapes {k1_shapes}")
+    print(f"  prune: thanos 2:4 B=64: dense loss {out['dense_loss']:.4f}, "
+          f"pruned loss {out['pruned_loss']:.4f}, prune "
+          f"{out['prune_seconds']:.1f} s (prune_arch {t_prune:.1f} s), K1 "
+          f"launches {k1} (expect 2 × 7 × {L} = {k1_expect}), by b "
+          f"{k1_shapes}")
+    comp = compress_params(pruned, report.masks, 2, 4)
+    del pruned, report
+    cb, db = compressed_bytes(comp)
+    check(cb / db == 0.625, f"compressed ratio {cb / db}")
+    model = build_model(cfg, device=dev)
+    rng = np.random.default_rng(2)
+    prompts = ([rng.integers(0, cfg.vocab_size, size=GEMMA_LONG)]
+               + request_prompts(cfg.vocab_size)[:3])
+    specs = [(p, 12) for p in prompts]
+    t1 = time.perf_counter()
+    with uncounted():
+        got_c, secs_c, eng_c = serve_trace(model, comp, specs,
+                                           "contiguous engine (the "
+                                           "reference, not counted)",
+                                           max_len=GEMMA_MAX_LEN)
+    got_p, secs_p, eng_p = serve_trace(model, comp, specs,
+                                       "paged engine, mixed layout",
+                                       max_len=GEMMA_MAX_LEN, paged=True,
+                                       page_size=PAGE)
+    t_serve = time.perf_counter() - t1
+    counts = path_counts()
+    kinds = [type(c).__name__ for c in eng_p._cache.values()]
+    check(kinds.count("PagedGqaCache") == L - local
+          and kinds.count("GqaCache") == local,
+          f"paged layout {kinds}")
+    check(eng_p.pager.prefix is None, "prefix reuse is on for a windowed "
+          "model")
+    top = int(eng_c._cache[0].pos_ids.max())
+    check(top >= cfg.sliding_window, f"the local rings never wrapped (last "
+          f"position {top})")
+    check(got_p == got_c, "gemma3 paged tokens differ from the contiguous "
+          "engine's")
+    pool_b, cont_b = cache_bytes(eng_p._cache), cache_bytes(eng_c._cache)
+    print(f"  compressed {cb / db:.4f} of dense bf16 bytes on the {7 * L} "
+          f"pruned linears; paged tokens identical to the contiguous "
+          f"engine's; {L - local} paged layers beside {local} rings of "
+          f"{cfg.sliding_window} (last position {top}, every ring wrapped); "
+          f"resident cache paged {pool_b} B vs contiguous {cont_b} B; "
+          f"K2 launches {counts['nm_matmul_cuda'][0]} in the paged serve")
+    e = first_step_line(model, comp, prompts)
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter() - t0
+    print(f"phase paged, {GEMMA_ARCH}: {t_phase:.1f} s")
+    return {"layers": L, "dense_loss": out["dense_loss"],
+            "seconds": t_phase,
+            "pruned_loss": out["pruned_loss"],
+            "prune_seconds": out["prune_seconds"],
+            "phase_prune_seconds": t_prune, "serve_seconds": t_serve,
+            "ratio": cb / db, "k1_launches": k1,
+            "contiguous": serve_record(got_c, secs_c, eng_c),
+            "paged": serve_record(got_p, secs_p, eng_p),
+            "last_position": top, "stats": dict(eng_p.stats),
+            "by_shape": {name: shapes for name, (_, shapes) in
+                         counts.items()},
+            "logits_max_abs_err": e[0], "logits_rel_err": e[1],
+            "argmax_agree": e[2]}
 
 
 def zero_counts() -> None:
@@ -1403,6 +1749,24 @@ def zero_counts() -> None:
                K2.nm_matmul_stacked_cuda):
         fn.launches = 0
         fn.by_shape.clear()
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Run a comparison outside the path's launch counts: every wrapper's
+    counts are saved on entry and put back on exit."""
+    from repro_torch.kernels import hessian_accum as K1, nm_spmm as K2
+
+    fns = (K1.hessian_update_cuda, K2.nm_matmul_cuda,
+           K2.nm_matmul_stacked_cuda)
+    saved = [(fn.launches, dict(fn.by_shape)) for fn in fns]
+    try:
+        yield
+    finally:
+        for fn, (n, shapes) in zip(fns, saved):
+            fn.launches = n
+            fn.by_shape.clear()
+            fn.by_shape.update(shapes)
 
 
 def path_counts() -> dict:
@@ -1500,8 +1864,7 @@ def baselines_phase(dev, dense, dense_loss: float) -> dict:
         comp = compress_params(pruned, report.masks, 2, 4)
         cb, db = compressed_bytes(comp)
         check(cb / db == 0.625, f"{method}: compressed ratio {cb / db}")
-        done, t_serve, engine = serve_requests(model, comp, prompts,
-                                               cfg.vocab_size)
+        done, t_serve, engine = serve_requests(model, comp, prompts)
         got = path_counts()
         add_counts(counts, got)
         st = engine.stats
@@ -1659,8 +2022,7 @@ def plan_phase(dev, dense, dense_loss: float) -> dict:
           f"plan: bytes ratio {cb / db} on the compressed kernels, "
           f"{ratio_all} over all prunable linears (expected {want})")
     prompts = request_prompts(cfg.vocab_size)
-    done, t_serve, engine = serve_requests(model, comp, prompts,
-                                           cfg.vocab_size)
+    done, t_serve, engine = serve_requests(model, comp, prompts)
     st = engine.stats
     steps = st["prefill_tokens"] + st["decode_steps"]
     counts = path_counts()
@@ -1876,7 +2238,8 @@ def main() -> None:
     moe_chk = moe_kernel_checks(gen, dev)
     redesign_checks(gen, dev)
     k2_tc_checks(gen, dev)
-    mla_chk = mla_kernel_checks(gen, dev)
+    mla_chk = path_kernel_checks(gen, dev, "MLA", MLA_K1, MLA_K2)
+    gemma_chk = path_kernel_checks(gen, dev, "gemma3", GEMMA_K1, GEMMA_K2)
 
     # ---- 3. main path: prune ----------------------------------------------
     zero_counts()
@@ -1914,8 +2277,7 @@ def main() -> None:
     check(abs(cb / db - 0.625) < 1e-6, f"compressed ratio {cb / db}")
     model = build_model(cfg, device="cuda")
     prompts = request_prompts(cfg.vocab_size)
-    done, t_serve, engine = serve_requests(model, comp, prompts,
-                                           cfg.vocab_size)
+    done, t_serve, engine = serve_requests(model, comp, prompts)
     k1_launches = K1.hessian_update_cuda.launches
     k2_launches = K2.nm_matmul_cuda.launches
     k1_main = dict(K1.hessian_update_cuda.by_shape)
@@ -1935,14 +2297,18 @@ def main() -> None:
     e = first_step_line(model, comp, prompts)
     agree = e[2]
     model8 = build_model(cfg.replace(kv_cache_dtype="int8"), device="cuda")
-    done8, t_serve8, engine8 = serve_requests(model8, comp, prompts,
-                                              cfg.vocab_size)
+    done8, t_serve8, engine8 = serve_requests(model8, comp, prompts)
     # 22 random-init layers amplify the int8 rounding as they amplify the
     # summation order (first-step rel above): held to the reference's
     # absolute bound only
     int8 = int8_cache_line("tinyllama-1.1b", model, model8, comp, prompts,
                            engine, engine8, ntok / t_serve,
                            sum(len(r.out) for r in done8) / t_serve8, None)
+
+    # ---- paged: the paged KV cache on phase 4's tree ----------------------
+    paged = paged_tinyllama(cfg, model, model8, comp, prompts, done, done8)
+    results["paged"] = {"tinyllama": {k: v for k, v in paged.items()
+                                      if k != "counts"}}
     del engine8, model8
     results["serve"] = {"ratio": cb / db, "tokens": ntok,
                         "seconds": t_serve, "tok_per_s": ntok / t_serve,
@@ -1975,8 +2341,20 @@ def main() -> None:
 
     # ---- mla. MLA path: prune → compress → serve, bf16 and int8 caches ---
     mla = mla_phase(dev)
+    mla_paged = mla.pop("paged")
     results["mla"] = {k: v for k, v in mla.items() if k != "by_shape"}
+    results["paged"][MLA_ARCH] = {k: v for k, v in mla_paged.items()
+                                  if k != "counts"}
     torch.cuda.empty_cache()
+
+    # ---- paged: gemma3-1b prune → compress → serve, the mixed layout -----
+    gemma = gemma3_phase(dev)
+    results["paged"][GEMMA_ARCH] = {k: v for k, v in gemma.items()
+                                    if k != "by_shape"}
+    torch.cuda.empty_cache()
+    t_paged = paged["seconds"] + mla_paged["seconds"] + gemma["seconds"]
+    results["paged"]["seconds"] = t_paged
+    print(f"phase paged: {t_paged:.1f} s over its three parts")
 
     # ---- 5. times at the main-path shapes ---------------------------------
     entries = []
@@ -2011,9 +2389,13 @@ def main() -> None:
     entries += k2_times(gen, dev, packs, k2_err, k2_main, "tinyllama-1.1b",
                         {name: ph["counts"]["nm_matmul_cuda"][1]
                          for name, ph in (("baselines", base),
-                                          ("plan", plan))})
+                                          ("plan", plan), ("paged", paged))})
     entries += moe_times(gen, dev, moe_chk, moe)
-    entries += mla_times(gen, dev, mla_chk, mla)
+    entries += path_times(gen, dev, mla_chk, mla["by_shape"], MLA_ARCH,
+                          MLA_K1,
+                          {"paged": mla_paged["counts"]["nm_matmul_cuda"][1]})
+    entries += path_times(gen, dev, gemma_chk, gemma["by_shape"], GEMMA_ARCH,
+                          GEMMA_K1)
     torch.cuda.synchronize()
     print(f"phase times on {results['gpu']} (name, power limit):")
     for e in entries:
@@ -2038,7 +2420,8 @@ def main() -> None:
     steps = {}
     for path, st in (("tinyllama-1.1b", results["serve"]["stats"]),
                      (MOE_ARCH, moe["stats"]),
-                     (MLA_ARCH, mla["stats_both"])):
+                     (MLA_ARCH, mla["stats_both"]),
+                     (GEMMA_ARCH, gemma["stats"])):
         steps[path] = k2_step_line(
             [e for e in entries if e["name"] == "nm_matmul"
              and e["path"] == path], st, path)

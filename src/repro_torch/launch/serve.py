@@ -10,8 +10,12 @@ representation, every pruned linear through K2 on the card.  ``--plan
 recipe.json`` prunes with a ``PrunePlan`` instead and serves with per-layer
 residency: paths whose cell is n:m stay NmCompressed (K2), every other
 path (unstructured cells, skip rules) serves dense through ``x @ W`` (try
-examples/recipes/mixed_2to4_serve.json).  ``--full`` runs the published
-widths and depth (default: reduced); ``--device`` defaults to ``cuda``.
+examples/recipes/mixed_2to4_serve.json).  ``--paged`` serves from the
+paged KV cache with prefix reuse (``--page-size`` tokens a page, max_len
+rounded up to a multiple of it; ``--num-pages`` 0 sizes the pool for every
+slot at max_len) and prints its page statistics.  ``--full`` runs the
+published widths and depth (default: reduced); ``--device`` defaults to
+``cuda``.
 """
 from __future__ import annotations
 
@@ -46,6 +50,12 @@ def main():
                          "mixed dense/NmCompressed residency")
     ap.add_argument("--nm-impl", default="auto", choices=IMPLS,
                     help="compressed matmul impl (default: auto)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache with prefix reuse (serve/pager.py)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per cache page (must divide max_len)")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="page pool size (0 = auto: full capacity)")
     ap.add_argument("--full", action="store_true",
                     help="published widths and depth (default: reduced)")
     ap.add_argument("--device", default="cuda",
@@ -86,9 +96,13 @@ def main():
     else:
         params = model.init(torch.Generator(device=dev).manual_seed(0))
 
+    max_len = args.prompt_len + args.max_new + 8
+    if args.paged and max_len % args.page_size:
+        max_len += args.page_size - max_len % args.page_size   # round up
     engine = ServingEngine(model, params, ServeConfig(
-        batch_slots=args.slots, max_len=args.prompt_len + args.max_new + 8,
-        nm_impl=args.nm_impl))
+        batch_slots=args.slots, max_len=max_len, nm_impl=args.nm_impl,
+        paged=args.paged, page_size=args.page_size,
+        num_pages=args.num_pages))
     rng = np.random.default_rng(0)
     for uid in range(args.requests):
         engine.submit(Request(uid, rng.integers(0, cfg.vocab_size,
@@ -106,6 +120,12 @@ def main():
     print(f"{len(done)} requests, {tokens} tokens in {dt:.2f}s "
           f"({tokens / dt:.1f} tok/s on {dev}; {st['decode_steps']} decode "
           f"steps, slot occupancy {occ:.2f})")
+    if args.paged:
+        print(f"  paged: hwm {st['pages_hwm']} pages of "
+              f"{engine.pager.pool.num_pages - 1}, "
+              f"{st['page_faults']} faults, {st['cow_copies']} COW, "
+              f"{st['prefix_hit_tokens']} prefix-hit tokens, "
+              f"{st['preemptions']} preemptions")
     for r in done[:4]:
         print(f"  req {r.uid}: {r.out}")
 

@@ -8,6 +8,9 @@ Model protocol, as in the JAX package:
     init_cache(batch, max_len)                  → {layer: cache} — GQA or
                                                   MLA, int8 when
                                                   cfg.kv_cache_dtype is "int8"
+    init_paged_cache(batch, num_pages=, page_size=, pages_per_slot=)
+                                                → {layer: cache} — pools,
+                                                  rings for windowed layers
     decode_step(params, cache, tokens, pos)     → (logits (B, 1, V), cache)
     embed_batch / block / num_blocks / block_linear_paths   (Alg.-3 adapter)
 """
@@ -164,6 +167,30 @@ class TransformerLM:
             caches[i] = A.gqa_cache_init(
                 self.cfg, batch, max_len, window=min(w, max_len) if w else 0,
                 dtype=self.cfg.torch_dtype, device=self.device)
+        return caches
+
+    def init_paged_cache(self, batch: int, *, num_pages: int,
+                         page_size: int, pages_per_slot: int) -> dict:
+        """Paged resident cache: full-attention GQA layers and every MLA
+        layer get page pools (``serve/pager.py`` decides their tables);
+        sliding-window layers keep a ring of min(window, pages_per_slot ·
+        page_size) slots — a ring is O(window) a slot already.  decode_step
+        needs nothing more: ``gqa_decode``/``mla_decode`` dispatch on each
+        layer's cache kind."""
+        cfg, dt, dev = self.cfg, self.cfg.torch_dtype, self.device
+        max_len = pages_per_slot * page_size
+        geom = dict(num_pages=num_pages, page_size=page_size,
+                    pages_per_slot=pages_per_slot, dtype=dt, device=dev)
+        caches = {}
+        for i in range(cfg.num_layers):
+            if cfg.uses_mla:
+                caches[i] = A.mla_paged_cache_init(cfg, batch, **geom)
+            elif self._window(i):
+                caches[i] = A.gqa_cache_init(
+                    cfg, batch, max_len, window=min(self._window(i), max_len),
+                    dtype=dt, device=dev)
+            else:
+                caches[i] = A.gqa_paged_cache_init(cfg, batch, **geom)
         return caches
 
     def decode_step(self, params, cache, tokens, pos):
