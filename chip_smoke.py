@@ -17,8 +17,10 @@ non-zero without the final result line):
              row mask, K2 at qwen3-moe's attention shapes, K3 (stacked
              expert matmul) at both full-width expert leaves and odd shapes;
              then K1 and K2 at deepseek-v3's MLA and MLP shapes (MLA_K1,
-             MLA_K2) and at gemma3-1b's (GEMMA_K1, GEMMA_K2), each K2
-             launch's plan printed.
+             MLA_K2), at gemma3-1b's (GEMMA_K1, GEMMA_K2) and at the
+             families' (ZAMBA_*, XLSTM_*, WHISPER_*; K2 also at (4, 4096)
+             and at whisper's encoder rows, B = 6000), each K2 launch's
+             plan printed.
 3. prune   — the dense path: Thanos 2:4 prunes tinyllama-1.1b at full width
              and depth from a seeded random init (K1 carries the Hessians).
 4. serve   — compress the pruned linears and serve 4 requests through the
@@ -72,6 +74,20 @@ paged. paged — the paged KV cache (page pools shared by the slots, prefix
              and paged in the mixed layout (4 page pools beside 22 rings),
              tokens identical, K2 in every serve, and the first-step logits
              against the decompressed params.
+families. families — the recurrent and encoder–decoder families, bf16
+             from seed 0, each pruned with Thanos 2:4 B=64 on 2 × 8 × 128
+             tokens (K1), compressed (0.625 of dense bytes) and decoded
+             compressed-resident (K2), with exact launch counts:
+             zamba2-7b at full width, depth cut 81 → 24 (shared sites 5,
+             11, 17, 23: each shared set pruned once, at its second site,
+             from both sites' Hessians), the phase-4 set served with bf16
+             and int8 shared caches; xlstm-1.3b at full width and depth,
+             served, its bf16 matrix memory against fp32; each engine's
+             tokens against teacher-forced B = 1 loops; whisper-medium at
+             full width and depth: encode 4 × 1500 frames (K2 at x
+             (6000, b)), cross k/v once, 12 greedy tokens at B = 4,
+             identical to the uncached decode's; every family's
+             first-step logits against its decompressed tree.
    Then the redesigned kernels at odd shapes: K1 at ragged tokens and b
              with and without a row mask (xtx exactly symmetric, NaN batch
              skipped); K3 with all-zero and filled row groups mixed (their
@@ -91,7 +107,7 @@ paged. paged — the paged KV cache (page pools shared by the slots, prefix
              total, each beside the library's.
 
 Kernel launch counts are zeroed just before each path (phases 3,
-baselines, plan, 4m, mla and each part of paged) and read just after its
+baselines, plan, 4m, mla and each part of paged and of families) and read just after its
 serve (the mla path: after both serves; gemma3: after its paged serve;
 baselines and plan also per method and per step); the comparison and
 timing launches are not counted, nor are the contiguous serves the paged
@@ -160,6 +176,26 @@ GEMMA_LONG, GEMMA_MAX_LEN = 528, 544
 GEMMA_K1 = [1152, 1024, 6912]
 GEMMA_K2 = [(1024, 1152), (256, 1152), (6912, 1152), (1152, 1024),
             (1152, 6912)]
+# the families phase: zamba2-7b's depth cut 81 → 24 keeps 4 shared sites
+# (5, 11, 17, 23), so each shared set runs twice; K1 at x (1024, b) and K2
+# (c, b) at every path shape: zamba2's in/out_proj, shared q/k/v/o, gate/up,
+# down; xlstm's up, q/k/v, i/f gates (4 output rows), down, sLSTM gates;
+# whisper's attention, fc1, fc2
+ZAMBA_LAYERS = 24
+ZAMBA_K1 = [3584, 7168, 14336]
+ZAMBA_K2 = [(14704, 3584), (3584, 7168), (3584, 3584), (14336, 3584),
+            (3584, 14336)]
+XLSTM_K1 = [2048, 4096]
+XLSTM_K2 = [(8192, 2048), (4096, 4096), (4, 4096), (2048, 4096),
+            (2048, 2048)]
+# the depths at which xlstm's first-step logits are held (depth_profile)
+XLSTM_DEPTHS = (1, 8, 16, 24, 32, 48)
+WHISPER_K1 = [1024, 4096]
+WHISPER_K2 = [(1024, 1024), (4096, 1024), (1024, 4096)]
+# 4 sources of the 30 s window (1500 frames), 12 greedy tokens: the encoder
+# runs K2 at x (6000, b), the decoder at B = 4
+WHISPER_FRAMES, WHISPER_NEW = 1500, 12
+WHISPER_B = (4, 4 * WHISPER_FRAMES)
 K3_REPLACES = ("src/repro/kernels/ops.py:151-161 (loops the pallas_call of "
                "src/repro/kernels/nm_spmm.py:135)")
 MAXB_ROWS = 8                 # capacity rows K3 computes per row group
@@ -836,9 +872,10 @@ def moe_dispatch_inputs(gen, dev, packs3: dict) -> dict:
 
 
 def k2_times(gen, dev, packs: dict, err: dict, main: dict,
-             path: str, others: "dict | None" = None) -> list:
+             path: str, others: "dict | None" = None,
+             batches=(1, 4)) -> list:
     """Phase 5 rows of K2 at one path's shapes (bf16 2:4, 4-bit indices,
-    B ∈ {1, 4}): its plan, the kernel, the warp-per-row kernel (K2's
+    B ∈ ``batches``): its plan, the kernel, the warp-per-row kernel (K2's
     design before the tensor-core path, mode 1 of the same source), the plain
     version and ``torch.matmul`` on the dense weight.  The weights rotate
     through copies so that every launch streams them from HBM.  ``others``
@@ -859,7 +896,9 @@ def k2_times(gen, dev, packs: dict, err: dict, main: dict,
             128 * 2**20 / (wd.numel() * 2))))]
         reps = copies * max(1, 64 // copies)
         dreps = len(dens) * max(1, 64 // len(dens))
-        for B in (1, 4):
+        for B in batches:
+            if B > 8:                        # x is large: fewer replays
+                reps, dreps = min(reps, 8), min(dreps, 8)
             x = torch.randn((B, b), generator=gen, device=dev).to(bf16)
             plan = K2._k2_operands(x, pk.values, pk.indices, 2, 4, b, 4)[3]
             old = (1, 1, 0)                  # warp-per-row, 16-byte loads
@@ -1053,10 +1092,13 @@ def moe_times(gen, dev, chk: dict, moe: dict) -> list:
     return rows
 
 
-def cache_bytes(cache: dict) -> int:
-    """Bytes of every tensor field of every layer's cache."""
-    return sum(t.numel() * t.element_size() for layer in cache.values()
-               for t in vars(layer).values() if hasattr(t, "element_size"))
+def cache_bytes(cache) -> int:
+    """Bytes of every tensor field of every layer's cache (a dict of
+    caches, nested for the hybrid's {"mamba", "shared"})."""
+    if isinstance(cache, dict):
+        return sum(cache_bytes(layer) for layer in cache.values())
+    return sum(t.numel() * t.element_size() for t in vars(cache).values()
+               if hasattr(t, "element_size"))
 
 
 def request_prompts(vocab: int) -> list:
@@ -1191,11 +1233,11 @@ def int8_cache_line(name: str, model, model8, params, prompts, engine,
 
 
 def path_kernel_checks(gen, dev, label: str, k1_bs: list,
-                       k2_shapes: list) -> dict:
+                       k2_shapes: list, batches=(1, 4)) -> dict:
     """Phase 2 at one path's shapes (bf16, the served format): K1 at
     x (1024, b) for every b of ``k1_bs``, K2 at every (c, b) of
-    ``k2_shapes`` for B ∈ {1, 4} and 4-/8-bit indices, each launch's plan
-    printed.  Tolerances as above: K1 rtol 1e-3 / atol 2e-2 (xtx exactly
+    ``k2_shapes`` for B ∈ ``batches`` and 4-/8-bit indices, each launch's
+    plan printed.  Tolerances as above: K1 rtol 1e-3 / atol 2e-2 (xtx exactly
     symmetric); K2 rtol 2e-2 / atol 1e-2.  → errors and operands for
     phase 5."""
     import torch
@@ -1228,7 +1270,7 @@ def path_kernel_checks(gen, dev, label: str, k1_bs: list,
         w = (torch.randn((c, b), generator=gen, device=dev)
              / math.sqrt(b)).to(bf16)
         mask = nm_mask(w.float(), torch.ones((b,), device=dev), 2, 4)
-        for bits, B in itertools.product((4, 8), (1, 4)):
+        for bits, B in itertools.product((4, 8), batches):
             pk = pack_nm(w, mask, 2, 4, idx_bits=bits)
             x = torch.randn((B, b), generator=gen, device=dev).to(bf16)
             plan = K2._k2_operands(x, pk.values, pk.indices, 2, 4, b,
@@ -1409,7 +1451,7 @@ def mla_phase(dev) -> dict:
 
 
 def path_times(gen, dev, chk: dict, main: dict, path: str, k1_bs: list,
-               others: "dict | None" = None) -> list:
+               others: "dict | None" = None, batches=(1, 4)) -> list:
     """Phase 5 rows at one path's shapes (bf16): K1 at x (1024, b) for
     every b of ``k1_bs``, K2 at every (c, b) checked in ``chk``
     (``k2_times``); ``main`` is the path's launches by shape, ``others``
@@ -1450,7 +1492,7 @@ def path_times(gen, dev, chk: dict, main: dict, path: str, k1_bs: list,
         del x, x32, acc
         torch.cuda.empty_cache()
     rows += k2_times(gen, dev, chk["packs2"], chk["k2"],
-                     main["nm_matmul_cuda"], path, others)
+                     main["nm_matmul_cuda"], path, others, batches)
     return rows
 
 
@@ -1739,6 +1781,466 @@ def gemma3_phase(dev) -> dict:
                          counts.items()},
             "logits_max_abs_err": e[0], "logits_rel_err": e[1],
             "argmax_agree": e[2]}
+
+
+def prune_family(cfg, dev) -> dict:
+    """``prune_arch``'s steps on ``cfg`` (which may cut the registry's
+    depth): init from seed 0, held-out loss, Thanos 2:4 B=64 on 2 × 8 × 128
+    calibration tokens (K1), held-out loss of the pruned tree, compress →
+    the model, the compressed tree, the report's layers and the numbers."""
+    import torch
+
+    from repro_torch.core.api import PruneConfig
+    from repro_torch.core.masks import check_nm
+    from repro_torch.core.schedule import prune_model
+    from repro_torch.data.pipeline import calibration_batches, heldout_loss
+    from repro_torch.models.model_builder import ModelAdapter, build_model
+    from repro_torch.serve.compressed import (compress_params,
+                                              compressed_bytes)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    dense_loss = heldout_loss(model, params, cfg)
+    batches = calibration_batches(cfg, num_samples=16, seq_len=128, batch=8,
+                                  device=dev)
+    t1 = time.perf_counter()
+    pruned, report = prune_model(
+        params, ModelAdapter(model), batches,
+        PruneConfig("thanos", "nm", n=2, m=4, block_size=64))
+    torch.cuda.synchronize()
+    t_prune = time.perf_counter() - t1
+    del params
+    pruned_loss = heldout_loss(model, pruned, cfg)
+    check(all(check_nm(mk.T, 2, 4) for mk in report.masks.values()),
+          f"{cfg.name}: a pruned linear breaks 2:4")
+    check(all(r.fallback == "" for r in report.layers),
+          f"{cfg.name}: a layer fell back to magnitude pruning")
+    check(abs(report.mean_sparsity() - 0.5) < 1e-9,
+          f"{cfg.name}: sparsity {report.mean_sparsity()}")
+    check(math.isfinite(dense_loss) and math.isfinite(pruned_loss),
+          f"{cfg.name}: non-finite held-out loss")
+    comp = compress_params(pruned, report.masks, 2, 4)
+    del pruned
+    cb, db = compressed_bytes(comp)
+    check(cb / db == 0.625, f"{cfg.name}: compressed ratio {cb / db}")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"  prune: thanos 2:4 B=64 on {len(batches)} × 8 × 128 tokens: "
+          f"{len(report.layers)} linears in {t_prune:.1f} s ({secs:.1f} s "
+          f"with init, held-out losses and compress), dense loss "
+          f"{dense_loss:.4f}, pruned loss {pruned_loss:.4f}; compressed "
+          f"{cb / db:.4f} of dense bf16 bytes ({cb / 2**20:.1f} MiB vs "
+          f"{db / 2**20:.1f} MiB)")
+    return {"model": model, "comp": comp, "layers": report.layers,
+            "batches": len(batches), "dense_loss": dense_loss,
+            "pruned_loss": pruned_loss, "prune_seconds": t_prune,
+            "seconds": secs, "ratio": cb / db}
+
+
+def stack_rows(rows: list):
+    """B = 1 caches (dicts of dataclass caches, nested or not) → one cache
+    of B = len(rows), each tensor field concatenated along the batch axis;
+    the engine's in-place slot writes, done another way."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(rows[0], dict):
+        return {k: stack_rows([r[k] for r in rows]) for k in rows[0]}
+    return dataclasses.replace(rows[0], **{
+        f.name: torch.cat([getattr(r, f.name) for r in rows])
+        for f in dataclasses.fields(rows[0])
+        if isinstance(getattr(rows[0], f.name), torch.Tensor)})
+
+
+def lockstep_check(model, comp, prompts, done, label: str) -> dict:
+    """The engine's tokens against a reference without the engine (not
+    counted): each prompt prefilled alone at B = 1 from a fresh cache, as
+    the engine prefills, the four row caches concatenated into one B = 4
+    cache, then greedy decode of the four rows side by side — the steps
+    the engine takes once all four slots are admitted.  The two compute
+    the same kernels on the same shapes, so the tokens must be identical:
+    this holds the engine's slot writes of every state leaf (GQA, Mamba,
+    xLSTM).  Also reported, not gated: ε, the largest |Δlogit| between
+    the prompts decoded side by side at B = 4 and alone at B = 1 — the
+    card's batch-shaped kernels (cuBLAS, reductions) round a B = 4 row and
+    a B = 1 row differently, so free-running B = 1 loops may part from
+    the engine at a near-tie."""
+    import numpy as np
+    import torch
+
+    dev = model.device
+    served = {r.uid: r.out for r in done}
+    new = len(served[0])
+    check(all(len(v) == new for v in served.values())
+          and len({len(p) for p in prompts}) == 1,
+          f"{label}: the lockstep reference needs equal prompt lengths and "
+          "max_new")
+    with uncounted(), torch.no_grad():
+        rows, lg1, first = [], [], []
+        for prompt in prompts:
+            row = model.init_cache(1, SERVE_MAX_LEN)
+            toks = torch.tensor(np.asarray(prompt)[None], device=dev)
+            out = []
+            for s in range(toks.shape[1]):
+                lg, row = model.decode_step(comp, row, toks[:, s:s + 1], s)
+                out.append(lg[0, -1].float())
+            rows.append(row)
+            lg1.append(torch.stack(out))
+            first.append(int(lg[0, -1].argmax()))
+        S = len(prompts[0])
+        cache = stack_rows(rows)
+        tok = torch.tensor(first, device=dev)[:, None]
+        pos = torch.full((len(prompts),), S, dtype=torch.int64, device=dev)
+        got = [tok[:, 0]]
+        for _ in range(new - 1):
+            lg, cache = model.decode_step(comp, cache, tok, pos)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            got.append(tok[:, 0])
+            pos = pos + 1
+        got = torch.stack(got, dim=1).tolist()
+        toks = torch.tensor(np.stack(prompts), device=dev)
+        c4 = model.init_cache(len(prompts), SERVE_MAX_LEN)
+        lg4 = []
+        for s in range(S):
+            lg, c4 = model.decode_step(comp, c4, toks[:, s:s + 1], s)
+            lg4.append(lg[:, -1].float())
+        eps = float((torch.stack(lg4, 1) - torch.stack(lg1)).abs().max())
+    same = sum(a == b for r in range(len(prompts))
+               for a, b in zip(got[r], served[r]))
+    check(all(got[r] == served[r] for r in range(len(prompts))),
+          f"{label}: engine tokens differ from the lockstep reference's "
+          f"({same} of {new * len(prompts)} agree)")
+    print(f"  engine tokens identical to B = 1 prefills + a B = 4 lockstep "
+          f"decode of the concatenated rows ({same} tokens); ε (B = 4 vs "
+          f"B = 1 logits on the prompts) {eps:.4g}")
+    return {"tokens": same, "eps": eps}
+
+
+def depth_profile(cfg, comp, prompts, depths) -> dict:
+    """First-step logits of the compressed tree's first d blocks (the
+    same leaves, a model of depth d) for each d of ``depths``: kernel path
+    against the decompressed leaves (rel err), and the decompressed
+    leaves' own B = 4 logits against each row alone at B = 1 (the model's
+    rounding sensitivity at that depth, no kernel involved)."""
+    import torch
+
+    from repro_torch.models.model_builder import build_model
+    from repro_torch.serve.compressed import decompress_params
+
+    dense = decompress_params(comp)
+    tok = torch.tensor([[int(p[0])] for p in prompts], device=comp[
+        "embed"]["table"].device)
+    out = {}
+    with uncounted(), torch.no_grad():
+        for d in depths:
+            m = build_model(cfg.replace(num_layers=d), device=tok.device)
+
+            def cut(tree):
+                return dict(tree, blocks={i: tree["blocks"][i]
+                                          for i in range(d)})
+
+            lk, _ = m.decode_step(cut(comp), m.init_cache(4, 8), tok, 0)
+            ld, _ = m.decode_step(cut(dense), m.init_cache(4, 8), tok, 0)
+            l1 = torch.cat([m.decode_step(cut(dense), m.init_cache(1, 8),
+                                          tok[r:r + 1], 0)[0]
+                            for r in range(4)])
+            out[d] = {"kernel_rel": errs(lk, ld)[1],
+                      "b4_b1_rel": errs(ld, l1)[1],
+                      "finite": bool(torch.isfinite(lk).all())}
+    del dense
+    return out
+
+
+def family_counts(label: str, expect: dict) -> dict:
+    """Read the path's launches now and hold them against ``expect``."""
+    counts = path_counts()
+    launches = {name: n for name, (n, _) in counts.items() if n}
+    check(launches == expect, f"{label} launches {launches}, expected "
+          f"{expect}")
+    return {name: shapes for name, (_, shapes) in counts.items()}
+
+
+def zamba2_part(dev) -> dict:
+    """Families (a): zamba2-7b at full width, depth cut to ZAMBA_LAYERS
+    (shared sites 5, 11, 17, 23: each shared set runs twice, its Hessian
+    accumulated over both sites and pruned once, at the second)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model_builder import build_model
+
+    full = get_config("zamba2-7b")
+    cfg = full.replace(num_layers=ZAMBA_LAYERS)
+    L = cfg.num_layers
+    print(f"phase families: zamba2-7b at full width (d_model {cfg.d_model}, "
+          f"d_inner {cfg.ssm_expand * cfg.d_model}, "
+          f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} SSM heads of "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, {cfg.ssm_groups} "
+          f"groups, conv {cfg.ssm_conv}; {cfg.num_shared_attn} shared sets of "
+          f"{cfg.num_heads} heads × {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}), {cfg.dtype}; depth cut {full.num_layers} → "
+          f"{L} layers")
+    zero_counts()
+    t0 = time.perf_counter()
+    out = prune_family(cfg, dev)
+    model, comp = out.pop("model"), out.pop("comp")
+    layers = out.pop("layers")
+    sites = model._shared_points()
+    order = [r.path for r in layers]
+    shared = [p for p in order if p[0] == "shared"]
+    last = {s: max(i for i in sites if model._which(i) == s)
+            for s in range(cfg.num_shared_attn)}
+    at = {s: order.index(("mamba", b, "mixer", "out_proj", "w")) + 1
+          for s, b in last.items()}
+    check(len(order) == 2 * L + 7 * cfg.num_shared_attn
+          and len(shared) == len(set(shared)) == 7 * cfg.num_shared_attn
+          and all(order[at[s]:at[s] + 7] == [p for p in shared if p[1] == s]
+                  for s in last),
+          f"zamba2: shared linears not pruned once each at their last site "
+          f"({sites})")
+    print(f"  shared sites {sites}: each of the {len(shared)} shared linears "
+          f"pruned once, set 0 after block {last[0]}, set 1 after block "
+          f"{last[1]} (Hessians over both sites of its set)")
+    prompts = request_prompts(cfg.vocab_size)
+    done, t_serve, engine = serve_requests(model, comp, prompts)
+    model8 = build_model(cfg.replace(kv_cache_dtype="int8"), device=dev)
+    done8, t_serve8, engine8 = serve_requests(model8, comp, prompts)
+    steps = [e.stats["prefill_tokens"] + e.stats["decode_steps"]
+             for e in (engine, engine8)]
+    per_step = 2 * L + 7 * len(sites)
+    by_shape = family_counts("zamba2", {
+        "hessian_update_cuda": out["batches"] * per_step,
+        "nm_matmul_cuda": per_step * sum(steps)})
+    ntok = sum(len(r.out) for r in done)
+    nb, nb8 = cache_bytes(engine._cache), cache_bytes(engine8._cache)
+    print(f"  serve: 4 requests, {ntok} tokens in {t_serve:.2f} s "
+          f"({ntok / t_serve:.1f} tok/s, {steps[0]} model steps, "
+          f"{per_step} K2 launches a step); int8 shared caches "
+          f"{ntok / t_serve8:.1f} tok/s; resident cache {nb8} B vs {nb} B")
+    print(f"  req 0: {done[0].out}")
+    b1 = lockstep_check(model, comp, prompts, done, "zamba2")
+    with uncounted():
+        e = first_step_line(model, comp, prompts)
+        lg = chain_logits(model, comp, prompts)
+        lg8 = chain_logits(model8, comp, prompts)
+    torch.cuda.synchronize()
+    kinds = {type(c).__name__ for c in engine8._cache["shared"].values()}
+    e8 = errs(lg8, lg)
+    check(kinds == {"QuantGqaCache"} and bool(torch.isfinite(lg8).all())
+          and e8[0] < 1.0, f"zamba2 int8 shared caches {kinds}: max abs "
+          f"err {e8[0]:.3g}")
+    agree8 = float((lg8.argmax(-1) == lg.argmax(-1)).float().mean())
+    print(f"  int8 shared caches ({sorted(kinds)[0]}): logits after 16 "
+          f"teacher-forced positions vs bf16 caches: max abs err "
+          f"{e8[0]:.4g} (limit 1.0), rel {e8[1]:.4g}, argmax agree "
+          f"{agree8:.2f} (not gated)")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"phase families, zamba2-7b: {secs:.1f} s")
+    return dict(out, layers_cut=L, layers_full=full.num_layers,
+                sites=sites, seconds_part=secs, by_shape=by_shape, b1=b1,
+                serve=serve_summary(done, t_serve, steps[0]),
+                engine_stats={k: engine.stats[k] + engine8.stats[k]
+                              for k in engine.stats},
+                int8={"max_abs_err": e8[0], "rel_err": e8[1],
+                      "argmax_agree": agree8, "cache_bytes": nb8,
+                      "cache_bytes_bf16": nb, "seconds": t_serve8},
+                logits_max_abs_err=e[0], logits_rel_err=e[1],
+                argmax_agree=e[2])
+
+
+def serve_summary(done, seconds: float, steps: int) -> dict:
+    """One serve's tokens, seconds, tok/s and model steps."""
+    ntok = sum(len(r.out) for r in done)
+    return {"tokens": ntok, "seconds": seconds, "tok_per_s": ntok / seconds,
+            "model_steps": steps}
+
+
+def xlstm_part(dev) -> dict:
+    """Families (b): xlstm-1.3b at full width and depth (42 mLSTM + 6
+    sLSTM blocks); then the fp32 against the bf16 matrix memory."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model_builder import build_model
+
+    cfg = get_config("xlstm-1.3b")
+    L = cfg.num_layers
+    n_s = sum((i + 1) % cfg.slstm_every == 0 for i in range(L))
+    print(f"phase families: xlstm-1.3b at full width and depth ({L} blocks: "
+          f"{L - n_s} mLSTM, {n_s} sLSTM; d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads, proj factor {cfg.xlstm_proj_factor}, "
+          f"vocab {cfg.vocab_size}), {cfg.dtype}")
+    zero_counts()
+    t0 = time.perf_counter()
+    out = prune_family(cfg, dev)
+    model, comp = out.pop("model"), out.pop("comp")
+    layers = out.pop("layers")
+    per_step = 7 * (L - n_s) + 6 * n_s
+    check(len(layers) == per_step and all(
+        r.path[3] not in ("ri", "rf", "rz", "ro") for r in layers),
+        f"xlstm: {len(layers)} pruned linears")
+    prompts = request_prompts(cfg.vocab_size)
+    done, t_serve, engine = serve_requests(model, comp, prompts)
+    steps = engine.stats["prefill_tokens"] + engine.stats["decode_steps"]
+    by_shape = family_counts("xlstm", {
+        "hessian_update_cuda": out["batches"] * per_step,
+        "nm_matmul_cuda": per_step * steps})
+    ntok = sum(len(r.out) for r in done)
+    print(f"  serve: 4 requests, {ntok} tokens in {t_serve:.2f} s "
+          f"({ntok / t_serve:.1f} tok/s, {steps} model steps, {per_step} K2 "
+          f"launches a step; wi/wf (4, 4096) among them); resident state "
+          f"{cache_bytes(engine._cache)} B")
+    print(f"  req 0: {done[0].out}")
+    b1 = lockstep_check(model, comp, prompts, done, "xlstm")
+    # a random-init xLSTM in bf16 amplifies rounding block after block
+    # (the dense tree's own B = 4 and B = 1 logits part by ~1.1 of their
+    # magnitude at 48 blocks, PERF.md §6), so the first-step logits
+    # are held at rel 5e-2 on one block and, at every depth, to twice that
+    # spread of the model's own
+    prof = depth_profile(cfg, comp, prompts, XLSTM_DEPTHS)
+    check(all(v["finite"] for v in prof.values())
+          and prof[1]["kernel_rel"] <= 5e-2
+          and all(v["kernel_rel"] <= max(5e-2, 2 * v["b4_b1_rel"])
+                  for v in prof.values()),
+          f"xlstm compressed vs dense first-step logits: {prof}")
+    print(f"  first-step logits, K2 path vs decompressed dense, rel err by "
+          f"depth: " + ", ".join(f"{d}: {v['kernel_rel']:.4g}" for d, v in
+                                 prof.items())
+          + "; the dense tree's B = 4 vs B = 1 rel err by depth: "
+          + ", ".join(f"{d}: {v['b4_b1_rel']:.4g}" for d, v in prof.items())
+          + " (limit: 5e-2 at depth 1, max(5e-2, 2 × the latter) at each)")
+    modelb = build_model(cfg.replace(kv_cache_dtype="bf16"), device=dev)
+    with uncounted():
+        lg = chain_logits(model, comp, prompts)
+        lgb = chain_logits(modelb, comp, prompts)
+    torch.cuda.synchronize()
+    eb = errs(lgb, lg)
+    agree = float((lgb.argmax(-1) == lg.argmax(-1)).float().mean())
+    check(bool(torch.isfinite(lgb).all()), "xlstm: non-finite logits with "
+          "the bf16 matrix memory")
+    print(f"  matrix memory bf16 vs fp32 (C, n), logits after 16 "
+          f"teacher-forced positions: max abs err {eb[0]:.4g}, rel "
+          f"{eb[1]:.4g}, argmax agree {agree:.2f} (reported)")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"phase families, xlstm-1.3b: {secs:.1f} s")
+    return dict(out, layers_cut=L, seconds_part=secs, by_shape=by_shape,
+                b1=b1, serve=serve_summary(done, t_serve, steps),
+                engine_stats=dict(engine.stats),
+                bf16_state={"max_abs_err": eb[0], "rel_err": eb[1],
+                            "argmax_agree": agree},
+                depth_profile=prof,
+                logits_rel_err=prof[cfg.num_layers]["kernel_rel"])
+
+
+def whisper_decode(model, params, frames, starts, kv_cached: bool):
+    """Encode ``frames``, then WHISPER_NEW greedy tokens at B = 4 from the
+    start tokens, cross-attending through precomputed k/v or (not
+    ``kv_cached``) the encoded source → (tokens (B, new), first logits)."""
+    import torch
+
+    with torch.no_grad():
+        enc = model.encode(params, frames)
+        src = model.precompute_cross_kv(params, enc) if kv_cached else enc
+        cache = model.init_cache(frames.shape[0], WHISPER_NEW + 4)
+        tok, toks, first = starts, [], None
+        for s in range(WHISPER_NEW):
+            lg, cache = model.decode_step(params, cache, tok, s, src)
+            first = lg if first is None else first
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            toks.append(tok)
+    return torch.cat(toks, dim=1), first
+
+
+def whisper_part(dev, gen) -> dict:
+    """Families (c): whisper-medium at full width and depth: prune on the
+    frames stub, compress; encode 4 sources of WHISPER_FRAMES frames (the
+    30 s window), precompute the cross k/v once, decode WHISPER_NEW greedy
+    tokens at B = 4; the kernel path's first logits against the
+    decompressed tree's, the cross-k/v tokens against the uncached
+    decode's."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serve.compressed import decompress_params
+
+    cfg = get_config("whisper-medium")
+    E, D = cfg.encoder_layers, cfg.decoder_layers
+    print(f"phase families: whisper-medium at full width and depth ({E} + "
+          f"{D} layers, d_model {cfg.d_model}, {cfg.num_heads} heads, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}), {cfg.dtype}")
+    zero_counts()
+    t0 = time.perf_counter()
+    out = prune_family(cfg, dev)
+    model, comp = out.pop("model"), out.pop("comp")
+    layers = out.pop("layers")
+    check(len(layers) == 6 * E + 10 * D, f"whisper: {len(layers)} linears")
+    frames = torch.randn((4, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                         device=dev).to(cfg.torch_dtype)
+    starts = torch.tensor([[int(p[0])] for p in request_prompts(
+        cfg.vocab_size)], device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks, first = whisper_decode(model, comp, frames, starts, True)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t1
+    rows = 4 * WHISPER_FRAMES
+    per_step = 8 * D
+    by_shape = family_counts("whisper", {
+        "hessian_update_cuda": out["batches"] * (6 * E + 10 * D),
+        "nm_matmul_cuda": 6 * E + 2 * D + per_step * WHISPER_NEW})
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "whisper: tokens out of the vocabulary")
+    print(f"  encode 4 × {WHISPER_FRAMES} frames (K2 at x ({rows}, b)), "
+          f"cross k/v once, {WHISPER_NEW} greedy tokens at B = 4 in "
+          f"{t_dec:.2f} s ({per_step} K2 launches a step)")
+    print(f"  req 0: {toks[0].tolist()}")
+    with uncounted():
+        toks_u, first_u = whisper_decode(model, comp, frames, starts, False)
+        dense = decompress_params(comp)
+        _, first_d = whisper_decode(model, dense, frames, starts, True)
+    torch.cuda.synchronize()
+    del dense
+    check(torch.equal(toks_u, toks), "whisper: cross-k/v tokens differ "
+          "from the uncached decode's")
+    e = errs(first, first_d)
+    agree = float((first.argmax(-1) == first_d.argmax(-1)).float().mean())
+    check(bool(torch.isfinite(first).all()) and e[1] <= 5e-2,
+          f"whisper compressed vs dense logits: max abs err {e[0]:.3g} "
+          f"(rel {e[1]:.3g})")
+    print(f"  cross-k/v tokens identical to the uncached decode's; "
+          f"first-step logits, K2 path vs decompressed dense: max abs err "
+          f"{e[0]:.4g}, rel {e[1]:.4g} (limit 5e-2), argmax agree "
+          f"{agree:.2f}")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"phase families, whisper-medium: {secs:.1f} s")
+    return dict(out, seconds_part=secs, by_shape=by_shape,
+                decode_seconds=t_dec, encode_rows=rows,
+                logits_max_abs_err=e[0], logits_rel_err=e[1],
+                argmax_agree=agree)
+
+
+def families_phase(dev, gen) -> dict:
+    """Phase families: the recurrent and encoder–decoder families, each
+    pruned (K1), compressed and decoded compressed-resident (K2); launch
+    counts zeroed before each part and read after its serve."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"zamba2-7b": zamba2_part(dev)}
+    torch.cuda.empty_cache()
+    out["xlstm-1.3b"] = xlstm_part(dev)
+    torch.cuda.empty_cache()
+    out["whisper-medium"] = whisper_part(dev, gen)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase families: {out['seconds']:.1f} s over its three parts")
+    return out
 
 
 def zero_counts() -> None:
@@ -2240,6 +2742,12 @@ def main() -> None:
     k2_tc_checks(gen, dev)
     mla_chk = path_kernel_checks(gen, dev, "MLA", MLA_K1, MLA_K2)
     gemma_chk = path_kernel_checks(gen, dev, "gemma3", GEMMA_K1, GEMMA_K2)
+    fam_chk = {"zamba2-7b": path_kernel_checks(gen, dev, "zamba2", ZAMBA_K1,
+                                               ZAMBA_K2),
+               "xlstm-1.3b": path_kernel_checks(gen, dev, "xlstm", XLSTM_K1,
+                                                XLSTM_K2),
+               "whisper-medium": path_kernel_checks(
+                   gen, dev, "whisper", WHISPER_K1, WHISPER_K2, WHISPER_B)}
 
     # ---- 3. main path: prune ----------------------------------------------
     zero_counts()
@@ -2356,6 +2864,13 @@ def main() -> None:
     results["paged"]["seconds"] = t_paged
     print(f"phase paged: {t_paged:.1f} s over its three parts")
 
+    # ---- families: zamba2, xlstm, whisper prune → compress → decode --------
+    fams = families_phase(dev, gen)
+    results["families"] = {k: ({kk: vv for kk, vv in v.items()
+                                if kk != "by_shape"}
+                               if isinstance(v, dict) else v)
+                           for k, v in fams.items()}
+
     # ---- 5. times at the main-path shapes ---------------------------------
     entries = []
     for b in (2048, 5632):
@@ -2396,6 +2911,12 @@ def main() -> None:
                           {"paged": mla_paged["counts"]["nm_matmul_cuda"][1]})
     entries += path_times(gen, dev, gemma_chk, gemma["by_shape"], GEMMA_ARCH,
                           GEMMA_K1)
+    for arch, k1_bs in (("zamba2-7b", ZAMBA_K1), ("xlstm-1.3b", XLSTM_K1),
+                        ("whisper-medium", WHISPER_K1)):
+        entries += path_times(gen, dev, fam_chk[arch],
+                              fams[arch]["by_shape"], arch, k1_bs,
+                              batches=(WHISPER_B if arch == "whisper-medium"
+                                       else (1, 4)))
     torch.cuda.synchronize()
     print(f"phase times on {results['gpu']} (name, power limit):")
     for e in entries:
@@ -2421,7 +2942,9 @@ def main() -> None:
     for path, st in (("tinyllama-1.1b", results["serve"]["stats"]),
                      (MOE_ARCH, moe["stats"]),
                      (MLA_ARCH, mla["stats_both"]),
-                     (GEMMA_ARCH, gemma["stats"])):
+                     (GEMMA_ARCH, gemma["stats"]),
+                     ("zamba2-7b", fams["zamba2-7b"]["engine_stats"]),
+                     ("xlstm-1.3b", fams["xlstm-1.3b"]["engine_stats"])):
         steps[path] = k2_step_line(
             [e for e in entries if e["name"] == "nm_matmul"
              and e["path"] == path], st, path)

@@ -1,18 +1,22 @@
-"""Architecture registry of the port (dense Llama, gemma3's sliding-window
-layout, qwen3-moe and deepseek-v3 so far)."""
+"""Architecture registry of the port: every arch of the JAX registry but
+h2o-danube, mistral-large and the VLM, in the JAX registry's order."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import ModelConfig
 
-ARCHS: tuple[str, ...] = ("gemma3-1b", "tinyllama-1.1b",
-                          "qwen3-moe-30b-a3b", "deepseek-v3-671b")
+ARCHS: tuple[str, ...] = ("gemma3-1b", "tinyllama-1.1b", "whisper-medium",
+                          "deepseek-v3-671b", "qwen3-moe-30b-a3b",
+                          "zamba2-7b", "xlstm-1.3b")
 
 _MODULES = {"gemma3-1b": "gemma3_1b",
             "tinyllama-1.1b": "tinyllama_1_1b",
+            "whisper-medium": "whisper_medium",
+            "deepseek-v3-671b": "deepseek_v3_671b",
             "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
-            "deepseek-v3-671b": "deepseek_v3_671b"}
+            "zamba2-7b": "zamba2_7b",
+            "xlstm-1.3b": "xlstm_1_3b"}
 
 
 def get_config(arch: str, *, reduced: bool = False) -> ModelConfig:

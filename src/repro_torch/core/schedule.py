@@ -215,10 +215,14 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
     masks: dict[Path, Tensor] = {}
     owned: set[Path] = set()          # expert stacks copied by this run
 
+    # Hessian accumulators persist ACROSS blocks: a weight-shared layer
+    # (zamba2's shared attention and MLP sets) runs at several block
+    # indices and is pruned once, at its last site, with the statistics of
+    # every site.  An entry goes when its layer is pruned or skipped.
+    accs: dict[Path, HessianAccumulator] = {}
     with torch.no_grad():
         for i in range(adapter.num_blocks(params)):
             # ---- pass 1: capture inputs, accumulate Hessians -------------
-            accs: dict[Path, HessianAccumulator] = {}
             _capture(adapter, params, i, carries, accs,
                      keep=lambda path: plan.cfg_for(path) is not None)
 

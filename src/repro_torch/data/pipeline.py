@@ -11,11 +11,13 @@ tokens to both packages where they compare them).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class SyntheticCorpus:
@@ -57,6 +59,18 @@ def _categorical(rng: np.random.Generator, probs: np.ndarray) -> np.ndarray:
     return np.minimum((cdf < u).sum(axis=-1), probs.shape[-1] - 1)
 
 
+@functools.lru_cache(maxsize=64)
+def _sample(vocab_size: int, corpus_seed: int, seed: int, index: int,
+            batch: int, seq_len: int) -> np.ndarray:
+    """Batch ``index`` of the stream ``seed``: drawn once per process and
+    kept (the draw is deterministic, and at a vocabulary of 262 144 it
+    takes tens of seconds on the host), so a held-out slice taken before
+    and after pruning is sampled once."""
+    corpus = SyntheticCorpus(vocab_size=vocab_size, seed=corpus_seed)
+    return corpus.sample(np.random.default_rng([seed, index]), batch,
+                         seq_len)
+
+
 def calibration_batches(cfg, *, num_samples: int = 32, seq_len: int = 256,
                         batch: int = 8, seed: int = 1234,
                         corpus_seed: int = 0, device="cuda"
@@ -65,16 +79,25 @@ def calibration_batches(cfg, *, num_samples: int = 32, seq_len: int = 256,
     ``device`` (CUDA unless the caller passes ``device="cpu"``).
 
     ``corpus_seed`` fixes the language; ``seed`` only decorrelates the
-    sampled sequences (one numpy stream per batch index).
+    sampled sequences (one numpy stream per batch index).  An encoder–
+    decoder model gets {"frames": (batch, seq_len, d_model), "dec_tokens":
+    (batch, min(dec_seq, seq_len))}: the frames stub is standard normal in
+    the model dtype, drawn from a generator seeded with ``seed + 1``.
     """
     device = resolve_device(device)
     if num_samples % batch:
         raise ValueError(f"num_samples={num_samples} must be a multiple of "
                          f"batch={batch}")
-    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seed=corpus_seed)
-    return [{"tokens": torch.from_numpy(corpus.sample(
-                np.random.default_rng([seed, i]), batch, seq_len)).to(device)}
+    toks = [torch.from_numpy(_sample(cfg.vocab_size, corpus_seed, seed, i,
+                                     batch, seq_len).copy()).to(device)
             for i in range(num_samples // batch)]
+    if cfg.family != "encdec":
+        return [{"tokens": t} for t in toks]
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    return [{"frames": torch.randn((batch, seq_len, cfg.d_model),
+                                   generator=gen, device=device).to(
+                                       cfg.torch_dtype),
+             "dec_tokens": t[:, :min(cfg.dec_seq, seq_len)]} for t in toks]
 
 
 def heldout_loss(model, params, cfg, *, num_batches: int = 4,

@@ -15,7 +15,9 @@ paged KV cache with prefix reuse (``--page-size`` tokens a page, max_len
 rounded up to a multiple of it; ``--num-pages`` 0 sizes the pool for every
 slot at max_len) and prints its page statistics.  ``--full`` runs the
 published widths and depth (default: reduced); ``--device`` defaults to
-``cuda``.
+``cuda``.  The dense, MoE, hybrid (zamba2) and xLSTM families serve; the
+encoder–decoder (whisper) does not, as in the JAX CLI: the engine's
+decode_step takes no encoded source.
 """
 from __future__ import annotations
 
@@ -64,6 +66,10 @@ def main():
 
     dev = resolve_device(args.device)
     cfg = registry.get_config(args.arch, reduced=not args.full)
+    if cfg.family == "encdec":
+        ap.error(f"{args.arch}: the engine's decode_step takes no encoded "
+                 "source (enc_out); serve it with EncDecLM.encode and "
+                 "decode_step directly")
     model = build_model(cfg, device=dev)
     if args.plan:
         from repro_torch.launch.prune import prune_arch

@@ -124,12 +124,16 @@ def causal_mask(S: int, window: int = 0, device="cpu") -> Tensor:
     return m
 
 
-def gqa_forward(p, cfg, x, positions, *, theta, window=0, tape=None,
-                path=()) -> Tensor:
-    """Full-sequence causal attention (training / prefill / calibration)."""
+def gqa_forward(p, cfg, x, positions, *, theta, window=0, is_causal=True,
+                tape=None, path=()) -> Tensor:
+    """Full-sequence attention (training / prefill / calibration): causal,
+    or over every position with ``is_causal=False`` (an encoder)."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions, theta, tape, path)
-    m = causal_mask(S, window, x.device)[None, None]
+    if is_causal:
+        m = causal_mask(S, window, x.device)[None, None]
+    else:
+        m = torch.ones((1, 1, S, S), dtype=torch.bool, device=x.device)
     out = _sdpa(q, k, v, m.expand(B, 1, S, S), cfg.num_heads,
                 cfg.num_kv_heads)
     return L.dense(p["wo"], out.reshape(B, S, -1), tape, path + ("wo",))

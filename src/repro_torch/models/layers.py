@@ -128,6 +128,32 @@ def rmsnorm(p: dict, x: Tensor, eps: float = 1e-6) -> Tensor:
     return y * p["scale"]
 
 
+def layernorm_params(d: int, dtype=torch.float32, device="cpu") -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: dict, x: Tensor, eps: float = 1e-5) -> Tensor:
+    """LayerNorm in fp32 with the population variance (``jnp.var``'s
+    ddof 0), cast back to x's dtype."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def norm(p: dict, x: Tensor) -> Tensor:
+    """LayerNorm when the params carry a bias, else RMSNorm."""
+    return layernorm(p, x) if "bias" in p else rmsnorm(p, x)
+
+
+def norm_params(kind: str, d: int, dtype=torch.float32, device="cpu") -> dict:
+    if kind == "layernorm":
+        return layernorm_params(d, dtype, device)
+    return rmsnorm_params(d, dtype, device)
+
+
 def _gelu_tanh(x: Tensor) -> Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation, not the erf form."""
     return F.gelu(x, approximate="tanh")
@@ -154,6 +180,15 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device="cpu") -> Tensor:
+    """Whisper-style sinusoidal absolute embeddings (seq, d) in fp32."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    ar = torch.arange(0, d, 2, dtype=torch.float32, device=device)
+    log10k = torch.log(torch.tensor(10000.0, device=device))
+    ang = pos * torch.exp(-ar / d * log10k)[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --------------------------------------------------------------------------

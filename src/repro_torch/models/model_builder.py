@@ -1,17 +1,25 @@
 """Model factory + the generic Alg.-3 pruning adapter (port of
-``repro/models/model_builder.py``; the dense and MoE families so far)."""
+``repro/models/model_builder.py``; every family but the VLM)."""
 from __future__ import annotations
 
 from typing import Any
 
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.xlstm_lm import XlstmLM
+
+_FAMILIES = {"dense": TransformerLM, "moe": TransformerLM,
+             "encdec": EncDecLM, "hybrid": HybridLM, "ssm": XlstmLM}
 
 
 def build_model(cfg, *, device="cuda"):
     """Build the family's model on ``device``."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family == "vlm":
         raise ValueError(f"family {cfg.family!r} is not ported yet")
-    return TransformerLM(cfg, device=device)
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return _FAMILIES[cfg.family](cfg, device=device)
 
 
 class ModelAdapter:

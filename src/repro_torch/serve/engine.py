@@ -9,7 +9,12 @@ over the prompt, as the JAX engine prefills — and the row is then written
 into its slot of the resident cache in place.  A finished slot is freed and
 re-admits from the queue before the next step.  Idle slots keep re-decoding
 their last token at a frozen position: the writes land on their own row
-only, so each active row's tokens are those of serving it alone at B=1.
+only (a recurrent row — Mamba, xLSTM state — advances, and is rewritten
+whole at the next admission), so each active row's tokens are those of
+serving it alone at B=1.  On the card that holds up to rounding: its
+batch-shaped kernels (cuBLAS, reductions) round a row of a B=4 step and
+of a B=1 step differently, so a near-tie in the logits may fall either
+way.
 In an MoE layer the idle rows route through ``moe_ffn`` like the others.
 That holds the B=1 equivalence only while no expert overflows: a token
 takes at most one slot per expert, so an expert holds at most B rows, and
@@ -103,7 +108,13 @@ class ServeConfig:
 def _write_row(full, one, slot: int) -> None:
     """Copy a B=1 contiguous cache into row ``slot`` of ``full``, in place
     — the whole row, so a stale tail is re-zeroed.  Every tensor field of
-    every contiguous kind is batch-leading."""
+    every contiguous kind (GQA k/v and positions, MLA latents and lengths,
+    Mamba and xLSTM state) is batch-leading.  A dict of caches (the
+    hybrid's {"mamba": {i}, "shared": {j}}) is written leaf by leaf."""
+    if isinstance(full, dict):
+        for k, layer in full.items():
+            _write_row(layer, one[k], slot)
+        return
     for f in dataclasses.fields(full):
         dst = getattr(full, f.name)
         if isinstance(dst, torch.Tensor):
@@ -158,6 +169,10 @@ class ServingEngine:
         self._slot_seq = [0] * cfg.batch_slots
         self.pager: Pager | None = None
         if cfg.paged:
+            if not hasattr(model, "init_paged_cache"):
+                raise ValueError(
+                    f"model {type(model).__name__} has no init_paged_cache — "
+                    f"paged serving covers the transformer families")
             self._pps = cfg.max_len // cfg.page_size
             self._num_pages = cfg.num_pages or 1 + cfg.batch_slots * self._pps
             # prefix reuse is unsound across sliding-window rings (a sharer
@@ -247,8 +262,7 @@ class ServingEngine:
     def _write_slot(self, row: dict, slot: int) -> None:
         """Copy a B=1 row cache into row ``slot`` of the resident
         contiguous cache, in place."""
-        for i, layer in row.items():
-            _write_row(self._cache[i], layer, slot)
+        _write_row(self._cache, row, slot)
 
     def _pages(self, vals, fill: int) -> torch.Tensor:
         """A page vector padded to pages_per_slot, on the device."""
