@@ -19,8 +19,10 @@ non-zero without the final result line):
              then K1 and K2 at deepseek-v3's MLA and MLP shapes (MLA_K1,
              MLA_K2), at gemma3-1b's (GEMMA_K1, GEMMA_K2) and at the
              families' (ZAMBA_*, XLSTM_*, WHISPER_*; K2 also at (4, 4096)
-             and at whisper's encoder rows, B = 6000), each K2 launch's
-             plan printed.
+             and at whisper's encoder rows, B = 6000) and at dense2's
+             (DENSE2_K1, DENSE2_K2: K2's cluster split at b = 28 672, CS 2
+             at B = 1 and CS 4 at B = 4), each K2 launch's plan printed and
+             two launches bitwise equal.
 3. prune   — the dense path: Thanos 2:4 prunes tinyllama-1.1b at full width
              and depth from a seeded random init (K1 carries the Hessians).
 4. serve   — compress the pruned linears and serve 4 requests through the
@@ -88,6 +90,42 @@ families. families — the recurrent and encoder–decoder families, bf16
              (6000, b)), cross k/v once, 12 greedy tokens at B = 4,
              identical to the uncached decode's; every family's
              first-step logits against its decompressed tree.
+dense2. dense2 — the rest of the dense family and the VLM backbone, bf16
+             from seed 0, each pruned with Thanos 2:4 B=64 on 2 × 8 × 128
+             tokens (K1), compressed (0.625 of dense bytes) and serving the
+             phase-4 request set compressed-resident (K2), launch counts
+             exact, first-step logits against the decompressed tree at rel
+             ≤ 5e-2: h2o-danube-1.8b at full width and depth (head_dim 80,
+             every layer a window of 4096), also served paged — every
+             layer a ring, no pool — with tokens identical to the
+             contiguous engine's; mistral-large-123b and internvl2-76b at
+             full width, depth cut to 2 layers (DENSE2_LAYERS); internvl
+             calibrated on the VLM batch (64 image + 64 text positions a
+             row), then VLM_IMAGE patch embeddings through
+             decode_step(embeds=) and VLM_TEXT tokens from an empty cache,
+             its last logits against ``forward`` on the same batch over the
+             decompressed tree at rel ≤ 5e-2.
+robust. robust — on phase 4's compressed tinyllama tree, right after the
+             paged part: (a) the supervised continuous engine serves the
+             phase-4 set without faults (its longest pump sets the step
+             deadline: twice it, at least 0.5 s), then under
+             ``decode_logits@5;prefill@2;decode_stall@9+<deadline + 1 s>``
+             (snapshots persisted atomically), and paged under the same
+             plan plus ``pager_fault_in@7x6``: every request completes,
+             recoveries > 0, every site fired, tokens identical to phase
+             4's, the pager audit clean; (b) a snapshot taken after 6
+             pumps (host tensors only), pickled, written atomically and
+             restored into a fresh engine: both continue with phase 4's
+             tokens; (c) a PruneJob on tinyllama at full width cut to
+             JOB_LAYERS layers killed by ``journal_write@JOB_KILL`` and
+             resumed is bitwise equal to an uninterrupted one; cholesky@0
+             escalates layer 0 once and hessian_accum@0 makes its
+             calib_skipped 1 (on SITE_LAYERS layers); (d) the SSE front
+             end on 127.0.0.1 streams two requests with phase 4's tokens,
+             /healthz answers, and one slot with a queue of one answers a
+             third request 503.  Launches: K2 154 a decode_step call (the
+             model's decode_step is wrapped to count them), K1 those of
+             the prune jobs.
    Then the redesigned kernels at odd shapes: K1 at ragged tokens and b
              with and without a row mask (xtx exactly symmetric, NaN batch
              skipped); K3 with all-zero and filled row groups mixed (their
@@ -107,14 +145,14 @@ families. families — the recurrent and encoder–decoder families, bf16
              total, each beside the library's.
 
 Kernel launch counts are zeroed just before each path (phases 3,
-baselines, plan, 4m, mla and each part of paged and of families) and read just after its
-serve (the mla path: after both serves; gemma3: after its paged serve;
+robust, baselines, plan, 4m, mla and each part of paged, of families and
+of dense2) and read just after its serve (the mla path: after both serves; gemma3: after its paged serve;
 baselines and plan also per method and per step); the comparison and
 timing launches are not counted, nor are the contiguous serves the paged
-ones are held against (``uncounted``).  The tinyllama rows of phase 5 carry the baselines, plan and
-paged paths' launches at the same shapes (``path_launches``), the
-deepseek-v3 rows the paged path's.  The line before the
-last is the kernels JSON; the last line is the device JSON.  Results are
+ones are held against (``uncounted``).  The tinyllama rows of phase 5
+carry the robust, baselines, plan and paged paths' launches at the same
+shapes (``path_launches``), the deepseek-v3 rows the paged path's.  The
+line before the last is the kernels JSON; the last line is the device JSON.  Results are
 also written to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -196,6 +234,31 @@ WHISPER_K2 = [(1024, 1024), (4096, 1024), (1024, 4096)]
 # runs K2 at x (6000, b), the decoder at B = 4
 WHISPER_FRAMES, WHISPER_NEW = 1500, 12
 WHISPER_B = (4, 4 * WHISPER_FRAMES)
+# the dense2 phase: h2o-danube-1.8b at full depth (24 layers, 3.6 GB of
+# bf16 weights); mistral-large-123b's 88 layers hold ~244 GB and
+# internvl2-76b's 80 ~137 GB of bf16 weights, so both are cut to 2 layers
+# (every width kept: ~7 GB and ~7.6 GB with embedding and head)
+DENSE2_LAYERS = {"h2o-danube-1.8b": 24, "mistral-large-123b": 2,
+                 "internvl2-76b": 2}
+# K1 at x (1024, b): the inputs of wq/wk/wv/wo/gate/up, down; K2, (c, b):
+# wq/wo, wk/wv, gate/up, down — down at b = 28 672 runs K2's cluster split
+# (CS 2 at B = 1, CS 4 at B = 4: one block's rows do not fit 227 KB)
+DENSE2_K1 = {"h2o-danube-1.8b": [2560, 6912],
+             "mistral-large-123b": [12288, 28672],
+             "internvl2-76b": [8192, 28672]}
+DENSE2_K2 = {"h2o-danube-1.8b": [(2560, 2560), (640, 2560), (6912, 2560),
+                                 (2560, 6912)],
+             "mistral-large-123b": [(12288, 12288), (1024, 12288),
+                                    (28672, 12288), (12288, 28672)],
+             "internvl2-76b": [(8192, 8192), (1024, 8192), (28672, 8192),
+                               (8192, 28672)]}
+# internvl's image prefix: 64 patch embeddings then 16 text tokens, fed
+# one position a step through decode_step(embeds=) from an empty cache
+VLM_IMAGE, VLM_TEXT = 64, 16
+# the robust phase's prune job: tinyllama at full width cut to 4 layers
+# (28 journaled linears; the kill at layer 14 is block 2's first), and the
+# cholesky / hessian_accum runs on 1 layer
+JOB_LAYERS, JOB_KILL, SITE_LAYERS = 4, 14, 1
 K3_REPLACES = ("src/repro/kernels/ops.py:151-161 (loops the pallas_call of "
                "src/repro/kernels/nm_spmm.py:135)")
 MAXB_ROWS = 8                 # capacity rows K3 computes per row group
@@ -1237,9 +1300,9 @@ def path_kernel_checks(gen, dev, label: str, k1_bs: list,
     """Phase 2 at one path's shapes (bf16, the served format): K1 at
     x (1024, b) for every b of ``k1_bs``, K2 at every (c, b) of
     ``k2_shapes`` for B ∈ ``batches`` and 4-/8-bit indices, each launch's
-    plan printed.  Tolerances as above: K1 rtol 1e-3 / atol 2e-2 (xtx exactly
-    symmetric); K2 rtol 2e-2 / atol 1e-2.  → errors and operands for
-    phase 5."""
+    plan printed and two launches bitwise equal.  Tolerances as above: K1
+    rtol 1e-3 / atol 2e-2 (xtx exactly symmetric); K2 rtol 2e-2 / atol
+    1e-2.  → errors and operands for phase 5."""
     import torch
 
     from repro_torch.core.masks import nm_mask
@@ -1277,13 +1340,16 @@ def path_kernel_checks(gen, dev, label: str, k1_bs: list,
                                    bits)[3]
             y_k = K2.nm_matmul_cuda(x, pk.values, pk.indices, n=2, m=4, b=b,
                                     idx_bits=bits)
+            y_2 = K2.nm_matmul_cuda(x, pk.values, pk.indices, n=2, m=4, b=b,
+                                    idx_bits=bits)
             y_p = K2.nm_matmul_plain(x, pk.values, pk.indices, 2, 4, b, bits)
             torch.cuda.synchronize()
             e = errs(y_k, y_p)
             check(y_k.shape == (B, c) and torch.allclose(
-                y_k.float(), y_p.float(), rtol=2e-2, atol=1e-2),
+                y_k.float(), y_p.float(), rtol=2e-2, atol=1e-2)
+                and torch.equal(y_k, y_2),
                 f"K2 {label} ({c}, {b}) B={B} idx{bits}: plan {plan}, max abs "
-                f"err {e[0]:.3g}")
+                f"err {e[0]:.3g}, two launches equal {torch.equal(y_k, y_2)}")
             print(f"  K2 ({c}, {b}) B={B} idx{bits}: plan mode {plan[0]} CS "
                   f"{plan[1]} smem {plan[2]} B, {K2._k2_ctas(c, B, plan)} "
                   f"CTAs; max abs/rel err {e[0]:.3g}/{e[1]:.3g}")
@@ -2598,6 +2664,461 @@ def plan_phase(dev, dense, dense_loss: float) -> dict:
             "seconds": seconds}
 
 
+def vlm_prefix_check(model, comp, dev) -> dict:
+    """internvl's image path on the compressed tree: VLM_IMAGE patch
+    embeddings fed through decode_step(embeds=) and then VLM_TEXT tokens,
+    one position a step from an empty cache (K2 at B = 1, counted); the
+    last logits against ``forward`` on the same batch over the
+    decompressed tree (not counted): finite, max abs error within 5e-2 of
+    the logits' max magnitude."""
+    import torch
+
+    from repro_torch.serve.compressed import decompress_params
+
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(2)
+    pe = torch.randn((1, VLM_IMAGE, cfg.d_model), generator=gen,
+                     device=dev).to(cfg.torch_dtype)
+    toks = torch.randint(0, cfg.vocab_size, (1, VLM_TEXT), generator=gen,
+                         device=dev)
+    blank = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+    cache = model.init_cache(1, VLM_IMAGE + VLM_TEXT)
+    with torch.no_grad():
+        for s in range(VLM_IMAGE):
+            lg, cache = model.decode_step(comp, cache, blank, s,
+                                          embeds=pe[:, s:s + 1])
+        for j in range(VLM_TEXT):
+            lg, cache = model.decode_step(comp, cache, toks[:, j:j + 1],
+                                          VLM_IMAGE + j)
+        with uncounted():
+            dense = decompress_params(comp)
+            ref = model.forward(dense, {"tokens": toks, "patch_embeds": pe})
+            del dense
+    torch.cuda.synchronize()
+    e = errs(lg[:, -1], ref[:, -1])
+    check(bool(torch.isfinite(lg).all()) and e[1] <= 5e-2,
+          f"internvl image prefix: decode_step(embeds=) vs forward max abs "
+          f"err {e[0]:.3g} (rel {e[1]:.3g})")
+    agree = int(lg[0, -1].argmax()) == int(ref[0, -1].argmax())
+    print(f"  image prefix: {VLM_IMAGE} patch embeddings through "
+          f"decode_step(embeds=) then {VLM_TEXT} tokens from an empty cache "
+          f"(K2 path) vs forward on the decompressed tree: max abs err "
+          f"{e[0]:.4g}, rel {e[1]:.4g} (limit 5e-2), argmax agree {agree}")
+    return {"max_abs_err": e[0], "rel_err": e[1], "argmax_agree": agree,
+            "steps": VLM_IMAGE + VLM_TEXT}
+
+
+def dense2_part(arch: str, dev) -> dict:
+    """One model of the dense2 phase: bf16 from seed 0 at full width and
+    DENSE2_LAYERS[arch] layers, pruned with Thanos 2:4 (K1), compressed,
+    the phase-4 request set served compressed-resident (K2; danube also
+    paged — every layer a ring — with tokens identical to the contiguous
+    engine's; internvl also its image prefix), exact launch counts and the
+    first-step logits against the decompressed tree."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+
+    full = get_config(arch)
+    cfg = full.replace(num_layers=DENSE2_LAYERS[arch])
+    L = cfg.num_layers
+    print(f"phase dense2: {arch} at full width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, window "
+          f"{cfg.sliding_window or 'none'}, family {cfg.family}), "
+          f"{cfg.dtype}; depth {L} of {full.num_layers} layers")
+    zero_counts()
+    t0 = time.perf_counter()
+    out = prune_family(cfg, dev)
+    model, comp = out.pop("model"), out.pop("comp")
+    out.pop("layers")
+    prompts = request_prompts(cfg.vocab_size)
+    done, t_serve, engine = serve_requests(model, comp, prompts)
+    stats = dict(engine.stats)
+    steps = stats["prefill_tokens"] + stats["decode_steps"]
+    ntok = sum(len(r.out) for r in done)
+    print(f"  serve: 4 requests, {ntok} tokens in {t_serve:.2f} s "
+          f"({ntok / t_serve:.1f} tok/s, {steps} model steps, {7 * L} K2 "
+          f"launches a step)")
+    print(f"  req 0: {done[0].out}")
+    extra = {}
+    if cfg.sliding_window:
+        pdone, t_paged, peng = run_engine(
+            model, comp, [(p, 12) for p in prompts], f"{arch} paged",
+            max_len=SERVE_MAX_LEN, paged=True, page_size=PAGE)
+        kinds = {type(c).__name__ for c in peng._cache.values()}
+        same = all(a.out == b.out for a, b in zip(pdone, done))
+        check(kinds == {"GqaCache"} and peng.pager.prefix is None and same,
+              f"{arch} paged: caches {kinds}, prefix reuse "
+              f"{peng.pager.prefix is not None}, tokens identical {same}")
+        for k, v in peng.stats.items():
+            stats[k] += v
+        steps += peng.stats["prefill_tokens"] + peng.stats["decode_steps"]
+        print(f"  paged: every layer a ring of {SERVE_MAX_LEN} (window "
+              f"{cfg.sliding_window}), no page pool, prefix reuse off; "
+              f"tokens identical to the contiguous engine's; "
+              f"{sum(len(r.out) for r in pdone) / t_paged:.1f} tok/s")
+        extra["paged"] = {"seconds": t_paged, "identical": same}
+    if cfg.family == "vlm":
+        extra["vlm"] = vlm_prefix_check(model, comp, dev)
+        steps += extra["vlm"]["steps"]
+        stats["prefill_tokens"] += extra["vlm"]["steps"]     # B = 1 steps
+    by_shape = family_counts(arch, {
+        "hessian_update_cuda": out["batches"] * 7 * L,
+        "nm_matmul_cuda": 7 * L * steps})
+    with uncounted():
+        e = first_step_line(model, comp, prompts)
+    del model, comp, engine
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"phase dense2, {arch}: {secs:.1f} s")
+    return dict(out, **extra, layers_cut=L, layers_full=full.num_layers,
+                seconds_part=secs, by_shape=by_shape, engine_stats=stats,
+                serve=serve_summary(done, t_serve, steps),
+                logits_max_abs_err=e[0], logits_rel_err=e[1],
+                argmax_agree=e[2])
+
+
+def dense2_phase(dev) -> dict:
+    """Phase dense2: h2o-danube-1.8b, mistral-large-123b and internvl2-76b,
+    launch counts zeroed before each part and read after its serves."""
+    t0 = time.perf_counter()
+    out = {arch: dense2_part(arch, dev) for arch in DENSE2_LAYERS}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase dense2: {out['seconds']:.1f} s over its three parts")
+    return out
+
+
+def counting_decode(model) -> list:
+    """Count the model's decode_step calls (each one model step: 7 K2
+    launches a layer on a compressed dense tree) → a one-item list holding
+    the count; ``del model.decode_step`` removes the wrapper."""
+    calls = [0]
+    inner = model.decode_step
+
+    def decode_step(*a, **kw):
+        calls[0] += 1
+        return inner(*a, **kw)
+
+    model.decode_step = decode_step
+    return calls
+
+
+def supervised_serve(model, comp, prompts, want: dict, plan_text: str,
+                     label: str, *, deadline: float = 0.0,
+                     paged: bool = False, snapshot_dir: str = "") -> dict:
+    """The phase-4 request set through a supervised continuous engine
+    (contiguous, or paged with its pager audited after every step) under
+    the fault plan ``plan_text``: every request completes, no quarantine,
+    tokens identical to ``want`` (phase 4's), and — with a plan — at least
+    one recovery, every site of the plan fired, the pager audit clean.
+    → the run's numbers and its longest pump."""
+    import torch
+
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.supervisor import Supervisor, SupervisorConfig
+
+    eng = ServingEngine(model, comp, ServeConfig(
+        batch_slots=4, max_len=SERVE_MAX_LEN, paged=paged, page_size=PAGE,
+        debug_checks=paged))
+    plan = FaultPlan.parse(plan_text) if plan_text else None
+    # a decode fault implicates every resident request: 3 faults would
+    # spend the default budget of 3 and quarantine a healthy request
+    sup = Supervisor(eng, SupervisorConfig(step_deadline_s=deadline,
+                                           retry_budget=8,
+                                           snapshot_dir=snapshot_dir),
+                     faults=plan)
+    for uid, p in enumerate(prompts):
+        sup.submit(Request(uid, p, max_new=12))
+    pumps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        t = time.perf_counter()
+        busy = sup.pump()
+        pumps.append(time.perf_counter() - t)
+        if not busy:
+            break
+        check(len(pumps) < 2000, f"{label}: the supervisor never drained")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {r.uid: r.out for r in sup.results()}
+    errors = {r.uid: r.error for r in sup.results() if r.error}
+    st = sup.stats
+    fired = plan.fired_by_site() if plan is not None else {}
+    sites = {s.site for s in plan.specs} if plan is not None else set()
+    if paged:
+        eng.pager.check()
+    same = got == want
+    check(len(got) == len(want) and not errors and not sup.quarantined
+          and same and (plan is None or (st["recoveries"] > 0
+                                         and set(fired) == sites)),
+          f"{label}: {len(got)} of {len(want)} requests, errors {errors}, "
+          f"quarantined {sup.quarantined}, tokens identical {same}, "
+          f"recoveries {st['recoveries']}, fired {fired}")
+    print(f"  {label}: plan '{plan_text or 'none'}'"
+          + (f", step deadline {deadline:.2f} s" if deadline else "")
+          + f": 4 requests complete in {secs:.2f} s, tokens identical to "
+          f"phase 4's; recoveries {st['recoveries']}, faults {st['faults']}, "
+          f"fired {fired}, snapshots {st['snapshots']}, replayed "
+          f"{st['replayed_requests']}, rolled-back decode steps "
+          f"{st['rollback_decode_steps']}; state {sup.state}"
+          + ("; pager audit clean" if paged else ""))
+    return {"seconds": secs, "recoveries": st["recoveries"],
+            "faults": dict(st["faults"]), "fired": fired,
+            "snapshots": st["snapshots"],
+            "replayed": st["replayed_requests"],
+            "rollback_decode_steps": st["rollback_decode_steps"],
+            "max_pump_s": max(pumps), "pumps": len(pumps)}
+
+
+def snapshot_restore(model, comp, prompts, want: dict, path: Path) -> dict:
+    """One snapshot of an engine mid-run (after its admissions and 5
+    decode steps), pickled and written atomically, read back and restored
+    into a fresh engine: both engines run on to the end with tokens
+    identical to ``want``; the snapshot holds host tensors only."""
+    import pickle
+
+    import torch
+
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+    from repro_torch.util.io import atomic_write_bytes
+
+    def engine():
+        return ServingEngine(model, comp, ServeConfig(
+            batch_slots=4, max_len=SERVE_MAX_LEN))
+
+    e1 = engine()
+    for uid, p in enumerate(prompts):
+        e1.submit(Request(uid, p, max_new=12))
+    for _ in range(6):
+        e1.pump()
+    snap = e1.snapshot()
+    devs = {t.device.type for c in snap["device"]["cache"].values()
+            for t in vars(c).values() if isinstance(t, torch.Tensor)}
+    atomic_write_bytes(str(path), pickle.dumps(snap))
+    nbytes = path.stat().st_size
+    e2 = engine()
+    e2.restore(pickle.loads(path.read_bytes()))
+    path.unlink()
+    got1 = {r.uid: r.out for r in e1.run()}
+    got2 = {r.uid: r.out for r in e2.run()}
+    check(devs == {"cpu"} and got2 == got1 == want,
+          f"snapshot/restore: cache on {devs}, restored tokens identical "
+          f"{got2 == want}, original {got1 == want}")
+    print(f"  snapshot after 6 pumps ({len(snap['queue'])} queued, "
+          f"{sum(s is not None for s in snap['slots'])} in slots): host "
+          f"tensors only, {nbytes} B pickled and written atomically, "
+          f"restored into a fresh engine; both run on with tokens identical "
+          f"to phase 4's")
+    return {"bytes": nbytes}
+
+
+def tree_equal(a, b) -> bool:
+    """Two param trees (nested dicts of tensors) bitwise equal."""
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_equal(a[k], b[k])
+                                            for k in a)
+    return isinstance(a, torch.Tensor) and torch.equal(a, b)
+
+
+def prune_job_checks(cfg, dev, root: Path) -> dict:
+    """A PruneJob on tinyllama at full width, JOB_LAYERS layers: one
+    uninterrupted run, one killed by ``journal_write@JOB_KILL`` and
+    resumed — its pruned tree and masks bitwise those of the uninterrupted
+    run; then ``cholesky@0`` (one escalation in layer 0's report) and
+    ``hessian_accum@0`` (layer 0's calib_skipped = 1: K1 skipped the NaN
+    batch) on SITE_LAYERS layers.  → the K1 launches expected."""
+    import torch
+
+    from repro_torch.core.api import PruneConfig
+    from repro_torch.core.jobs import PruneJob, PruneJournal
+    from repro_torch.core.schedule import prune_model
+    from repro_torch.data.pipeline import calibration_batches
+    from repro_torch.faults import FaultPlan, JournalWriteError
+    from repro_torch.models.model_builder import ModelAdapter, build_model
+
+    cell = PruneConfig("thanos", "nm", n=2, m=4, block_size=64)
+
+    def setup(layers):
+        c = cfg.replace(num_layers=layers)
+        model = build_model(c, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        batches = calibration_batches(c, num_samples=16, seq_len=128,
+                                      batch=8, device=dev)
+        return ModelAdapter(model), params, batches
+
+    adapter, params, batches = setup(JOB_LAYERS)
+    t0 = time.perf_counter()
+    ref, ref_rep = PruneJob(str(root / "ref")).run(params, adapter, batches,
+                                                   cell)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    job = str(root / "job")
+    try:
+        PruneJob(job, faults=FaultPlan.parse(f"journal_write@{JOB_KILL}")
+                 ).run(params, adapter, batches, cell)
+        fail("the prune job was not killed by journal_write")
+    except JournalWriteError:
+        pass
+    done_before = PruneJournal(job).completed
+    res, rep = PruneJob(job).run(params, adapter, batches, cell, resume=True)
+    same = tree_equal(res, ref) and all(
+        torch.equal(rep.masks[p], ref_rep.masks[p]) for p in ref_rep.masks)
+    check(done_before == JOB_KILL and same
+          and [r.path for r in rep.layers] == [r.path for r in ref_rep.layers],
+          f"prune job: {done_before} layers journaled at the kill (want "
+          f"{JOB_KILL}), resumed tree bitwise equal {same}")
+    nblk = (JOB_KILL // 7) + 1             # blocks captured before the kill
+    k1 = len(batches) * 7 * (2 * JOB_LAYERS + nblk)
+    print(f"  prune job: tinyllama full width, {JOB_LAYERS} layers, "
+          f"{len(rep.layers)} linears ({t_ref:.1f} s uninterrupted); killed "
+          f"by journal_write@{JOB_KILL} with {done_before} layers journaled, "
+          f"resumed: pruned tree and masks bitwise equal to the "
+          f"uninterrupted run")
+    del res, ref, params
+    adapter, params, batches = setup(SITE_LAYERS)
+    sites = {}
+    for text in ("cholesky@0", "hessian_accum@0"):
+        _, r = prune_model(params, adapter, batches, cell,
+                           faults=FaultPlan.parse(text))
+        sites[text] = r.layers[0]
+        k1 += len(batches) * 7 * SITE_LAYERS
+    l0c, l0h = sites["cholesky@0"], sites["hessian_accum@0"]
+    check(l0c.damp_attempts == 1 and abs(l0c.percdamp_used - 0.1) < 1e-12
+          and l0h.calib_skipped == 1 and l0h.damp_attempts == 0,
+          f"prune sites: cholesky@0 layer 0 damp_attempts "
+          f"{l0c.damp_attempts} percdamp {l0c.percdamp_used}; "
+          f"hessian_accum@0 calib_skipped {l0h.calib_skipped}")
+    print(f"  prune sites on {SITE_LAYERS} layer: cholesky@0 → layer 0 "
+          f"escalated once (damp_attempts {l0c.damp_attempts}, percdamp "
+          f"{l0c.percdamp_used:g}); hessian_accum@0 → layer 0 calib_skipped "
+          f"{l0h.calib_skipped} (K1 dropped the NaN batch)")
+    return {"k1": k1, "seconds_uninterrupted": t_ref,
+            "journaled_at_kill": done_before}
+
+
+def http_checks(model, comp, prompts, want: dict) -> dict:
+    """The SSE front end on 127.0.0.1 (an ephemeral port): two requests
+    streamed over HTTP with tokens identical to phase 4's, /healthz
+    answering; then one slot and a queue of one: a third request gets
+    503 with Retry-After while the resident and queued ones finish."""
+    import asyncio
+
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    from repro_torch.serve.frontend import (HttpFrontend, drive_http_trace,
+                                            fetch_json, sse_generate)
+
+    async def stream():
+        fe = HttpFrontend(ServingEngine(model, comp, ServeConfig(
+            batch_slots=4, max_len=SERVE_MAX_LEN)))
+        await fe.start()
+        try:
+            res = await drive_http_trace(
+                "127.0.0.1", fe.port,
+                [{"uid": i, "t": 0.02 * i, "prompt": prompts[i],
+                  "max_new": 12} for i in range(2)])
+            health = await fetch_json("127.0.0.1", fe.port, "/healthz")
+        finally:
+            drained = await fe.stop(drain_timeout_s=10.0)
+        return res, health, drained
+
+    async def shed():
+        fe = HttpFrontend(ServingEngine(model, comp, ServeConfig(
+            batch_slots=1, max_len=SERVE_MAX_LEN, max_queued=1)))
+        await fe.start()
+        try:
+            a = asyncio.ensure_future(sse_generate(
+                "127.0.0.1", fe.port, prompts[2], max_new=12))
+            while fe.engine._slots[0] is None:
+                await asyncio.sleep(0.005)
+            b = asyncio.ensure_future(sse_generate(
+                "127.0.0.1", fe.port, prompts[3], max_new=12))
+            while not fe.engine.queue:
+                await asyncio.sleep(0.005)
+            rejected = await sse_generate("127.0.0.1", fe.port, prompts[0],
+                                          max_new=12)
+            finished = await asyncio.gather(a, b)
+        finally:
+            await fe.stop()
+        return rejected, finished
+
+    t0 = time.perf_counter()
+    res, health, drained = asyncio.run(stream())
+    got = {r["uid"]: r["tokens"] for r in res}
+    check(got == {0: want[0], 1: want[1]} and health.get("ok") and drained
+          and all(not r["final"].get("error") for r in res),
+          f"http: streamed tokens identical {got == {0: want[0], 1: want[1]}}"
+          f", /healthz {health}, drained {drained}")
+    (rtoks, rfinal), finished = asyncio.run(shed())
+    check(rtoks == [] and rfinal.get("status") == 503
+          and rfinal.get("retry_after_s", 0) >= 1.0
+          and all(len(t) == 12 and not f.get("error") for t, f in finished),
+          f"http: bounded queue answered {rfinal}, resident and queued "
+          f"requests {[(len(t), f.get('error')) for t, f in finished]}")
+    secs = time.perf_counter() - t0
+    print(f"  http: 2 SSE streams on 127.0.0.1 with tokens identical to "
+          f"phase 4's, /healthz {health}; 1 slot + a queue of 1: the third "
+          f"request answered 503 (Retry-After {rfinal['retry_after_s']:g} s), "
+          f"the other two finished ({secs:.1f} s)")
+    return {"seconds": secs, "retry_after_s": rfinal["retry_after_s"]}
+
+
+def robust_phase(cfg, model, comp, prompts, done, dev) -> dict:
+    """Phase robust on phase 4's compressed tinyllama tree: (a) the
+    supervised continuous engine without faults (its longest pump sets the
+    step deadline: 2 × it, at least 0.5 s; the stall is 1 s longer), then
+    under ``decode_logits@5;prefill@2;decode_stall@9+<stall>`` contiguous
+    and, with ``pager_fault_in@7x6`` added, paged; (b) a snapshot persisted
+    and restored into a fresh engine; (c) the prune job killed and
+    resumed, and the cholesky / hessian_accum sites; (d) the HTTP front
+    end.  Launch counts are zeroed before it and read after it: K2 154 a
+    decode_step call (counted by wrapping the model's), K1 those of (c)."""
+    import shutil
+
+    import torch
+
+    want = {r.uid: r.out for r in done}
+    root = ROOT / "chiprun_out" / "robust"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    zero_counts()
+    calls = counting_decode(model)
+    t0 = time.perf_counter()
+    out = {"clean": supervised_serve(model, comp, prompts, want, "",
+                                     "supervised, no faults")}
+    deadline = max(0.5, 2 * out["clean"]["max_pump_s"])
+    stall = deadline + 1.0
+    plan = f"decode_logits@5;prefill@2;decode_stall@9+{stall:.2f}"
+    out["contiguous"] = supervised_serve(
+        model, comp, prompts, want, plan, "supervised contiguous",
+        deadline=deadline, snapshot_dir=str(root / "snap"))
+    check((root / "snap" / "snapshot.pkl").is_file(),
+          "the supervisor persisted no snapshot")
+    out["paged"] = supervised_serve(
+        model, comp, prompts, want, plan + ";pager_fault_in@7x6",
+        "supervised paged", deadline=deadline, paged=True)
+    out["snapshot"] = snapshot_restore(model, comp, prompts, want,
+                                       root / "snapshot_b.pkl")
+    out["http"] = http_checks(model, comp, prompts, want)
+    del model.decode_step
+    out["job"] = prune_job_checks(cfg, dev, root)
+    out["counts"] = family_counts("robust", {
+        "hessian_update_cuda": out["job"]["k1"],
+        "nm_matmul_cuda": 7 * cfg.num_layers * calls[0]})
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase robust: {out['seconds']:.1f} s; {calls[0]} model steps "
+          f"served ({7 * cfg.num_layers * calls[0]} K2 launches), K1 "
+          f"launches {out['job']['k1']}")
+    return out
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -2748,6 +3269,9 @@ def main() -> None:
                                                 XLSTM_K2),
                "whisper-medium": path_kernel_checks(
                    gen, dev, "whisper", WHISPER_K1, WHISPER_K2, WHISPER_B)}
+    dense2_chk = {arch: path_kernel_checks(gen, dev, arch, DENSE2_K1[arch],
+                                           DENSE2_K2[arch])
+                  for arch in DENSE2_LAYERS}
 
     # ---- 3. main path: prune ----------------------------------------------
     zero_counts()
@@ -2817,6 +3341,10 @@ def main() -> None:
     paged = paged_tinyllama(cfg, model, model8, comp, prompts, done, done8)
     results["paged"] = {"tinyllama": {k: v for k, v in paged.items()
                                       if k != "counts"}}
+
+    # ---- robust: supervised serving, snapshots, prune jobs, HTTP ---------
+    robust = robust_phase(cfg, model, comp, prompts, done, dev)
+    results["robust"] = {k: v for k, v in robust.items() if k != "counts"}
     del engine8, model8
     results["serve"] = {"ratio": cb / db, "tokens": ntok,
                         "seconds": t_serve, "tok_per_s": ntok / t_serve,
@@ -2871,6 +3399,13 @@ def main() -> None:
                                if isinstance(v, dict) else v)
                            for k, v in fams.items()}
 
+    # ---- dense2: danube, mistral, internvl prune → compress → serve -------
+    dense2 = dense2_phase(dev)
+    results["dense2"] = {k: ({kk: vv for kk, vv in v.items()
+                              if kk != "by_shape"}
+                             if isinstance(v, dict) else v)
+                         for k, v in dense2.items()}
+
     # ---- 5. times at the main-path shapes ---------------------------------
     entries = []
     for b in (2048, 5632):
@@ -2889,6 +3424,8 @@ def main() -> None:
         key = (1024, b, str(torch.bfloat16))
         path_launches = {name: ph["counts"]["hessian_update_cuda"][1].get(
             key, 0) for name, ph in (("baselines", base), ("plan", plan))}
+        path_launches["robust"] = robust["counts"][
+            "hessian_update_cuda"].get(key, 0)
         entries.append({
             "name": "hessian_xtx", "shape": f"x (1024, {b}) bf16",
             "route": "cuda",
@@ -2902,9 +3439,11 @@ def main() -> None:
             "library_ms": lib, "library_bf16_ms": lib_bf16,
             "path_launches": path_launches})
     entries += k2_times(gen, dev, packs, k2_err, k2_main, "tinyllama-1.1b",
-                        {name: ph["counts"]["nm_matmul_cuda"][1]
-                         for name, ph in (("baselines", base),
-                                          ("plan", plan), ("paged", paged))})
+                        {**{name: ph["counts"]["nm_matmul_cuda"][1]
+                            for name, ph in (("baselines", base),
+                                             ("plan", plan),
+                                             ("paged", paged))},
+                         "robust": robust["counts"]["nm_matmul_cuda"]})
     entries += moe_times(gen, dev, moe_chk, moe)
     entries += path_times(gen, dev, mla_chk, mla["by_shape"], MLA_ARCH,
                           MLA_K1,
@@ -2917,6 +3456,10 @@ def main() -> None:
                               fams[arch]["by_shape"], arch, k1_bs,
                               batches=(WHISPER_B if arch == "whisper-medium"
                                        else (1, 4)))
+    for arch in DENSE2_LAYERS:
+        entries += path_times(gen, dev, dense2_chk[arch],
+                              dense2[arch]["by_shape"], arch,
+                              DENSE2_K1[arch])
     torch.cuda.synchronize()
     print(f"phase times on {results['gpu']} (name, power limit):")
     for e in entries:
@@ -2944,7 +3487,9 @@ def main() -> None:
                      (MLA_ARCH, mla["stats_both"]),
                      (GEMMA_ARCH, gemma["stats"]),
                      ("zamba2-7b", fams["zamba2-7b"]["engine_stats"]),
-                     ("xlstm-1.3b", fams["xlstm-1.3b"]["engine_stats"])):
+                     ("xlstm-1.3b", fams["xlstm-1.3b"]["engine_stats"]),
+                     *((arch, dense2[arch]["engine_stats"])
+                       for arch in DENSE2_LAYERS)):
         steps[path] = k2_step_line(
             [e for e in entries if e["name"] == "nm_matmul"
              and e["path"] == path], st, path)

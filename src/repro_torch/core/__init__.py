@@ -1,5 +1,5 @@
 """Core library: the paper's contribution (Thanos) + baselines + driver
-(the exports of ``repro.core`` that the port has; no prune journals)."""
+(the exports of ``repro.core`` that the port has)."""
 from repro_torch.core.api import (
     METHODS, ON_SINGULAR, PATTERNS, GuardInfo, MethodSpec, PruneConfig,
     method_spec, prune_layer, prune_layer_guarded, reconstruction_error,
@@ -16,6 +16,8 @@ from repro_torch.core.schedule import (
     LayerReport, PruneReport, collect_hessian_stats, get_path, prune_model,
     set_path,
 )
+from repro_torch.core.jobs import (LayerRecord, PruneJob, PruneJournal,
+                                   batch_digest)
 from repro_torch.core.sparsity import (NmCompressed, compression_ratio,
                                        pack_nm, unpack_nm)
 from repro_torch.core.thanos import PruneResult
@@ -30,6 +32,7 @@ __all__ = [
     "path_str",
     "LayerReport", "PruneReport", "collect_hessian_stats", "get_path",
     "prune_model", "set_path",
+    "LayerRecord", "PruneJob", "PruneJournal", "batch_digest",
     "NmCompressed", "compression_ratio", "pack_nm", "unpack_nm",
     "PruneResult",
 ]

@@ -196,8 +196,8 @@ class GuardInfo:
 
 def prune_layer_guarded(w: Tensor, h: "Tensor | None", cfg: PruneConfig, *,
                         on_singular: str = "escalate",
-                        max_escalations: int = 4, path: str = ""
-                        ) -> tuple[PruneResult, GuardInfo]:
+                        max_escalations: int = 4, faults=None,
+                        path: str = "") -> tuple[PruneResult, GuardInfo]:
     """``prune_layer`` with numerical guards: an ill-conditioned H surfaces
     as a policy decision, never as silent NaN weights.
 
@@ -209,6 +209,9 @@ def prune_layer_guarded(w: Tensor, h: "Tensor | None", cfg: PruneConfig, *,
     ``max_escalations`` extra attempts, then raises;
     ``fallback:magnitude`` escalates, then completes the layer data-free.
     A non-finite H skips escalation: damping cannot repair entries.
+    ``faults`` is an armed :class:`repro_torch.faults.FaultPlan`: the
+    ``cholesky`` site fires once per attempt, and a firing counts as a
+    failed factorization (it drives every policy on a healthy H).
     """
     if on_singular not in ON_SINGULAR:
         raise ValueError(f"unknown on_singular policy {on_singular!r}; "
@@ -235,6 +238,8 @@ def prune_layer_guarded(w: Tensor, h: "Tensor | None", cfg: PruneConfig, *,
     for k in range(tries):
         cfg_k = (cfg if k == 0 else
                  dataclasses.replace(cfg, percdamp=cfg.percdamp * 10.0 ** k))
+        if faults is not None and faults.fire("cholesky") is not None:
+            continue
         res = prune_layer(w, h, cfg_k)
         if solution_finite(res.weights, res.loss):
             return res, GuardInfo(damp_attempts=k,

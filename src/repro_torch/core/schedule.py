@@ -10,13 +10,20 @@ Which cell prunes which layer is a ``PrunePlan`` (``core/plan.py``): each
 param path resolves through the plan's ordered rules to a ``PruneConfig``
 or to *skip* (the layer stays dense and no Hessian is accumulated for it).
 A bare ``PruneConfig`` is the shim ``PrunePlan.uniform(cfg)``.
+
+A ``core.jobs.PruneJournal`` makes the run resumable: every solved layer
+is journaled, and journaled layers are loaded instead of solved while
+every forward still replays (``core/jobs.py``).  An armed
+``repro_torch.faults.FaultPlan`` fires the prune sites ``calib_batch``,
+``hessian_accum`` (here), ``cholesky`` (``prune_layer_guarded``) and
+``journal_write`` (the journal).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import time
-from typing import Any, Iterable, Protocol
+from typing import Any, Iterable, Mapping, Protocol
 
 import torch
 
@@ -24,6 +31,7 @@ from repro_torch.core.api import (PruneConfig, method_spec,
                                   prune_layer_guarded)
 from repro_torch.core.hessian import HessianAccumulator
 from repro_torch.core.plan import LayerStat, PrunePlan, as_plan, path_str
+from repro_torch.faults import CalibrationError
 
 Tensor = torch.Tensor
 Path = tuple[Any, ...]
@@ -93,6 +101,24 @@ class LayerReport:
     percdamp_used: float = 0.0
     fallback: str = ""      # "magnitude" when on_singular fell back
     calib_skipped: int = 0  # non-finite calibration batches dropped
+
+    # journal-fragment serde: path element types (str against int expert
+    # index) survive exactly, unlike the display-oriented PruneReport.to_dict
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["path"] = list(self.path)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "LayerReport":
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(f"unknown LayerReport keys {sorted(unknown)}; "
+                             f"known: {sorted(known)}")
+        d = dict(d)
+        d["path"] = tuple(d["path"])
+        return cls(**d)
 
 
 @dataclasses.dataclass
@@ -171,12 +197,20 @@ class PruneReport:
 
 
 def _capture(adapter, params, i: int, carries: list, accs: dict,
-             keep=None) -> None:
+             keep=None, faults=None) -> None:
     """Pass 1 of block i: forward every carry with the tape on and add each
     captured linear input into its accumulator (K1 on the card).  MoE
     expert slices tape (activations, row validity) pairs: only routed
-    capacity rows count.  ``keep(path)`` False leaves a path out."""
-    for carry in carries:
+    capacity rows count.  ``keep(path)`` False leaves a path out.  The
+    ``calib_batch`` site fires once per (block, batch) forward and raises;
+    ``hessian_accum`` fires once per accumulator update and turns the
+    batch into NaNs, which the accumulator's non-finite guard drops."""
+    for bi, carry in enumerate(carries):
+        if faults is not None and \
+                faults.fire("calib_batch", uid=i) is not None:
+            raise CalibrationError(
+                f"injected calibration failure (block {i}, batch {bi})",
+                site="calib_batch")
         _, caps = adapter.block_apply(params, i, carry, capture=True)
         for path, x in caps.items():
             if keep is not None and path not in accs and not keep(path):
@@ -186,13 +220,17 @@ def _capture(adapter, params, i: int, carries: list, accs: dict,
                 x, valid = x
             if path not in accs:
                 accs[path] = HessianAccumulator.init(x.shape[-1], x.device)
+            if faults is not None and \
+                    faults.fire("hessian_accum") is not None:
+                x = torch.full_like(x, torch.nan)
             accs[path].update(x, valid)
 
 
 def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
                 plan: "PrunePlan | PruneConfig", *,
                 on_singular: str = "escalate", max_escalations: int = 4,
-                min_calib_samples: int = 1) -> tuple[Any, PruneReport]:
+                min_calib_samples: int = 1, journal=None, faults=None
+                ) -> tuple[Any, PruneReport]:
     """Run Alg. 3 over the whole model.  Returns (pruned params, report).
 
     ``plan`` is a ``PrunePlan`` or a bare ``PruneConfig``.  A plan with an
@@ -203,6 +241,12 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
     ``on_singular`` overrides it); a data-aware layer whose accumulator
     closed with fewer than ``min_calib_samples`` tokens raises
     ``InsufficientCalibration``.
+
+    ``journal`` (a ``core.jobs.PruneJournal``; use ``core.jobs.PruneJob``)
+    persists each layer as soon as it is solved, and loads the layers it
+    already holds instead of solving them; the forwards replay, so
+    accumulators and carries are bitwise those of an uninterrupted run.
+    ``faults`` is an armed ``FaultPlan`` for the prune sites.
     """
     plan = as_plan(plan)
     t_start = time.perf_counter()
@@ -220,23 +264,48 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
     # indices and is pruned once, at its last site, with the statistics of
     # every site.  An entry goes when its layer is pruned or skipped.
     accs: dict[Path, HessianAccumulator] = {}
+    ordinal = 0                  # global sequential layer index (journal key)
     with torch.no_grad():
         for i in range(adapter.num_blocks(params)):
             # ---- pass 1: capture inputs, accumulate Hessians -------------
+            # replays for journaled blocks too (see ``journal`` above)
             _capture(adapter, params, i, carries, accs,
-                     keep=lambda path: plan.cfg_for(path) is not None)
+                     keep=lambda path: plan.cfg_for(path) is not None,
+                     faults=faults)
 
             # ---- prune every linear in the block --------------------------
             for path in adapter.block_linear_paths(params, i):
+                if journal is not None and ordinal < journal.completed:
+                    rec = journal.load(ordinal)
+                    if tuple(rec.report.path) != tuple(path):
+                        raise ValueError(
+                            f"journal layer {ordinal} is "
+                            f"{path_str(rec.report.path)!r}, expected "
+                            f"{path_str(path)!r} — job dir belongs to a "
+                            "different model/plan")
+                    if not rec.report.skipped:
+                        dev = get_path(params, path).device
+                        params = _write_layer(params, path,
+                                              rec.kernel.to(dev), owned)
+                        if rec.mask is not None:
+                            masks[path] = rec.mask.to(dev)
+                    accs.pop(path, None)
+                    reports.append(rec.report)
+                    ordinal += 1
+                    continue
                 t0 = time.perf_counter()
                 kernel = get_path(params, path)          # (in, out)
                 rule_idx, cfg = plan.resolve(path)
                 acc = accs.pop(path, None)
                 if cfg is None:                          # dense: skip
-                    reports.append(LayerReport(
+                    rep = LayerReport(
                         path=path, sparsity=0.0, obs_loss=0.0,
                         seconds=time.perf_counter() - t0, rule=rule_idx,
-                        tag="skip", params=kernel.numel(), skipped=True))
+                        tag="skip", params=kernel.numel(), skipped=True)
+                    if journal is not None:
+                        journal.write(ordinal, rep, faults=faults)
+                    reports.append(rep)
+                    ordinal += 1
                     continue
                 h = None
                 calib_skipped = 0
@@ -250,19 +319,25 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
                        if rule_idx >= 0 else "") or on_singular
                 res, guard = prune_layer_guarded(     # paper layout (out, in)
                     kernel.T, h, cfg, on_singular=pol,
-                    max_escalations=max_escalations, path=path_str(path))
-                params = _write_layer(
-                    params, path, res.weights.T.contiguous().to(kernel.dtype),
-                    owned)
-                masks[path] = res.mask.T.contiguous()       # (in, out)
-                reports.append(LayerReport(
+                    max_escalations=max_escalations, faults=faults,
+                    path=path_str(path))
+                new_kernel = res.weights.T.contiguous().to(kernel.dtype)
+                params = _write_layer(params, path, new_kernel, owned)
+                mask_t = res.mask.T.contiguous()            # (in, out)
+                masks[path] = mask_t
+                rep = LayerReport(
                     path=path, sparsity=float(res.mask.mean()),
                     obs_loss=float(res.loss),
                     seconds=time.perf_counter() - t0, rule=rule_idx,
                     tag=cfg.tag(), params=kernel.numel(),
                     damp_attempts=guard.damp_attempts,
                     percdamp_used=guard.percdamp_used,
-                    fallback=guard.fallback, calib_skipped=calib_skipped))
+                    fallback=guard.fallback, calib_skipped=calib_skipped)
+                if journal is not None:
+                    journal.write(ordinal, rep, kernel=new_kernel,
+                                  mask=mask_t, faults=faults)
+                reports.append(rep)
+                ordinal += 1
 
             # ---- pass 2: propagate through the pruned block ---------------
             carries = [adapter.block_apply(params, i, c, capture=False)[0]

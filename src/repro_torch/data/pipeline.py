@@ -82,7 +82,11 @@ def calibration_batches(cfg, *, num_samples: int = 32, seq_len: int = 256,
     sampled sequences (one numpy stream per batch index).  An encoder–
     decoder model gets {"frames": (batch, seq_len, d_model), "dec_tokens":
     (batch, min(dec_seq, seq_len))}: the frames stub is standard normal in
-    the model dtype, drawn from a generator seeded with ``seed + 1``.
+    the model dtype, drawn from a generator seeded with ``seed + 1``.  A
+    VLM gets {"tokens": (batch, seq_len − n_img), "patch_embeds": (batch,
+    n_img, d_model)} with n_img = min(vlm_image_tokens, seq_len // 2): the
+    patch stub is standard normal in the model dtype, drawn from a generator
+    seeded with ``seed + 2``.
     """
     device = resolve_device(device)
     if num_samples % batch:
@@ -91,6 +95,13 @@ def calibration_batches(cfg, *, num_samples: int = 32, seq_len: int = 256,
     toks = [torch.from_numpy(_sample(cfg.vocab_size, corpus_seed, seed, i,
                                      batch, seq_len).copy()).to(device)
             for i in range(num_samples // batch)]
+    if cfg.family == "vlm":
+        gen = torch.Generator(device=device).manual_seed(seed + 2)
+        n_img = min(cfg.vlm_image_tokens, seq_len // 2)
+        return [{"tokens": t[:, :seq_len - n_img],
+                 "patch_embeds": torch.randn(
+                     (batch, n_img, cfg.d_model), generator=gen,
+                     device=device).to(cfg.torch_dtype)} for t in toks]
     if cfg.family != "encdec":
         return [{"tokens": t} for t in toks]
     gen = torch.Generator(device=device).manual_seed(seed + 1)

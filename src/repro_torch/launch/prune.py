@@ -15,6 +15,16 @@ file, ``--skip GLOB`` / ``--mlp-pattern`` / ``--attn-pattern`` build a
 mixed plan from the base cell; with none of them the run uses the bare
 ``PruneConfig`` (≡ ``PrunePlan.uniform``).  ``--method``/``--pattern``
 choices come from the live registry (``core.api.METHODS``/``PATTERNS``).
+
+Resilience: ``--job-dir DIR`` journals every completed layer
+(``core/jobs.py``) so a killed run restarts with ``--resume`` and produces
+bitwise the same output; ``--on-singular`` picks the numerical-failure
+policy and ``--fault-plan`` arms deterministic fault injection (prune
+sites: calib_batch, hessian_accum, cholesky, journal_write), e.g.
+
+    python -m repro_torch.launch.prune --job-dir /tmp/j \
+        --fault-plan 'journal_write@3' --device cpu      # dies at layer 3
+    python -m repro_torch.launch.prune --job-dir /tmp/j --resume --device cpu
 """
 from __future__ import annotations
 
@@ -25,10 +35,12 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.core.api import METHODS, ON_SINGULAR, PATTERNS, PruneConfig
+from repro_torch.core.jobs import PruneJob
 from repro_torch.core.plan import PrunePlan, PruneRule, as_plan
 from repro_torch.core.schedule import prune_model
 from repro_torch.data.pipeline import calibration_batches, heldout_loss
 from repro_torch.device import resolve_device
+from repro_torch.faults import FaultPlan
 from repro_torch.models.model_builder import ModelAdapter, build_model
 
 # transformer-family shorthand globs ('*' crosses '/'); moe covers both the
@@ -40,10 +52,13 @@ ATTN_GLOBS = ("*/attn/*",)
 def prune_arch(arch: str, plan: "PrunePlan | PruneConfig", *,
                reduced: bool = True, num_samples: int = 16,
                seq_len: int = 128, batch: int = 8, report_path: str = "",
-               log=print, on_singular: str = "escalate", device="cuda"):
+               log=print, on_singular: str = "escalate", device="cuda",
+               job_dir: str = "", resume: bool = False, faults=None):
     """Init ``arch`` from seed 0, prune it with ``plan`` (a ``PrunePlan`` or
     a bare ``PruneConfig``) on ``device`` and compare held-out loss →
-    (pruned params, report, summary dict)."""
+    (pruned params, report, summary dict).  ``job_dir`` runs it as a
+    journaled ``PruneJob`` (``resume`` continues one); ``faults`` is an
+    armed ``FaultPlan``."""
     dev = resolve_device(device)
     mcfg = registry.get_config(arch, reduced=reduced)
     model = build_model(mcfg, device=dev)
@@ -51,10 +66,16 @@ def prune_arch(arch: str, plan: "PrunePlan | PruneConfig", *,
     dense_loss = heldout_loss(model, params, mcfg)
     batches = calibration_batches(mcfg, num_samples=num_samples,
                                   seq_len=seq_len, batch=batch, device=dev)
-    # a recipe with an allocation block expands inside prune_model (one
-    # extra dense capture pass); report.plan is the expanded plan
-    pruned, report = prune_model(params, ModelAdapter(model), batches, plan,
-                                 on_singular=on_singular)
+    adapter = ModelAdapter(model)
+    if job_dir:
+        job = PruneJob(job_dir, on_singular=on_singular, faults=faults)
+        pruned, report = job.run(params, adapter, batches, plan,
+                                 resume=resume)
+    else:
+        # a recipe with an allocation block expands inside prune_model (one
+        # extra dense capture pass); report.plan is the expanded plan
+        pruned, report = prune_model(params, adapter, batches, plan,
+                                     on_singular=on_singular, faults=faults)
     pruned_loss = heldout_loss(model, pruned, mcfg)
     out = {
         "arch": arch,
@@ -70,6 +91,8 @@ def prune_arch(arch: str, plan: "PrunePlan | PruneConfig", *,
         "layers_skipped": sum(1 for r in report.layers if r.skipped),
         "rules": report.rule_rollup(),
     }
+    if job_dir:
+        out["job_dir"] = job_dir
     if report_path:
         report.save(report_path)        # atomic: never a torn artifact
         out["report"] = report_path
@@ -135,16 +158,30 @@ def main():
                     help="sparsity pattern for attention linears")
     ap.add_argument("--report", default="",
                     help="write the PruneReport JSON (embeds the plan) here")
-    ap.add_argument("--on-singular", default="escalate",
-                    choices=list(ON_SINGULAR))
     ap.add_argument("--full", action="store_true",
                     help="published widths and depth (default: reduced)")
+    ap.add_argument("--job-dir", default="",
+                    help="journal completed layers here; a killed run "
+                         "restarts with --resume, bitwise identical")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue the journaled job in --job-dir")
+    ap.add_argument("--on-singular", default="escalate",
+                    choices=list(ON_SINGULAR),
+                    help="numerical-failure policy when a layer's Hessian "
+                         "resists factorization")
+    ap.add_argument("--fault-plan", default="",
+                    help="deterministic fault injection: JSON file or "
+                         "compact specs like 'journal_write@2;cholesky@0'")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args()
+    if args.resume and not args.job_dir:
+        ap.error("--resume requires --job-dir")
+    faults = FaultPlan.load(args.fault_plan) if args.fault_plan else None
     prune_arch(args.arch, build_plan(args), reduced=not args.full,
                report_path=args.report, on_singular=args.on_singular,
-               device=args.device)
+               device=args.device, job_dir=args.job_dir, resume=args.resume,
+               faults=faults)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Model factory + the generic Alg.-3 pruning adapter (port of
-``repro/models/model_builder.py``; every family but the VLM)."""
+``repro/models/model_builder.py``)."""
 from __future__ import annotations
 
 from typing import Any
@@ -9,14 +9,12 @@ from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.models.xlstm_lm import XlstmLM
 
-_FAMILIES = {"dense": TransformerLM, "moe": TransformerLM,
+_FAMILIES = {"dense": TransformerLM, "moe": TransformerLM, "vlm": TransformerLM,
              "encdec": EncDecLM, "hybrid": HybridLM, "ssm": XlstmLM}
 
 
 def build_model(cfg, *, device="cuda"):
     """Build the family's model on ``device``."""
-    if cfg.family == "vlm":
-        raise ValueError(f"family {cfg.family!r} is not ported yet")
     if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
     return _FAMILIES[cfg.family](cfg, device=device)

@@ -1,17 +1,20 @@
-"""Decoder-only transformer LM — the dense (tinyllama), MoE (qwen3-moe) and
-MLA + MoE (deepseek-v3) paths of ``repro/models/transformer.py``.
+"""Decoder-only transformer LM — the dense (tinyllama, h2o-danube,
+mistral-large, gemma3), MoE (qwen3-moe), MLA + MoE (deepseek-v3) and
+VLM-backbone (internvl2) paths of ``repro/models/transformer.py``.
 
 Model protocol, as in the JAX package:
     init(gen)                                   → params
     forward(params, batch, tape=None)           → logits (B, S, V)
     loss(params, batch)                         → scalar CE
+    prefill(params, batch, max_len)             → (logits, empty cache)
     init_cache(batch, max_len)                  → {layer: cache} — GQA or
                                                   MLA, int8 when
                                                   cfg.kv_cache_dtype is "int8"
     init_paged_cache(batch, num_pages=, page_size=, pages_per_slot=)
                                                 → {layer: cache} — pools,
                                                   rings for windowed layers
-    decode_step(params, cache, tokens, pos)     → (logits (B, 1, V), cache)
+    decode_step(params, cache, tokens, pos, embeds=None)
+                                                → (logits (B, 1, V), cache)
     embed_batch / block / num_blocks / block_linear_paths   (Alg.-3 adapter)
 """
 from __future__ import annotations
@@ -31,9 +34,9 @@ Tensor = torch.Tensor
 
 class TransformerLM:
     def __init__(self, cfg, *, device="cuda"):
-        if cfg.family not in ("dense", "moe"):
-            raise ValueError(f"{cfg.name}: the port runs dense and MoE "
-                             "models only so far")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
+                             "decoder-only transformer")
         if cfg.norm != "rmsnorm":
             raise ValueError(f"{cfg.name}: norm {cfg.norm!r} is not ported")
         self.cfg = cfg
@@ -102,9 +105,12 @@ class TransformerLM:
 
     # ------------------------------------------------------ blockwise parts
     def embed_batch(self, params, batch) -> dict:
-        """→ carry {h, positions}."""
+        """→ carry {h, positions}.  VLM: prepend precomputed patch embeds."""
         tokens = batch["tokens"].to(self.device)
         h = L.embed(params["embed"], tokens)
+        if self.cfg.family == "vlm" and "patch_embeds" in batch:
+            pe = batch["patch_embeds"].to(device=self.device, dtype=h.dtype)
+            h = torch.cat([pe, h], dim=1)
         B, S, _ = h.shape
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
         return {"h": h, "positions": positions}
@@ -146,13 +152,22 @@ class TransformerLM:
             carry = self.block(params, i, carry, tape)
         return self._head(params, carry["h"])
 
-    def loss(self, params, batch) -> Tensor:
-        tokens = batch["tokens"].to(self.device)
-        logits = self.forward(params, {"tokens": tokens})
+    def loss_from_carry(self, params, carry, batch) -> Tensor:
+        """Head + CE given the post-blocks carry; a VLM batch's image
+        positions are sliced off the logits."""
+        logits = self._head(params, carry["h"])
         labels = batch.get("labels")
         if labels is None:
-            labels = F.pad(tokens[:, 1:], (0, 1), value=-1)
+            labels = F.pad(batch["tokens"][:, 1:], (0, 1), value=-1)
+        if self.cfg.family == "vlm" and "patch_embeds" in batch:
+            logits = logits[:, batch["patch_embeds"].shape[1]:]
         return L.cross_entropy(logits, labels.to(self.device))
+
+    def loss(self, params, batch) -> Tensor:
+        carry = self.embed_batch(params, batch)
+        for i in range(self.cfg.num_layers):
+            carry = self.block(params, i, carry)
+        return self.loss_from_carry(params, carry, batch)
 
     # ------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -193,11 +208,13 @@ class TransformerLM:
                 caches[i] = A.gqa_paged_cache_init(cfg, batch, **geom)
         return caches
 
-    def decode_step(self, params, cache, tokens, pos):
+    def decode_step(self, params, cache, tokens, pos, embeds=None):
         """tokens (B, 1); pos int or (B,) absolute positions — a vector
-        decodes every slot at its own depth.  → (logits (B, 1, V), cache);
-        the cache is updated in place."""
-        h = L.embed(params["embed"], tokens.to(self.device))
+        decodes every slot at its own depth; ``embeds`` (B, 1, d) stand in
+        for the tokens' embeddings (a VLM's image prefix).  → (logits
+        (B, 1, V), cache); the cache is updated in place."""
+        h = (L.embed(params["embed"], tokens.to(self.device))
+             if embeds is None else embeds.to(self.device))
         # one host→device copy of the positions per step, not one per layer
         pos = A.slot_positions(pos, h.shape[0], self.device)
         for i in range(self.cfg.num_layers):
@@ -212,3 +229,11 @@ class TransformerLM:
             h = h + attn
             h = h + self._ffn(i, blk, L.rmsnorm(blk["ln2"], h), None, ())
         return self._head(params, h), cache
+
+    def prefill(self, params, batch, max_len: int):
+        """Full-sequence forward plus a fresh cache, as the JAX reference
+        does: the cache comes back empty (the serving engine fills it with
+        decode_step)."""
+        logits = self.forward(params, batch)
+        cache = self.init_cache(batch["tokens"].shape[0], max_len)
+        return logits, cache

@@ -1,7 +1,8 @@
-"""Batched serving engine — continuous (slot-level) batching over fixed
-slots and a contiguous or paged resident KV cache (port of
-``repro/serve/engine.py``, continuous scheduler, greedy decoding).
+"""Batched serving engine — continuous (slot-level) or wave batching over
+fixed slots and a contiguous or paged resident KV cache (port of
+``repro/serve/engine.py``).
 
+**Continuous scheduler** (``ServeConfig.scheduler="continuous"``, default).
 Every slot carries its own position, so requests of any length decode packed
 in one (B_slots, 1) step.  A queued request is admitted into a free slot by
 prefilling it at B=1 into a fresh single-row cache — a sequential decode
@@ -22,6 +23,17 @@ the capacity is at least 8 — with B ≤ 8 slots nothing is dropped.  Above
 8 slots a batch-mate (idle or not) can push a row's assignment past the
 capacity, as in the JAX engine.
 
+**Wave scheduler** (``scheduler="wave"``, the correctness oracle).  Up to
+``batch_slots`` same-length prompts prefill together, then decode in lock
+step at one scalar position until every request of the wave is finished.
+
+Decoding is greedy (argmax) or, with ``greedy=False``, categorical at
+``temperature`` from an explicit ``torch.Generator`` (Gumbel-max: the
+argmax of logits/T plus Gumbel noise drawn from the generator), so a
+sampled run is reproducible from its seed.  A request stops at
+``max_new`` tokens, at ``eos_id``, at the end of its cache region, at its
+``deadline_s`` (``error="deadline"``) or when cancelled.
+
 Paged mode (``ServeConfig.paged``): the full-attention layers' caches
 become page pools shared by every slot (``models/attention.py``), and the
 host-side ``serve/pager.Pager`` decides which page backs which logical page
@@ -39,10 +51,25 @@ Compressed weights: params whose pruned linears are ``NmCompressed``
 ``decompress_params`` — and every pruned linear of prefill and decode runs
 through ``kernels/ops.nm_matmul`` (K2 on the card); an expert stack is one
 ``NmStackedCompressed`` leaf through ``ops.nm_matmul_stacked`` (K3).
+
+Fault tolerance: ``snapshot()`` captures the whole engine — **host copies**
+of the resident cache, the tokens, the positions and the generator state
+(the live cache is written in place by every step, so a snapshot holding
+references would "restore" the faulted state), plus the request
+bookkeeping — and ``restore()`` rebuilds it on a fresh or faulted engine,
+which then continues bit-identically.  ``arm_faults`` arms a
+``serve/faults.FaultPlan``: the ``prefill`` site raises ``DeviceOom`` at
+admission before any state changes, ``decode_stall`` sleeps after a decode
+step, ``decode_logits`` turns its logits into NaN, and the paged pager's
+``pager_fault_in`` raises ``PoolExhausted``.  With ``watch_logits`` the
+step raises ``NonFiniteLogits`` before any token is absorbed
+(``serve/supervisor.py`` rolls back and replays).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
 from typing import Any
 
 import numpy as np
@@ -51,6 +78,8 @@ import torch
 from repro_torch.kernels.ops import NmKernelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.serve.faults import (DeviceOom, FaultPlan, NonFiniteLogits,
+                                      QueueFull)
 from repro_torch.serve.pager import SCRATCH, Pager, PoolExhausted
 
 
@@ -61,12 +90,27 @@ class Request:
     max_new: int = 16
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
+    # serving telemetry (time.perf_counter seconds; < 0 = not yet)
+    t_submit: float = -1.0
+    t_first: float = -1.0
+    t_done: float = -1.0
+    # wall-clock budget from t_submit (0 = none); an expired request
+    # finishes with error="deadline" and the tokens it produced
+    deadline_s: float = 0.0
+    error: str = ""          # "" = clean; "deadline" / "cancelled" / …
+    # streaming hook: on_token(req, token) after each absorbed token (the
+    # front end's SSE push); not part of a snapshot
+    on_token: Any = dataclasses.field(default=None, repr=False, compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     batch_slots: int = 8
     max_len: int = 512
+    greedy: bool = True
+    temperature: float = 1.0
+    eos_id: int = -1         # < 0 = no stop token
+    scheduler: str = "continuous"   # "continuous" | "wave" (the oracle)
     # n:m compressed-matmul impl (kernels/ops.NmKernelConfig: auto | ref |
     # kernel); auto = K2 on a card, the plain version on the CPU
     nm_impl: str = "auto"
@@ -76,15 +120,29 @@ class ServeConfig:
     page_size: int = 16      # tokens per page; must divide max_len
     num_pages: int = 0       # 0 = auto: 1 + batch_slots · max_len/page_size
     prefix_reuse: bool = True  # share prompt pages across requests (COW)
+    # admission control: > 0 bounds the request queue — submit() raises
+    # QueueFull past it (the front end answers 503 + Retry-After)
+    max_queued: int = 0
     # run the pager's refcount audit after every continuous step
     debug_checks: bool = False
 
     def __post_init__(self):
+        if self.max_queued < 0:
+            raise ValueError(f"max_queued must be >= 0 (0 = unbounded), "
+                             f"got {self.max_queued}")
+        if not (math.isfinite(self.temperature) and self.temperature > 0):
+            raise ValueError(
+                f"temperature must be a finite positive float, got "
+                f"{self.temperature!r} — <= 0 turns categorical sampling "
+                f"into NaN/garbage silently")
         if self.batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {self.batch_slots}")
         if self.max_len < 2:
             raise ValueError(f"max_len must be >= 2, got {self.max_len}")
         if self.paged:
+            if self.scheduler != "continuous":
+                raise ValueError("paged=True requires the continuous "
+                                 "scheduler (wave allocates per-wave caches)")
             if self.page_size < 1:
                 raise ValueError(
                     f"page_size must be >= 1, got {self.page_size}")
@@ -147,12 +205,34 @@ def _copy_pages_fn(cache: dict, src, dst) -> None:
             A.paged_copy_pages(layer, src, dst)
 
 
+def _copy_tree(tree, device):
+    """Deep copy of a cache tree (dicts of cache dataclasses) with every
+    tensor copied to ``device`` — never an alias, also where the tensor is
+    already there."""
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device, copy=True)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _copy_tree(getattr(tree, f.name), device)
+            for f in dataclasses.fields(tree)})
+    return tree
+
+
 class ServingEngine:
-    def __init__(self, model, params, cfg: ServeConfig):
+    def __init__(self, model, params, cfg: ServeConfig, *,
+                 gen: "torch.Generator | None" = None):
+        """``gen`` draws the sampled tokens (``greedy=False``); the default
+        is a generator on the model's device seeded with 0."""
+        if cfg.scheduler not in ("continuous", "wave"):
+            raise ValueError(f"unknown scheduler {cfg.scheduler!r}")
         self.model = model
         self.cfg = cfg
         self.params = params         # NmCompressed leaves stay compressed
         self.nm_kernel = NmKernelConfig(impl=cfg.nm_impl)
+        self.gen = (gen if gen is not None else
+                    torch.Generator(device=model.device).manual_seed(0))
         self.queue: list[Request] = []
         self.finished: list[Request] = []
         # vtime: work units (1 a decode step, the tokens a prefill computes)
@@ -167,6 +247,10 @@ class ServingEngine:
         # admission order per slot: preemption victims are LIFO
         self._seq = 0
         self._slot_seq = [0] * cfg.batch_slots
+        # fault injection + watchdog: off until armed (one attribute load
+        # a step)
+        self.faults: FaultPlan | None = None
+        self.watch_logits = False
         self.pager: Pager | None = None
         if cfg.paged:
             if not hasattr(model, "init_paged_cache"):
@@ -184,9 +268,27 @@ class ServingEngine:
                 num_pages=self._num_pages, page_size=cfg.page_size,
                 prefix_reuse=prefix)
 
+    def arm_faults(self, plan: FaultPlan | None) -> None:
+        """Arm (or disarm with None) a fault plan on the engine and, when
+        paged, on the pager's fault-in path."""
+        self.faults = plan
+        if self.pager is not None:
+            self.pager.faults = plan
+
     # ----------------------------------------------------------- helpers
     def _device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.array(a, np.int64)).to(self.model.device)
+
+    def _select(self, logits: torch.Tensor) -> np.ndarray:
+        """(B, V) logits → (B,) int64 tokens on the host: argmax, or a
+        categorical draw at ``temperature`` from ``self.gen``."""
+        if not self.cfg.greedy:
+            noise = torch.empty(logits.shape, dtype=torch.float32,
+                                device=logits.device)
+            noise.exponential_(generator=self.gen)     # −log U ~ Exp(1)
+            logits = (logits.to(torch.float32) / self.cfg.temperature
+                      - torch.log(noise))              # + Gumbel noise
+        return torch.argmax(logits, dim=-1).cpu().numpy()
 
     def _absorb(self, req: Request, token: int) -> None:
         """Record one sampled token for ``req`` unless it already finished."""
@@ -194,31 +296,92 @@ class ServingEngine:
             req.done = True
             return
         req.out.append(token)
-        if len(req.out) >= req.max_new:
+        if req.t_first < 0:
+            req.t_first = time.perf_counter()
+        if token == self.cfg.eos_id or len(req.out) >= req.max_new:
             req.done = True
+            req.t_done = time.perf_counter()
+        if req.on_token is not None:
+            req.on_token(req, token)
 
     # ----------------------------------------------------------- main loop
-    def submit(self, req: Request) -> None:
+    def submit(self, req: Request, *, force: bool = False) -> None:
+        """Queue ``req``; past ``max_queued`` raise ``QueueFull`` unless
+        ``force`` (the supervisor's replays)."""
         if len(req.prompt) + 1 > self.cfg.max_len:
             raise ValueError(
                 f"request {req.uid}: prompt length {len(req.prompt)} does "
                 f"not fit max_len={self.cfg.max_len} (need prompt + 1)")
+        if (not force and self.cfg.max_queued
+                and len(self.queue) >= self.cfg.max_queued):
+            # ~one queue drain per resident generation as the backoff hint
+            raise QueueFull(
+                f"request {req.uid} rejected: queue at max_queued="
+                f"{self.cfg.max_queued}",
+                retry_after_s=max(1.0, 0.1 * len(self.queue)))
+        if req.t_submit < 0:
+            req.t_submit = time.perf_counter()
         self.queue.append(req)
 
     def idle(self) -> bool:
         """No queued requests and no slot mid-generation."""
         return not self.queue and all(s is None for s in self._slots)
 
+    def cancel(self, uid: int, *, error: str = "cancelled") -> bool:
+        """Abort a queued or in-flight request: it joins ``finished`` with
+        ``done=True``, its partial tokens and ``error`` set.  False when the
+        uid is not resident (finished already, or unknown)."""
+        for i, req in enumerate(self.queue):
+            if req.uid == uid:
+                req.done, req.error = True, error
+                if req.t_done < 0:
+                    req.t_done = time.perf_counter()
+                self.queue.pop(i)
+                self.finished.append(req)
+                return True
+        for slot, req in enumerate(self._slots):
+            if req is not None and req.uid == uid:
+                req.done, req.error = True, error
+                self._retire(slot)
+                return True
+        return False
+
+    def _expire_deadlines(self) -> None:
+        now = time.perf_counter()
+        expired = [req.uid
+                   for req in (*self.queue,
+                               *(r for r in self._slots if r is not None))
+                   if not req.done and req.deadline_s > 0
+                   and req.t_submit >= 0
+                   and now - req.t_submit > req.deadline_s]
+        for uid in expired:
+            self.cancel(uid, error="deadline")
+
     def pump(self) -> bool:
-        """One scheduling quantum: admissions + one decode step.  Returns
-        False when there is nothing to do."""
+        """One scheduling quantum — admissions + one decode step
+        (continuous) or one whole wave (wave).  Returns False when there is
+        nothing to do."""
+        self._expire_deadlines()
         with torch.no_grad(), L.nm_kernel_scope(self.nm_kernel):
+            if self.cfg.scheduler == "wave":
+                wave = self._next_wave()
+                if not wave:
+                    return False
+                self._serve_wave(wave)
+                now = time.perf_counter()
+                for req in wave:
+                    req.done = True
+                    if req.t_done < 0:
+                        req.t_done = now
+                    self.finished.append(req)
+                return True
             return self._continuous_step()
 
     def run(self, *, max_steps: int = 100_000) -> list[Request]:
         """Drain queue and slots; returns finished requests in uid order.
         Requests still in flight when ``max_steps`` runs out come back too,
-        with ``done=False`` and their partial ``out``."""
+        with ``done=False`` and their partial ``out``; they stay resident,
+        and a later ``pump``/``run`` continues them."""
         steps = 0
         while steps < max_steps and self.pump():
             steps += 1
@@ -240,7 +403,10 @@ class ServingEngine:
                                                     self.cfg.max_len)
 
     def _retire(self, slot: int) -> None:
-        self.finished.append(self._slots[slot])
+        req = self._slots[slot]
+        if req.t_done < 0:
+            req.t_done = time.perf_counter()
+        self.finished.append(req)
         self._slots[slot] = None
         if self.pager is not None:
             self.pager.retire(slot)
@@ -248,16 +414,16 @@ class ServingEngine:
         # re-decoding idempotently until the next admission overwrites it
         # (paged: its table row points at the scratch page, a write sink)
 
-    def _prefill(self, row: dict, tokens: np.ndarray, start: int = 0):
-        """Sequential decode at B=1 over positions [start, S) of ``tokens``
-        into the row cache ``row`` (positions below ``start`` are already
-        there: a shared prefix) → (row cache, last logits (1, V))."""
-        toks = self._device(tokens.reshape(1, -1))
+    def _prefill(self, cache: dict, tokens: np.ndarray, start: int = 0):
+        """Sequential decode over positions [start, S) of ``tokens`` (B, S)
+        into ``cache`` (positions below ``start`` are already there: a
+        shared prefix) → (cache, last logits (B, V))."""
+        toks = self._device(tokens)
         logits = None
         for i in range(start, toks.shape[1]):
-            logits, row = self.model.decode_step(self.params, row,
-                                                 toks[:, i:i + 1], i)
-        return row, logits[:, -1, :]
+            logits, cache = self.model.decode_step(self.params, cache,
+                                                   toks[:, i:i + 1], i)
+        return cache, logits[:, -1, :]
 
     def _write_slot(self, row: dict, slot: int) -> None:
         """Copy a B=1 row cache into row ``slot`` of the resident
@@ -280,6 +446,13 @@ class ServingEngine:
         next decode step rewrites that position with identical k/v, so the
         continuation is that of never having been preempted."""
         req = self.queue[0]
+        if self.faults is not None and \
+                self.faults.fire("prefill", uid=req.uid) is not None:
+            # before any engine/pager state changes: the request stays
+            # queued, as after a real allocation failure at prefill entry
+            raise DeviceOom(
+                f"injected out of memory while prefilling request "
+                f"{req.uid}", site="prefill", uid=req.uid)
         self._ensure_state()
         prompt = np.asarray(req.prompt, np.int64)
         resumed = len(req.out) > 0
@@ -302,7 +475,7 @@ class ServingEngine:
                                self._pages(plan.gather_pids, SCRATCH),
                                plan.n_shared_tok)
                 self.stats["prefix_hit_tokens"] += plan.n_shared_tok
-        row, last = self._prefill(row, tokens_all, start)
+        row, last = self._prefill(row, tokens_all[None, :], start)
         if plan is not None:
             _admit_write_fn(self._cache, row, slot,
                             self._pages(plan.fresh_lps, 0),
@@ -320,7 +493,7 @@ class ServingEngine:
             self._tokens[slot, 0] = int(tokens_all[-1])
             self._pos[slot] = S - 1     # re-decode the last emitted token
             return True
-        tok = int(torch.argmax(last, dim=-1)[0])
+        tok = int(self._select(last)[0])
         self._absorb(req, tok)
         self._tokens[slot, 0] = tok
         self._pos[slot] = S
@@ -424,7 +597,21 @@ class ServingEngine:
         logits, self._cache = self.model.decode_step(
             self.params, self._cache, self._device(self._tokens),
             self._device(self._pos))
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+        logits = logits[:, -1, :]
+        if self.faults is not None:
+            stall = self.faults.fire("decode_stall")
+            if stall is not None:
+                time.sleep(stall.payload)
+            if self.faults.fire("decode_logits") is not None:
+                logits = torch.full_like(logits, torch.nan)
+        if self.watch_logits and not bool(torch.isfinite(logits).all()):
+            # raise BEFORE any token is absorbed: the supervisor's restore
+            # rolls the poisoned step's cache writes back, and no request
+            # ever sees a garbage token
+            raise NonFiniteLogits(
+                f"decode step {self.stats['decode_steps']} produced "
+                f"non-finite logits", site="decode_logits")
+        nxt = self._select(logits)
         self.stats["decode_steps"] += 1
         self.stats["busy_slot_steps"] += len(active)
         self.stats["vtime"] += 1
@@ -443,3 +630,168 @@ class ServingEngine:
         if self.cfg.debug_checks and self.pager is not None:
             self.pager.check()
         return True
+
+    # ------------------------------------------------------ wave scheduler
+    def _next_wave(self) -> list[Request]:
+        """Pop up to batch_slots queued requests sharing one prompt length."""
+        if not self.queue:
+            return []
+        want = len(self.queue[0].prompt)
+        wave, rest = [], []
+        for r in self.queue:
+            if len(r.prompt) == want and len(wave) < self.cfg.batch_slots:
+                wave.append(r)
+            else:
+                rest.append(r)
+        self.queue = rest
+        return wave
+
+    def _serve_wave(self, wave: list[Request]) -> int:
+        """Prefill + decode one wave; returns the decode steps executed."""
+        S = len(wave[0].prompt)
+        B = self.cfg.batch_slots
+        prompts = np.zeros((B, S), np.int64)
+        for slot, req in enumerate(wave):
+            prompts[slot] = np.asarray(req.prompt, np.int64)
+        cache = self.model.init_cache(B, self.cfg.max_len)
+        cache, last = self._prefill(cache, prompts)
+        self.stats["prefills"] += 1
+        self.stats["prefill_tokens"] += S * len(wave)
+        self.stats["vtime"] += S        # work units: batched ≈ one B=1 pass
+        nxt = self._select(last)
+        for slot, req in enumerate(wave):
+            self._absorb(req, int(nxt[slot]))
+        horizon = min(max(r.max_new for r in wave) - 1,
+                      self.cfg.max_len - S - 1)
+        steps = 0
+        for t in range(horizon):
+            if all(r.done for r in wave):
+                break                       # early finishers end the wave
+            logits, cache = self.model.decode_step(
+                self.params, cache, self._device(nxt[:, None]), S + t)
+            nxt = self._select(logits[:, -1, :])
+            self.stats["decode_steps"] += 1
+            self.stats["busy_slot_steps"] += sum(1 for r in wave
+                                                 if not r.done)
+            self.stats["vtime"] += 1
+            for slot, req in enumerate(wave):
+                self._absorb(req, int(nxt[slot]))
+            steps += 1
+        return steps
+
+    # ----------------------------------------------------------- ckpt hooks
+    @staticmethod
+    def _req_state(req: Request | None) -> dict | None:
+        # on_token is dropped: callbacks do not serialize; a restored server
+        # re-attaches streams (the supervisor does, behind its high-water
+        # mark)
+        if req is None:
+            return None
+        return {"uid": int(req.uid),
+                "prompt": np.asarray(req.prompt, np.int64).copy(),
+                "max_new": int(req.max_new),
+                "out": [int(t) for t in req.out],
+                "done": bool(req.done),
+                "t_submit": float(req.t_submit),
+                "t_first": float(req.t_first),
+                "t_done": float(req.t_done),
+                "deadline_s": float(req.deadline_s),
+                "error": str(req.error)}
+
+    @staticmethod
+    def _req_from_state(st: dict | None) -> Request | None:
+        if st is None:
+            return None
+        return Request(uid=int(st["uid"]),
+                       prompt=np.asarray(st["prompt"], np.int64).copy(),
+                       max_new=int(st["max_new"]),
+                       out=[int(t) for t in st["out"]],
+                       done=bool(st["done"]),
+                       t_submit=float(st.get("t_submit", -1.0)),
+                       t_first=float(st.get("t_first", -1.0)),
+                       t_done=float(st.get("t_done", -1.0)),
+                       deadline_s=float(st.get("deadline_s", 0.0)),
+                       error=str(st.get("error", "")))
+
+    def snapshot(self) -> dict:
+        """Full engine state for preempt/resume.
+
+        ``device`` holds **host copies** — the cache as a tree of CPU
+        tensors, the tokens and positions as numpy, the generator's state —
+        so the snapshot neither aliases the live cache (written in place by
+        every step) nor holds device memory, and pickles as it is;
+        ``slots``/``queue``/``finished`` are request bookkeeping and
+        ``stats`` the serving counters.  ``restore`` on a fresh engine (same
+        model, params and config) continues bit-identically.
+        """
+        return {
+            "scheduler": self.cfg.scheduler,
+            "batch_slots": self.cfg.batch_slots,
+            "max_len": self.cfg.max_len,
+            "paged": self.cfg.paged,
+            "page_size": self.cfg.page_size if self.cfg.paged else 0,
+            "num_pages": self._num_pages if self.cfg.paged else 0,
+            "pager": None if self.pager is None else self.pager.snapshot(),
+            "device": {
+                "cache": (None if self._cache is None
+                          else _copy_tree(self._cache, "cpu")),
+                "tokens": self._tokens.copy(),
+                "pos": self._pos.copy(),
+                "rng": self.gen.get_state().clone(),
+            },
+            "slots": [self._req_state(r) for r in self._slots],
+            "queue": [self._req_state(r) for r in self.queue],
+            "finished": [self._req_state(r) for r in self.finished],
+            "stats": dict(self.stats),
+        }
+
+    def restore(self, snap: dict) -> None:
+        """Rebuild engine state from ``snapshot()`` output; the snapshot
+        stays intact (its tensors are copied, not adopted), so one snapshot
+        restores any number of times.
+
+        Requests still waiting for their first token get ``t_submit``
+        re-stamped: ``perf_counter`` epochs do not transfer across
+        processes, and mixing them would poison time-to-first-token.
+        """
+        if snap["scheduler"] != self.cfg.scheduler:
+            raise ValueError(
+                f"snapshot from scheduler={snap['scheduler']!r} cannot "
+                f"restore into scheduler={self.cfg.scheduler!r}")
+        for field in ("batch_slots", "max_len"):
+            if snap.get(field, getattr(self.cfg, field)) != \
+                    getattr(self.cfg, field):
+                raise ValueError(
+                    f"snapshot {field}={snap[field]} does not match engine "
+                    f"{field}={getattr(self.cfg, field)} — the resident "
+                    f"cache geometry must be identical")
+        if bool(snap.get("paged", False)) != self.cfg.paged:
+            raise ValueError(
+                f"snapshot paged={snap.get('paged', False)} does not match "
+                f"engine paged={self.cfg.paged} — cache layouts differ")
+        if self.cfg.paged and snap.get("page_size") != self.cfg.page_size:
+            raise ValueError(
+                f"snapshot page_size={snap.get('page_size')} does not match "
+                f"engine page_size={self.cfg.page_size}")
+        if self.cfg.paged and \
+                snap.get("num_pages", self._num_pages) != self._num_pages:
+            raise ValueError(
+                f"snapshot num_pages={snap.get('num_pages')} does not match "
+                f"engine num_pages={self._num_pages} — page ids in the "
+                f"snapshot would mis-index this pool")
+        if self.pager is not None:
+            self.pager.restore(snap["pager"])    # marks the tables dirty
+        dev = snap["device"]
+        self._cache = (None if dev["cache"] is None
+                       else _copy_tree(dev["cache"], self.model.device))
+        self._tokens = np.array(dev["tokens"], np.int64)
+        self._pos = np.array(dev["pos"], np.int64)
+        self.gen.set_state(dev["rng"])
+        self._slots = [self._req_from_state(s) for s in snap["slots"]]
+        self.queue = [self._req_from_state(s) for s in snap["queue"]]
+        self.finished = [self._req_from_state(s) for s in snap["finished"]]
+        now = time.perf_counter()
+        for req in [*self._slots, *self.queue]:
+            if req is not None and not req.done and req.t_first < 0:
+                req.t_submit = now
+        self.stats = dict(snap["stats"])

@@ -71,11 +71,11 @@ def pair():
 
 
 def test_registry_and_configs_match_jax():
-    """The port's 7 archs in the JAX registry's order, and the three new
-    configs field for field."""
+    """The port's archs are the JAX registry's 10, in its order, and the
+    three configs of this family field for field."""
     assert registry.ARCHS == tuple(a for a in j_registry.ARCHS
                                    if a in registry.ARCHS)
-    assert len(registry.ARCHS) == 7
+    assert len(registry.ARCHS) == 10
     for arch in ("zamba2-7b", "xlstm-1.3b", "whisper-medium"):
         for reduced in (False, True):
             assert dataclasses.asdict(
@@ -87,9 +87,11 @@ def test_registry_and_configs_match_jax():
              for a in ("zamba2-7b", "xlstm-1.3b", "whisper-medium")}
     assert kinds == {"zamba2-7b": "HybridLM", "xlstm-1.3b": "XlstmLM",
                      "whisper-medium": "EncDecLM"}
-    with pytest.raises(ValueError, match="not ported yet"):
+    assert type(build_model(registry.get_config("tinyllama-1.1b").replace(
+        family="vlm"), device="cpu")).__name__ == "TransformerLM"
+    with pytest.raises(ValueError, match="unknown family"):
         build_model(registry.get_config("tinyllama-1.1b").replace(
-            family="vlm"), device="cpu")
+            family="rnn"), device="cpu")
 
 
 def test_shared_sites_and_paths(pair):
