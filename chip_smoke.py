@@ -31,6 +31,26 @@ non-zero without the final result line):
              logits against the same params decompressed and served dense;
              then serve the same requests with the int8 KV cache
              (QuantGqaCache) and hold its logits against the bf16 cache's.
+train. train — right after phase 4, on phase 3's pruned tree and masks:
+             (a) ``python -m repro_torch.launch.train`` on tinyllama at full
+             width and depth, batch 8 × 256, 4 steps saving at step 4 (an
+             11 GB checkpoint; the free disk must hold twice it), then a
+             second run to step 6 that must print ``restored checkpoint at
+             step 4``, losses finite, the checkpoint's bytes and save and
+             restore seconds printed; (b) ``Trainer`` at full width cut to
+             TRAIN_RESTART_LAYERS layers, remat 'block': 8 uninterrupted
+             steps against 4 + a resume, params, both moments and the
+             losses of steps 4–7 bitwise equal (deterministic algorithms
+             on for this check only); (c) the paper's sparse finetune at
+             full size: FINETUNE_STEPS steps of the sparsity-preserving
+             AdamW (wd 0.01, clip 1.0, cosine 5e-4) on a clone of the
+             pruned tree, from ``TrainStream`` step 1000 — every pruned
+             coordinate of the 154 masked linears exactly 0, held-out loss
+             below the pruned tree's, strict 2:4 compression 0.625, the
+             phase-4 request set served (K2 launches counted), the
+             first-step logits against the decompressed tree at rel ≤
+             5e-2; the median step, tokens/s, the update's share of the
+             step, peak memory and the stream's draw time printed.
 base. baselines — the paper's comparison methods on phase 3's dense
              tinyllama tree: SparseGPT (block 64), Wanda and magnitude each
              prune 2:4 (K1), compress and serve the phase-4 request set
@@ -145,8 +165,8 @@ robust. robust — on phase 4's compressed tinyllama tree, right after the
              total, each beside the library's.
 
 Kernel launch counts are zeroed just before each path (phases 3,
-robust, baselines, plan, 4m, mla and each part of paged, of families and
-of dense2) and read just after its serve (the mla path: after both serves; gemma3: after its paged serve;
+train's serve, robust, baselines, plan, 4m, mla and each part of paged,
+of families and of dense2) and read just after its serve (the mla path: after both serves; gemma3: after its paged serve;
 baselines and plan also per method and per step); the comparison and
 timing launches are not counted, nor are the contiguous serves the paged
 ones are held against (``uncounted``).  The tinyllama rows of phase 5
@@ -259,6 +279,10 @@ VLM_IMAGE, VLM_TEXT = 64, 16
 # (28 journaled linears; the kill at layer 14 is block 2's first), and the
 # cholesky / hessian_accum runs on 1 layer
 JOB_LAYERS, JOB_KILL, SITE_LAYERS = 4, 14, 1
+# the train phase: batches of 8 × 256 tokens; the bitwise restart runs at
+# full width cut to 2 layers (a checkpoint of ~2.2 GB, not ~11 GB); the
+# sparse finetune takes 16 steps at full width and depth
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_RESTART_LAYERS, FINETUNE_STEPS = 8, 256, 2, 16
 K3_REPLACES = ("src/repro/kernels/ops.py:151-161 (loops the pallas_call of "
                "src/repro/kernels/nm_spmm.py:135)")
 MAXB_ROWS = 8                 # capacity rows K3 computes per row group
@@ -3068,6 +3092,292 @@ def http_checks(model, comp, prompts, want: dict) -> dict:
     return {"seconds": secs, "retry_after_s": rfinal["retry_after_s"]}
 
 
+def leaf_bytes(tree) -> tuple[int, int]:
+    """(elements, bytes) of every tensor leaf of a nested-dict tree."""
+    if isinstance(tree, dict):
+        parts = [leaf_bytes(v) for v in tree.values()]
+        return sum(p[0] for p in parts), sum(p[1] for p in parts)
+    return tree.numel(), tree.numel() * tree.element_size()
+
+
+def train_cli_part(pruned, root: Path) -> dict:
+    """(a) ``python -m repro_torch.launch.train`` on tinyllama at full width
+    and depth: 4 steps saving at step 4, then a second run to step 6 that
+    must restore from step 4; the free disk must hold twice the
+    checkpoint (bf16 params, fp32 moments) before anything is written."""
+    import os
+    import shutil
+
+    ckdir = root / "cli"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ckdir.mkdir(parents=True)
+    elems, pbytes = leaf_bytes(pruned)
+    need = pbytes + 2 * 4 * elems
+    free = shutil.disk_usage(ckdir).free
+    check(free >= 2 * need, f"train CLI: {free / 1e9:.1f} GB free under "
+          f"{ckdir}, the checkpoint needs {need / 1e9:.1f} GB and the check "
+          f"asks for twice that")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "tinyllama-1.1b", "--full", "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--save-every", "4", "--ckpt-dir", str(ckdir)]
+    runs = []
+    for steps in (4, 6):
+        t0 = time.perf_counter()
+        r = subprocess.run(base + ["--steps", str(steps)], env=env,
+                           capture_output=True, text=True, timeout=400)
+        runs.append((r, time.perf_counter() - t0))
+        check(r.returncode == 0, f"train CLI --steps {steps} exited "
+              f"{r.returncode}: {r.stderr[-2000:]}")
+    (r1, s1), (r2, s2) = runs
+    check(r2.stdout.splitlines()[0] == "restored checkpoint at step 4",
+          f"train CLI resume: {r2.stdout[:300]!r}")
+    loss_re = r"done: first loss (\S+) → last (\S+)"
+    ck_re = (r"checkpoint: step (\d+), (\d+) bytes, last save (\S+) s, "
+             r"restore (\S+) s")
+    l1, l2 = re.search(loss_re, r1.stdout), re.search(loss_re, r2.stdout)
+    c1, c2 = re.search(ck_re, r1.stdout), re.search(ck_re, r2.stdout)
+    check(None not in (l1, l2, c1, c2), "train CLI: no done/checkpoint line")
+    losses = [float(x) for m in (l1, l2) for x in m.groups()]
+    check(all(math.isfinite(x) for x in losses),
+          f"train CLI: non-finite loss {losses}")
+    nbytes, save_s, restore_s = int(c1.group(2)), float(c1.group(3)), \
+        float(c2.group(4))
+    check(int(c1.group(1)) == 4 and nbytes > pbytes + 2 * 4 * elems * 0.99,
+          f"train CLI: checkpoint step {c1.group(1)}, {nbytes} bytes")
+    shutil.rmtree(ckdir)
+    print(f"  (a) CLI, full width and depth, batch {TRAIN_BATCH} × "
+          f"{TRAIN_SEQ}: run 1 (4 steps) {s1:.1f} s, losses {losses[0]:.4f} "
+          f"→ {losses[1]:.4f}; run 2 resumed at step 4 (2 steps) {s2:.1f} s,"
+          f" losses {losses[2]:.4f} → {losses[3]:.4f}; checkpoint "
+          f"{nbytes} bytes ({nbytes / 1e9:.2f} GB), save {save_s:.2f} s, "
+          f"restore {restore_s:.2f} s")
+    return {"run_seconds": [s1, s2], "losses": losses, "ckpt_bytes": nbytes,
+            "save_seconds": save_s, "restore_seconds": restore_s}
+
+
+def train_restart_part(cfg, dev, root: Path) -> dict:
+    """(b) ``Trainer`` on tinyllama at full width cut to TRAIN_RESTART_LAYERS
+    layers, remat 'block': an uninterrupted 8-step run against one stopped
+    at step 4 and resumed — params, both moments and the losses of steps
+    4–7 bitwise equal, with deterministic algorithms on for this check."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticCorpus, TrainStream
+    from repro_torch.models.model_builder import build_model
+    from repro_torch.optim import AdamW, cosine_warmup
+    from repro_torch.train import Trainer, TrainerConfig
+
+    model = build_model(cfg.replace(num_layers=TRAIN_RESTART_LAYERS),
+                        device=dev)
+
+    def trainer(total: int, d: Path):
+        stream = TrainStream(SyntheticCorpus(vocab_size=cfg.vocab_size),
+                             global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             device=dev)
+        return Trainer(model, AdamW(weight_decay=0.1, clip_norm=1.0),
+                       cosine_warmup(1e-3, 1, 8), stream,
+                       TrainerConfig(total_steps=total, ckpt_dir=str(d),
+                                     save_every=4, log_every=100,
+                                     remat="block"))
+
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        full = trainer(8, root / "full")
+        p_full, o_full = full.run(gen())
+        trainer(4, root / "resume").run(gen())
+        logs: list = []
+        res = trainer(8, root / "resume")
+        p_res, o_res = res.run(gen(), log=logs.append)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    seconds = time.perf_counter() - t0
+    check(logs[:1] == ["restored checkpoint at step 4"],
+          f"restart: {logs[:1]}")
+    want = [h["loss"] for h in full.history[4:]]
+    got = [h["loss"] for h in res.history]
+    check(got == want, f"restart: losses of steps 4–7 {got} vs {want}")
+    same = {"params": tree_equal(p_full, p_res),
+            "mu": tree_equal(o_full.mu, o_res.mu),
+            "nu": tree_equal(o_full.nu, o_res.nu)}
+    check(all(same.values()) and int(o_res.step) == 8,
+          f"restart not bitwise: {same}, step {int(o_res.step)}")
+    ck = res.ckpt
+    print(f"  (b) restart, full width × {TRAIN_RESTART_LAYERS} layers: "
+          f"8 steps against 4 + resume, params / mu / nu / losses of steps "
+          f"4–7 bitwise equal; checkpoint save {ck.save_seconds:.2f} s, "
+          f"restore {ck.restore_seconds:.2f} s; {seconds:.1f} s in all")
+    return {"bitwise": True, "losses": got, "seconds": seconds,
+            "save_seconds": ck.save_seconds,
+            "restore_seconds": ck.restore_seconds}
+
+
+class _TimedUpdate:
+    """An optimizer whose ``update`` is bracketed by CUDA events (no
+    synchronisation), so a step's update time is read afterwards."""
+
+    def __init__(self, opt):
+        self.opt, self.spans = opt, []
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, *args, **kw):
+        import torch
+
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = self.opt.update(*args, **kw)
+        b.record()
+        self.spans.append((a, b))
+        return out
+
+
+def finetune_part(cfg, model, pruned, report, prompts, dev,
+                  pruned_loss: float) -> dict:
+    """(c) the paper's sparse finetune at full size: FINETUNE_STEPS steps
+    of the sparsity-preserving AdamW on a clone of phase 3's pruned tree,
+    then held-out loss, the pruned coordinates, strict 2:4 compression and
+    the phase-4 request set served through K2."""
+    import statistics
+
+    import torch
+
+    from repro_torch.core.schedule import get_path
+    from repro_torch.data.pipeline import (SyntheticCorpus, TrainStream,
+                                           heldout_loss)
+    from repro_torch.optim import AdamW, cosine_warmup, sparsity_preserving
+    from repro_torch.serve.compressed import compress_params, compressed_bytes
+    from repro_torch.train.step import (_loss_with_remat, make_train_step,
+                                        value_and_grad)
+    from repro_torch.util.tree import map_tree
+
+    # compress_params shares phase 4's unpruned leaves with this tree: the
+    # in-place steps run on a clone
+    ft = map_tree(lambda x: x.clone(), pruned)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt = _TimedUpdate(sparsity_preserving(
+        AdamW(weight_decay=0.01, clip_norm=1.0), report.masks))
+    step = make_train_step(model, opt, cosine_warmup(5e-4, 2, FINETUNE_STEPS),
+                           remat="block")
+    stream = TrainStream(SyntheticCorpus(vocab_size=cfg.vocab_size),
+                         global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                         device=dev)
+    state = opt.init(ft)
+    step_ms, draw_ms, losses = [], [], []
+    for i in range(FINETUNE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = stream.batch_at(1000 + i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ft, state, m = step(ft, state, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        draw_ms.append(1e3 * (t1 - t0))
+        step_ms.append(1e3 * (t2 - t1))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    upd_ms = [a.elapsed_time(b) for a, b in opt.spans]
+    # where the step's time goes: the loss alone, then loss + grads without
+    # and with remat (wall ms, the median of 3 synchronised calls)
+    parts = {"forward": lambda: model.loss(ft, batch),
+             "grad": lambda: value_and_grad(model.loss, ft, batch),
+             "grad_remat": lambda: value_and_grad(
+                 _loss_with_remat(model, "block"), ft, batch)}
+    split = {}
+    for name, fn in parts.items():
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.set_grad_enabled(name != "forward"):
+                fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        split[name] = statistics.median(times[1:])
+    check(all(math.isfinite(x) for x in losses),
+          f"finetune: non-finite loss {losses}")
+    bad = sum(int(get_path(ft, p)[mk > 0.5].count_nonzero())
+              for p, mk in report.masks.items())
+    check(len(report.masks) == 7 * cfg.num_layers and bad == 0,
+          f"finetune: {bad} pruned coordinates moved off 0 "
+          f"({len(report.masks)} masked linears)")
+    ft_loss = heldout_loss(model, ft, cfg)
+    check(ft_loss < pruned_loss, f"finetune: held-out loss {ft_loss:.4f} "
+          f"not below the pruned {pruned_loss:.4f}")
+    comp = compress_params(ft, report.masks, 2, 4, strict=True)
+    cb, db = compressed_bytes(comp)
+    check(cb / db == 0.625, f"finetune: compressed ratio {cb / db}")
+    zero_counts()
+    done, t_serve, _ = serve_requests(model, comp, prompts)
+    counts = path_counts()
+    k2 = counts["nm_matmul_cuda"][0]
+    check(k2 > 0, "finetune: the finetuned tree served without K2")
+    with uncounted():
+        e = first_step_line(model, comp, prompts)
+    med = statistics.median(step_ms[1:])
+    share = statistics.median(u / s for u, s in zip(upd_ms[1:],
+                                                     step_ms[1:]))
+    ntok = sum(len(r.out) for r in done)
+    print(f"  (c) sparse finetune, full width and depth, {FINETUNE_STEPS} "
+          f"steps of batch {TRAIN_BATCH} × {TRAIN_SEQ} from step 1000: "
+          f"losses {losses[0]:.4f} → {losses[-1]:.4f}; step median "
+          f"{med:.1f} ms (first {step_ms[0]:.1f} ms, min "
+          f"{min(step_ms[1:]):.1f}, max {max(step_ms[1:]):.1f}), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} training tokens/s, "
+          f"update {statistics.median(upd_ms[1:]):.1f} ms = {share:.3f} of "
+          f"the step; stream draw {statistics.median(draw_ms):.1f} ms a "
+          f"batch; peak memory {peak / 2**30:.2f} GiB "
+          f"(held before {base_mem / 2**30:.2f} GiB)")
+    print(f"      one batch, wall ms: loss alone {split['forward']:.1f}, "
+          f"loss + grads {split['grad']:.1f}, with remat 'block' "
+          f"{split['grad_remat']:.1f}")
+    print(f"      held-out loss pruned {pruned_loss:.4f} → finetuned "
+          f"{ft_loss:.4f}; all {len(report.masks)} masked linears' pruned "
+          f"coordinates exactly 0; strict 2:4 compression {cb / db:.4f}; "
+          f"phase-4 set served, {ntok} tokens in {t_serve:.2f} s, K2 "
+          f"launches {k2}")
+    return {"losses": losses, "step_ms": step_ms, "step_ms_median": med,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
+            "update_ms": upd_ms, "update_share": share,
+            "draw_ms": draw_ms, "peak_bytes": peak, "held_bytes": base_mem,
+            "split_ms": split,
+            "pruned_loss": pruned_loss, "finetuned_loss": ft_loss,
+            "ratio": cb / db, "k2_launches": k2, "serve_seconds": t_serve,
+            "logits_max_abs_err": e[0], "logits_rel_err": e[1],
+            "argmax_agree": e[2], "counts": counts}
+
+
+def train_phase(cfg, model, pruned, report, prompts, dev,
+                pruned_loss: float) -> dict:
+    """The train phase, right after phase 4 (its three parts' docstrings
+    say what each holds)."""
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "train_phase"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = {"cli": train_cli_part(pruned, root)}
+    out["restart"] = train_restart_part(cfg, dev, root)
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    out["finetune"] = finetune_part(cfg, model, pruned, report, prompts, dev,
+                                    pruned_loss)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase train: {out['seconds']:.1f} s")
+    return out
+
+
 def robust_phase(cfg, model, comp, prompts, done, dev) -> dict:
     """Phase robust on phase 4's compressed tinyllama tree: (a) the
     supervised continuous engine without faults (its longest pump sets the
@@ -3336,6 +3646,13 @@ def main() -> None:
     int8 = int8_cache_line("tinyllama-1.1b", model, model8, comp, prompts,
                            engine, engine8, ntok / t_serve,
                            sum(len(r.out) for r in done8) / t_serve8, None)
+
+    # ---- train: the CLI, a bitwise restart, the sparse finetune ----------
+    train = train_phase(cfg, model, pruned, report, prompts, dev,
+                        out["pruned_loss"])
+    results["train"] = {k: ({kk: vv for kk, vv in v.items()
+                             if kk != "counts"} if isinstance(v, dict)
+                            else v) for k, v in train.items()}
 
     # ---- paged: the paged KV cache on phase 4's tree ----------------------
     paged = paged_tinyllama(cfg, model, model8, comp, prompts, done, done8)

@@ -7,6 +7,12 @@ next-token loss degrades measurably under pruning.  The JAX corpus draws
 with threefry; this one draws with numpy's PCG64 from the same seeds, so the
 two streams have the same law but different tokens (the tests hand the JAX
 tokens to both packages where they compare them).
+
+The training stream (``TrainStream``) draws on its own device instead: the
+same language matrices and the same inverse-CDF categorical, driven by a
+``torch.Generator`` seeded from (seed, host_id, step), so a full-width
+batch costs milliseconds on the card rather than seconds of host loop.
+Its tokens differ from numpy's and from JAX's; the law is the same.
 """
 from __future__ import annotations
 
@@ -50,6 +56,43 @@ class SyntheticCorpus:
             big *= self.mix_weight / big.sum(axis=-1, keepdims=True)
             out[:, t] = _categorical(rng, big + (1.0 - self.mix_weight) * uni)
         return out
+
+
+@functools.lru_cache(maxsize=8)
+def _language(corpus: SyntheticCorpus, device: torch.device):
+    """(uni, e, dᵀ) of ``corpus`` as float32 tensors on ``device``: the
+    unigram law and the bigram encoder/decoder from ``default_rng([seed,
+    7])``, as ``SyntheticCorpus.sample`` draws them."""
+    lang = np.random.default_rng([corpus.seed, 7])
+    e = lang.normal(size=(corpus.vocab_size, corpus.mix_rank)) * 1.5
+    d = e[lang.permutation(corpus.vocab_size)]
+    as_t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    return as_t(corpus._unigram_probs()), as_t(e), as_t(d.T.copy())
+
+
+def sample_torch(corpus: SyntheticCorpus, gen: torch.Generator, batch: int,
+                 seq_len: int) -> torch.Tensor:
+    """(batch, seq_len) int64 tokens on ``gen``'s device, by the law of
+    ``SyntheticCorpus.sample``: the first token from the unigram law, each
+    next one from mix·softmax(e[prev]·dᵀ) + (1−mix)·uni, each draw the
+    first index whose running sum reaches u·total (the same inverse CDF)."""
+    dev = gen.device
+    uni, e, dt = _language(corpus, dev)
+    u = torch.rand((batch, seq_len), generator=gen, device=dev)
+    out = torch.empty((batch, seq_len), dtype=torch.int64, device=dev)
+    last = corpus.vocab_size - 1
+    cdf = torch.cumsum(uni, 0).expand(batch, -1).contiguous()
+    out[:, 0] = torch.searchsorted(cdf, u[:, :1] * cdf[:, -1:])[:, 0] \
+        .clamp_(max=last)
+    rest = (1.0 - corpus.mix_weight) * uni
+    for t in range(1, seq_len):
+        big = e[out[:, t - 1]] @ dt                        # (batch, V)
+        big = torch.exp(big - big.amax(dim=-1, keepdim=True))
+        big *= corpus.mix_weight / big.sum(dim=-1, keepdim=True)
+        cdf = torch.cumsum(big + rest, dim=-1)
+        out[:, t] = torch.searchsorted(cdf, u[:, t:t + 1] * cdf[:, -1:]
+                                       )[:, 0].clamp_(max=last)
+    return out
 
 
 def _categorical(rng: np.random.Generator, probs: np.ndarray) -> np.ndarray:
@@ -122,3 +165,49 @@ def heldout_loss(model, params, cfg, *, num_batches: int = 4,
     with torch.no_grad():
         losses = [float(model.loss(params, b)) for b in batches]
     return float(np.mean(losses))
+
+
+def _stream_seed(seed: int, host_id: int, step: int) -> int:
+    """A 63-bit generator seed that is a pure function of the triple."""
+    state = np.random.SeedSequence([seed, host_id, step]).generate_state(
+        2, np.uint32)
+    return (int(state[0]) << 31) ^ int(state[1])
+
+
+@dataclasses.dataclass
+class TrainStream:
+    """Infinite deterministic training stream.
+
+    ``batch_at(step)`` is a pure function of (seed, host_id, step): restarts
+    resume mid-epoch with no iterator state, and each host generates only
+    its own shard (a host-sliced batch of ``global_batch // num_hosts``
+    rows), drawn on ``device`` (CUDA unless the caller passes
+    ``device="cpu"``).
+    """
+
+    corpus: SyntheticCorpus
+    global_batch: int
+    seq_len: int
+    num_hosts: int = 1
+    host_id: int = 0
+    seed: int = 0
+    device: "str | torch.device" = "cuda"
+
+    def __post_init__(self):
+        if self.global_batch % self.num_hosts:
+            raise ValueError(f"global_batch={self.global_batch} must be a "
+                             f"multiple of num_hosts={self.num_hosts}")
+        self.device = resolve_device(self.device)
+
+    def batch_at(self, step: int) -> dict[str, torch.Tensor]:
+        gen = torch.Generator(device=self.device).manual_seed(
+            _stream_seed(self.seed, self.host_id, int(step)))
+        return {"tokens": sample_torch(
+            self.corpus, gen, self.global_batch // self.num_hosts,
+            self.seq_len)}
+
+    def __iter__(self):
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1

@@ -50,6 +50,8 @@ def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "import repro_torch.launch.prune, repro_torch.launch.serve, "
+            "repro_torch.launch.train, repro_torch.train, "
+            "repro_torch.checkpoint, repro_torch.optim, "
             "repro_torch.convert, repro_torch.kernels.ops; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -97,3 +99,29 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert build_model(cfg, device="cpu").device.type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("mps")
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The training CLI, ``TrainStream`` and a ``Trainer`` over a default
+    model raise without a card unless given device="cpu"."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticCorpus, TrainStream
+    from repro_torch.launch import train
+    from repro_torch.models.model_builder import build_model
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.train import Trainer, TrainerConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    corpus = SyntheticCorpus(vocab_size=32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TrainStream(corpus, global_batch=2, seq_len=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(build_model(get_config("tinyllama-1.1b", reduced=True)),
+                AdamW(), constant(1e-3), None, TrainerConfig())
+    stream = TrainStream(corpus, global_batch=2, seq_len=4, device="cpu")
+    assert stream.batch_at(0)["tokens"].device.type == "cpu"
+    trainer = train.main(["--steps", "1", "--ckpt-dir", str(tmp_path),
+                          "--device", "cpu", "--batch", "1", "--seq", "8"])
+    assert len(trainer.history) == 1
