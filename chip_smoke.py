@@ -146,6 +146,26 @@ robust. robust — on phase 4's compressed tinyllama tree, right after the
              third request 503.  Launches: K2 154 a decode_step call (the
              model's decode_step is wrapped to count them), K1 those of
              the prune jobs.
+dist. dist — right after robust, on phase 3's tree, over two spawned
+             ranks on the one card (NCCL refuses two ranks on one device:
+             its answer is printed once; so gloo, FileStore in a temp dir
+             under build/, a (2, 1) ("data", "model") mesh): (a)
+             ``prune_model(mesh=)`` at full width and depth, every solve
+             split over both ranks — 0 mask entries differing from phase
+             3's, index bytes equal, weights' max |Δ| (bf16 tree; fp32 on
+             layer 0's up and down against their local solve), summed OBS
+             losses against phase 3's, K1 308 launches a rank, the first
+             step served through K2 at rel ≤ 5e-2; (b) a one-rank NCCL
+             group in this process: ``prune_layer_sharded`` of layer 0's up
+             bitwise ``prune_layer`` for three patterns; (c) each rank's
+             calibration batch through K1, all-reduced: bitwise
+             ``combine`` and within rtol 1e-6 of one accumulator over both;
+             (d) DIST_STEPS steps of ``make_sharded_train_step`` on the
+             train phase's batch against ``make_train_step`` (losses within
+             DIST_LOSS_TOL, params within 6·lr + 3·2⁻⁷·|p|), step ms and
+             one gradient all-reduce's share; (e) int8 compression of a
+             full gradient tree: a quarter of the fp32 bytes, residual ≤ 4
+             scales, the card's payload bitwise the host's.
    Then the redesigned kernels at odd shapes: K1 at ragged tokens and b
              with and without a row mask (xtx exactly symmetric, NaN batch
              skipped); K3 with all-zero and filled row groups mixed (their
@@ -165,13 +185,14 @@ robust. robust — on phase 4's compressed tinyllama tree, right after the
              total, each beside the library's.
 
 Kernel launch counts are zeroed just before each path (phases 3,
-train's serve, robust, baselines, plan, 4m, mla and each part of paged,
-of families and of dense2) and read just after its serve (the mla path: after both serves; gemma3: after its paged serve;
+train's serve, robust, dist (in each rank), baselines, plan, 4m, mla and
+each part of paged, of families and of dense2) and read just after its
+serve (the mla path: after both serves; gemma3: after its paged serve;
 baselines and plan also per method and per step); the comparison and
 timing launches are not counted, nor are the contiguous serves the paged
 ones are held against (``uncounted``).  The tinyllama rows of phase 5
-carry the robust, baselines, plan and paged paths' launches at the same
-shapes (``path_launches``), the deepseek-v3 rows the paged path's.  The
+carry the robust, dist (both ranks), baselines, plan and paged paths'
+launches at the same shapes (``path_launches``), the deepseek-v3 rows the paged path's.  The
 line before the last is the kernels JSON; the last line is the device JSON.  Results are
 also written to ``chiprun_out/chip_smoke.json``.
 """
@@ -283,6 +304,13 @@ JOB_LAYERS, JOB_KILL, SITE_LAYERS = 4, 14, 1
 # full width cut to 2 layers (a checkpoint of ~2.2 GB, not ~11 GB); the
 # sparse finetune takes 16 steps at full width and depth
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_RESTART_LAYERS, FINETUNE_STEPS = 8, 256, 2, 16
+# the dist phase: two ranks on the one card; (d) takes DIST_STEPS sharded
+# train steps at lr DIST_LR on the train phase's batch, its losses held to
+# DIST_LOSS_TOL of make_train_step's on the whole batch; a rank's
+# collectives give up after DIST_PG_TIMEOUT s, the ranks after
+# DIST_JOIN_TIMEOUT s
+DIST_STEPS, DIST_LR, DIST_LOSS_TOL = 3, 1e-4, 1e-2
+DIST_PG_TIMEOUT, DIST_JOIN_TIMEOUT = 180, 360
 K3_REPLACES = ("src/repro/kernels/ops.py:151-161 (loops the pallas_call of "
                "src/repro/kernels/nm_spmm.py:135)")
 MAXB_ROWS = 8                 # capacity rows K3 computes per row group
@@ -3429,6 +3457,518 @@ def robust_phase(cfg, model, comp, prompts, done, dev) -> dict:
     return out
 
 
+def dist_rank(rank: int, tmp: str, device: str, ref: dict, setup) -> None:
+    """One of the dist phase's two ranks, spawned: a gloo group over a
+    FileStore in ``tmp`` and a (2, 1) ("data", "model") mesh on ``device``;
+    its results go to ``tmp/rank<rank>.pt``.  ``setup`` (a top-level
+    function, or None) runs first: a CPU rehearsal installs its kernel
+    fakes there."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if setup is not None:
+        setup()
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)           # both ranks share the one card
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(f"{tmp}/store", 2), rank=rank,
+        world_size=2, timeout=datetime.timedelta(seconds=DIST_PG_TIMEOUT))
+    try:
+        mesh = init_device_mesh(torch.device(device).type, (2, 1),
+                                mesh_dim_names=("data", "model"))
+        out = dist_rank_body(rank, mesh, device, ref)
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_calibration(model, params, batches, mesh, rank: int) -> tuple:
+    """Dist (c): each rank accumulates its own calibration batch into layer
+    0's seven accumulators (K1) and ``all_reduce`` sums them over the data
+    axis; the sum is held against ``combine`` of both batches' partials
+    (bitwise: gloo adds the two fp32 partials once) and against one
+    accumulator over both batches (bitwise, or rtol 1e-6 where K1's own
+    sum order differs).  → (summary, {path: that accumulator's H})."""
+    import torch
+
+    from repro_torch.core.hessian import HessianAccumulator
+    from repro_torch.models.model_builder import ModelAdapter
+
+    adapter = ModelAdapter(model)
+    with torch.no_grad():
+        caps = [adapter.block_apply(params, 0, adapter.prepare(params, b),
+                                    capture=True)[1] for b in batches]
+    combine_equal, mono_equal, worst, hs = True, True, 0.0, {}
+    for path, x0 in caps[0].items():
+        b = x0.shape[-1]
+        parts = [HessianAccumulator.init(b, x0.device).update(c[path])
+                 for c in caps]
+        mono = HessianAccumulator.init(b, x0.device).update(caps[0][path])
+        mono.update(caps[1][path])
+        mine = HessianAccumulator.init(b, x0.device).update(caps[rank][path])
+        red = mine.all_reduce(mesh, ("data",))
+        comb = HessianAccumulator.combine(*parts)
+        combine_equal &= all(torch.equal(u, v) for u, v in zip(
+            (red.xtx, red.count, red.skipped),
+            (comb.xtx, comb.count, comb.skipped)))
+        mono_equal &= torch.equal(red.xtx, mono.xtx)
+        close = torch.allclose(red.xtx, mono.xtx, rtol=1e-6, atol=0.0)
+        check(close, f"dist (c) {path}: the all-reduced sum is not within "
+              f"rtol 1e-6 of one accumulator over both batches")
+        d = (red.xtx - mono.xtx).abs() / mono.xtx.abs().clamp(min=1e-30)
+        worst = max(worst, float(d.max()))
+        hs[path] = mono.finalize()
+    check(combine_equal, "dist (c): all_reduce is not bitwise combine")
+    return {"paths": len(caps[0]), "combine_bitwise": combine_equal,
+            "mono_bitwise": mono_equal, "mono_max_rel": worst}, hs
+
+
+def dist_rank_body(rank: int, mesh, device: str, ref: dict) -> dict:
+    """Dist (a), (c), (d), (e) on one rank (``dist_phase`` says what each
+    holds); ``ref`` holds phase 3's masks, pruned linears and packed
+    indices (rank 0 only, shared from the parent's card memory)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import PruneConfig, prune_layer, prune_model
+    from repro_torch.core.schedule import get_path
+    from repro_torch.data.pipeline import (SyntheticCorpus, TrainStream,
+                                           calibration_batches)
+    from repro_torch.device import resolve_device
+    from repro_torch.dist.prune import prune_layer_sharded
+    from repro_torch.kernels import hessian_accum as K1, nm_spmm as K2
+    from repro_torch.models.model_builder import ModelAdapter, build_model
+    from repro_torch.serve.compressed import compress_params
+
+    dev = resolve_device(device)
+    cfg = get_config("tinyllama-1.1b")
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    batches = calibration_batches(cfg, num_samples=16, seq_len=128,
+                                  batch=8, device=dev)
+    cell = PruneConfig("thanos", "nm", n=2, m=4, block_size=64)
+    out: dict = {"rank": rank}
+
+    # ---- (c), and the fp32 solve of layer 0's up and down ------------------
+    t0 = time.perf_counter()
+    with uncounted():
+        out["calib"], hs = dist_calibration(model, params, batches, mesh,
+                                            rank)
+        solves = {}
+        for name in ("up", "down"):
+            path = ("blocks", 0, "mlp", name, "w")
+            w = get_path(params, path).T.float()       # (out, in), fp32
+            loc = prune_layer(w, hs[path], cell)
+            sh = prune_layer_sharded(w, hs[path], cell, mesh)
+            bf = torch.bfloat16
+            solves[name] = {
+                "shape": tuple(w.shape),
+                "fp32_max_abs": float((sh.weights - loc.weights).abs().max()),
+                "bf16_max_abs": float((sh.weights.to(bf).float()
+                                       - loc.weights.to(bf).float())
+                                      .abs().max()),
+                "mask_equal": torch.equal(sh.mask, loc.mask),
+                "loss_rel": abs(float(sh.loss) - float(loc.loss))
+                / max(abs(float(loc.loss)), 1e-30)}
+        up = ("blocks", 0, "mlp", "up", "w")
+        if rank == 0:      # (b)'s layer, for the parent's one-rank group
+            out["up_h"] = hs[up].cpu()
+            out["up_w"] = get_path(params, up).T.contiguous().cpu()
+        del hs
+    out["solves"] = solves
+    out["calib"]["seconds"] = time.perf_counter() - t0
+
+    # ---- (a) the row-parallel prune at full depth --------------------------
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pruned, report = prune_model(params, ModelAdapter(model), batches, cell,
+                                 mesh=mesh, keep_masks=rank == 0)
+    torch.cuda.synchronize()
+    out["prune_seconds"] = time.perf_counter() - t0
+    out["losses"] = [r.obs_loss for r in report.layers]
+    if rank == 0:
+        diff, dmax = {}, 0.0
+        for p, mk in report.masks.items():
+            diff[p] = int((mk != ref["masks"][p]).sum())
+            dmax = max(dmax, float((get_path(pruned, p).float()
+                                    - ref["linears"][p].float()).abs()
+                                   .max()))
+        comp = compress_params(pruned, report.masks, 2, 4)
+        out["mask_diff"] = diff
+        out["weights_bf16_max_abs"] = dmax
+        out["indices_equal"] = all(
+            torch.equal(get_path(comp, p).indices, ref["indices"][p])
+            for p in report.masks)
+        out["linears"] = len(report.masks)
+        out["first_step"] = first_step_line(
+            model, comp, request_prompts(cfg.vocab_size))
+        del comp, ref
+    out["counts"] = path_counts()
+    del pruned, report
+    torch.cuda.empty_cache()
+
+    # ---- (d) the sharded train step, then (e) on its gradients ------------
+    batch = TrainStream(SyntheticCorpus(cfg.vocab_size), TRAIN_BATCH,
+                        TRAIN_SEQ, device=dev).batch_at(0)
+    out["train"] = dist_train(model, params, batch, mesh, rank)
+    return out
+
+
+def dist_train(model, params, batch, mesh, rank: int) -> dict:
+    """Dist (d): DIST_STEPS steps of ``make_sharded_train_step`` on the
+    (TRAIN_BATCH, TRAIN_SEQ) batch, each rank on its half, params and
+    moments as DTensors in ``param_pspecs``' layout; each step's wall time
+    (both ranks share the card) and one ``all_reduce_mean`` of a
+    gradient-shaped tree timed alone.  Then rank 0 runs ``make_train_step``
+    on the whole batch from the same params and holds losses and params to
+    DIST_LOSS_TOL and |Δp| ≤ 6·lr + 3·2⁻⁷·|p|; rank 1 runs (e)."""
+    import torch
+
+    from repro_torch.dist.prune import axis_group
+    from repro_torch.dist.sharding import shard_params
+    from repro_torch.optim import AdamW, AdamWState, constant
+    from repro_torch.train.step import (all_reduce_mean,
+                                        make_sharded_train_step,
+                                        make_train_step)
+    from repro_torch.util.tree import leaves, map_tree
+
+    opt = AdamW()
+    start = map_tree(torch.clone, params) if rank == 0 else None
+    st = opt.init(params)
+    st = AdamWState(st.step, shard_params(st.mu, mesh, fsdp=False),
+                    shard_params(st.nu, mesh, fsdp=False))
+    sp = shard_params(params, mesh, fsdp=False)
+    step = make_sharded_train_step(model, opt, constant(DIST_LR), mesh,
+                                   batch, params)
+    del params
+    losses, secs = [], []
+    for _ in range(DIST_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp, st, m = step(sp, st, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    check(all(math.isfinite(x) for x in losses), f"dist (d) losses {losses}")
+    full = map_tree(lambda d: d.full_tensor(), sp)
+    del st
+    torch.cuda.empty_cache()
+    grads = [torch.zeros_like(x) for x in leaves(full)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    all_reduce_mean(grads, axis_group(mesh, ("data",)).group, 2)
+    torch.cuda.synchronize()
+    out = {"losses": losses, "step_s": secs,
+           "collective_s": time.perf_counter() - t0,
+           "grad_bytes": sum(g.numel() * g.element_size() for g in grads)}
+    del grads
+    if rank == 1:
+        out["compress"] = dist_compression(model, full, batch)
+        return out
+    ref = make_train_step(model, opt, constant(DIST_LR), remat="block")
+    rp, rs = start, opt.init(start)
+    ref_losses = []
+    for _ in range(DIST_STEPS):
+        rp, rs, rm = ref(rp, rs, batch)
+        ref_losses.append(float(rm["loss"]))
+    del rs
+    worst, over, differ, total = 0.0, 0, 0, 0
+    for a, b in zip(leaves(full), leaves(rp)):
+        d = (a.float() - b.float()).abs()
+        bound = 6 * DIST_LR + 3 * 2.0 ** -7 * b.float().abs()
+        worst = max(worst, float(d.max()))
+        over += int((d > bound).sum())
+        differ += int((d > 0).sum())
+        total += d.numel()
+    out.update(ref_losses=ref_losses, params_max_abs=worst,
+               params_over=over, params_differ=differ / total)
+    return out
+
+
+def dist_compression(model, params, batch) -> dict:
+    """Dist (e) on rank 1: the gradient tree of ``params`` on this rank's
+    rows, ``compress_grads`` from a zero residual on the card and on the
+    host: the payloads and residuals bitwise equal, the int8 payload a
+    quarter of the fp32 bytes, every residual ≤ 4 × its leaf's scale, and
+    ``decompress_grads`` within a scale of the gradient."""
+    import torch
+
+    from repro_torch.dist.compression import (ErrorFeedback, compress_grads,
+                                              decompress_grads)
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.util.tree import leaves, map_tree
+
+    rows = {k: v[v.shape[0] // 2:] for k, v in batch.items()}
+    _, grads = value_and_grad(model.loss, params, rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pay, ef = compress_grads(grads, ErrorFeedback.init(grads))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    host = map_tree(lambda g: g.cpu(), grads)
+    t0 = time.perf_counter()
+    hpay, hef = compress_grads(host, ErrorFeedback.init(host))
+    host_s = time.perf_counter() - t0
+    same = {"q": True, "scale": True, "residual": True}
+    q_bytes, f32_bytes, worst_res, worst_deq = 0, 0, 0.0, 0.0
+    deq = decompress_grads(pay)
+    for (q, s), (hq, hs), r, hr, g, dq in zip(
+            leaves(pay), leaves(hpay), leaves(ef.residual),
+            leaves(hef.residual), leaves(grads), leaves(deq)):
+        same["q"] &= torch.equal(q.cpu(), hq)
+        same["scale"] &= s.cpu().numpy().tobytes() == hs.numpy().tobytes()
+        same["residual"] &= torch.equal(r.cpu(), hr)
+        q_bytes += q.numel() * q.element_size()
+        f32_bytes += q.numel() * 4
+        worst_res = max(worst_res, float(r.abs().max() / s))
+        worst_deq = max(worst_deq, float((dq - g.float()).abs().max() / s))
+    bitwise = all(same.values())
+    check(bitwise, f"dist (e): the card's payload is not the host's "
+          f"(bitwise: {same})")
+    check(4 * q_bytes == f32_bytes, "dist (e): int8 payload bytes")
+    check(worst_res <= 4.0 and worst_deq <= 1.0,
+          f"dist (e): residual {worst_res:.3g} or dequantized error "
+          f"{worst_deq:.3g} scales")
+    return {"leaves": len(leaves(grads)), "int8_bytes": q_bytes,
+            "fp32_bytes": f32_bytes, "scale_bytes": 4 * len(leaves(grads)),
+            "bitwise_host": bitwise, "residual_scales": worst_res,
+            "dequant_scales": worst_deq, "card_s": card_s, "host_s": host_s}
+
+
+def nccl_probe_rank(rank: int, tmp: str) -> None:
+    """Two NCCL ranks on the one card: record what NCCL answers (the dist
+    phase expects a refusal) in ``tmp/nccl<rank>.txt``, then leave without
+    NCCL's teardown."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(f"{tmp}/nccl_store", 2), rank=rank,
+            world_size=2, device_id=torch.device("cuda", 0),
+            timeout=datetime.timedelta(seconds=60))
+        t = torch.ones(1, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        msg = f"accepted: all_reduce gave {float(t)}"
+    except Exception as e:        # the answer under test
+        msg = f"{type(e).__name__}: {e}"
+    Path(f"{tmp}/nccl{rank}.txt").write_text(msg)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def join_ranks(procs: list, timeout: float, label: str) -> None:
+    """Join spawned ranks; fail on one still running after ``timeout`` s
+    (killed first) or exiting non-zero."""
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check(not hung, f"{label}: ranks {hung} still running after {timeout} s")
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * len(procs), f"{label}: rank exit codes {codes}")
+
+
+def nccl_refusal(tmp: Path) -> str:
+    """Spawn two NCCL ranks on the one card → NCCL's answer, once."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=nccl_probe_rank, args=(r, str(tmp)))
+             for r in (0, 1)]
+    for p in procs:
+        p.start()
+    join_ranks(procs, 120, "NCCL probe")
+    answers = [(tmp / f"nccl{r}.txt").read_text() for r in (0, 1)]
+    refused = ["accepted" not in a for a in answers]
+    return answers[0] if refused[0] == refused[1] else " | ".join(answers)
+
+
+def nccl_one_rank(tmp: Path, h, w, dev) -> dict:
+    """Dist (b): a one-rank NCCL group in this process; on its 1 × 1 mesh
+    ``prune_layer_sharded`` of layer 0's up (5632, 2048) is bitwise
+    ``prune_layer`` for each pattern (JAX's 1 × 1 contract)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import PruneConfig, prune_layer
+    from repro_torch.dist.prune import prune_layer_sharded
+
+    h, w = h.to(dev), w.to(dev)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp / "nccl1_store"), 1), rank=0,
+        world_size=1, device_id=torch.device("cuda",
+                                              torch.cuda.current_device()))
+    out = {}
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        for cfg in (PruneConfig("thanos", "unstructured", p=0.5,
+                                block_size=64),
+                    PruneConfig("thanos", "nm", n=2, m=4, block_size=64),
+                    PruneConfig("thanos", "structured", p=0.5)):
+            with uncounted():
+                a = prune_layer_sharded(w, h, cfg, mesh)
+                b = prune_layer(w, h, cfg)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(a, b))
+            check(same, f"dist (b) {cfg.tag()}: one-rank NCCL "
+                  f"prune_layer_sharded is not bitwise prune_layer")
+            out[cfg.tag()] = same
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def dist_phase(cfg, pruned, report, comp, dev, setup=None) -> dict:
+    """Phase dist on phase 3's tree, over two ranks on the one card: NCCL
+    refuses two ranks on one device (its answer is printed once), so the
+    ranks share a gloo group (FileStore in a temp dir under build/) on a
+    (2, 1) ("data", "model") mesh, spawned after phase 1 built the kernels.
+    (a) ``prune_model(mesh=)``: tinyllama at full width and depth, Thanos
+    2:4 B=64 on phase 3's calibration, every solve split over both ranks —
+    masks equal phase 3's exactly (the count of differing entries printed),
+    index bytes equal, the bf16 weights' max |Δ| against phase 3's and the
+    fp32 one of layer 0's up and down against their local solve, the
+    summed OBS losses against phase 3's, K1 launches per rank, and the tree
+    compressed and served one step through K2 (rel ≤ 5e-2); (b) a one-rank
+    NCCL group in this process: ``prune_layer_sharded`` bitwise
+    ``prune_layer``; (c) data-parallel calibration (``dist_calibration``);
+    (d) the sharded train step (``dist_train``); (e) int8 gradient
+    compression (``dist_compression``).  Launch counts: each rank zeroes
+    them before (a) and reads them after its serve."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.core.schedule import get_path
+
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="dist_phase-", dir=ROOT / "build"))
+    ref = {"masks": report.masks,
+           "linears": {p: get_path(pruned, p) for p in report.masks},
+           "indices": {p: get_path(comp, p).indices for p in report.masks}}
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dist_rank, args=(
+        r, str(tmp), str(dev), ref if r == 0 else {}, setup))
+        for r in (0, 1)]
+    for p in procs:
+        p.start()
+    join_ranks(procs, DIST_JOIN_TIMEOUT, "dist")
+    ranks = []
+    for r in (0, 1):
+        f = tmp / f"rank{r}.pt"
+        check(f.is_file(), f"dist: rank {r} left no result")
+        ranks.append(torch.load(f, weights_only=False))
+    t_ranks = time.perf_counter() - t0
+    a, b = ranks
+    out = nccl_parts(tmp, a, dev)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # (a)
+    ndiff = sum(a["mask_diff"].values())
+    if ndiff:
+        print(f"  dist (a) differing mask entries by layer: "
+              f"{ {str(k): v for k, v in a['mask_diff'].items() if v} }")
+    local = [r.obs_loss for r in report.layers]
+    loss_rel = max(abs(x - y) / max(abs(y), 1e-30)
+                   for x, y in zip(a["losses"], local))
+    k1 = [r["counts"]["hessian_update_cuda"][0] for r in ranks]
+    check(ndiff == 0 and a["linears"] == 7 * cfg.num_layers,
+          f"dist (a): {ndiff} mask entries differ from phase 3's")
+    check(a["indices_equal"], "dist (a): packed index bytes differ")
+    check(k1 == [2 * 7 * cfg.num_layers] * 2, f"dist (a): K1 launches {k1}")
+    check(a["losses"] == b["losses"], "dist (a): the ranks' losses differ")
+    print(f"phase dist: 2 gloo ranks on one card, (2, 1) mesh; (a) "
+          f"prune_model(mesh=) {a['prune_seconds']:.1f} s / "
+          f"{b['prune_seconds']:.1f} s a rank: {a['linears']} linears, "
+          f"{ndiff} mask entries differ from phase 3's, index bytes equal "
+          f"{a['indices_equal']}, bf16 weights max |Δ| "
+          f"{a['weights_bf16_max_abs']:.4g}, SUM-reduced OBS losses max rel "
+          f"{loss_rel:.3g} of phase 3's, K1 launches a rank {k1}; layer 0 "
+          f"fp32 solves sharded vs local: "
+          + ", ".join(f"{k} {v['shape']} max |Δ| {v['fp32_max_abs']:.4g} "
+                      f"(bf16 {v['bf16_max_abs']:.4g}), masks equal "
+                      f"{v['mask_equal']}, loss rel {v['loss_rel']:.3g}"
+                      for k, v in a["solves"].items()))
+    # (c)
+    c = a["calib"]
+    print(f"  dist (c) data-parallel calibration, layer 0's {c['paths']} "
+          f"accumulators: all_reduce bitwise combine {c['combine_bitwise']}"
+          f", bitwise one accumulator over both batches "
+          f"{c['mono_bitwise']} (max rel {c['mono_max_rel']:.3g}, rtol "
+          f"1e-6)")
+    # (d)
+    ta, tb = a["train"], b["train"]
+    dl = [abs(x - y) for x, y in zip(ta["losses"], ta["ref_losses"])]
+    check(ta["losses"] == tb["losses"], "dist (d): the ranks' losses differ")
+    check(max(dl) <= DIST_LOSS_TOL and ta["params_over"] == 0,
+          f"dist (d): loss |Δ| {dl} (limit {DIST_LOSS_TOL}), "
+          f"{ta['params_over']} params beyond 6·lr + 3·2⁻⁷·|p|")
+    step_s = sorted(ta["step_s"])[len(ta["step_s"]) // 2]
+    share = ta["collective_s"] / step_s
+    print(f"  dist (d) sharded train step, {TRAIN_BATCH} × {TRAIN_SEQ} "
+          f"tokens over 2 ranks, lr {DIST_LR}: losses {ta['losses']} vs "
+          f"make_train_step {ta['ref_losses']} (max |Δ| {max(dl):.3g}, "
+          f"limit {DIST_LOSS_TOL}); params max |Δ| "
+          f"{ta['params_max_abs']:.3g}, {ta['params_differ']:.4f} of them "
+          f"differ, none beyond the bound; step {1e3 * step_s:.1f} ms "
+          f"median ({', '.join(f'{1e3 * s:.1f}' for s in ta['step_s'])}); "
+          f"one gradient all_reduce ({ta['grad_bytes'] / 1e9:.2f} GB bf16, "
+          f"gloo) {1e3 * ta['collective_s']:.1f} ms = {share:.2f} of a step")
+    # (e)
+    e = tb["compress"]
+    print(f"  dist (e) int8 compression of {e['leaves']} gradient leaves: "
+          f"payload {e['int8_bytes'] / 1e9:.3f} GB = "
+          f"{e['int8_bytes'] / e['fp32_bytes']:.4f} of fp32 "
+          f"(+{e['scale_bytes']} B of scales), card bitwise the host "
+          f"{e['bitwise_host']}, residual ≤ {e['residual_scales']:.3f} "
+          f"scales (limit 4), card {1e3 * e['card_s']:.1f} ms, host "
+          f"{e['host_s']:.2f} s")
+    out.update(a=dict(prune_seconds=[r["prune_seconds"] for r in ranks],
+                      mask_diff=ndiff, indices_equal=a["indices_equal"],
+                      weights_bf16_max_abs=a["weights_bf16_max_abs"],
+                      loss_rel=loss_rel, k1=k1, solves=a["solves"],
+                      first_step=a["first_step"]),
+               c=c, d=dict(ta, step_ms=1e3 * step_s, share=share,
+                           rank1_losses=tb["losses"]), e=e,
+               ranks_seconds=t_ranks)
+    out["counts"] = {}
+    for r in ranks:
+        add_counts(out["counts"], r["counts"])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  dist: {out['seconds']:.1f} s ({t_ranks:.1f} s the ranks)")
+    return out
+
+
+def nccl_parts(tmp: Path, a: dict, dev) -> dict:
+    """NCCL's answer to two ranks on one card, then dist (b)."""
+    t0 = time.perf_counter()
+    answer = nccl_refusal(tmp)
+    print(f"  NCCL, two ranks on one card: {answer[:600]}")
+    one = nccl_one_rank(tmp, a["up_h"], a["up_w"], dev)
+    print(f"  dist (b) one-rank NCCL mesh, layer 0 up {tuple(a['up_w'].shape)}"
+          f": prune_layer_sharded bitwise prune_layer {one} "
+          f"({time.perf_counter() - t0:.1f} s with the probe)")
+    return {"nccl_two_ranks": answer, "b": one}
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -3669,6 +4209,10 @@ def main() -> None:
                         "logits_rel_err": e[1], "argmax_agree": agree,
                         "k1_launches": k1_launches,
                         "k2_launches": k2_launches, "int8": int8}
+
+    # ---- dist: phase 3's prune and the train step over two ranks ---------
+    dph = dist_phase(cfg, pruned, report, comp, dev)
+    results["dist"] = {k: v for k, v in dph.items() if k != "counts"}
     del pruned, comp, engine, model
     torch.cuda.empty_cache()
 
@@ -3743,6 +4287,8 @@ def main() -> None:
             key, 0) for name, ph in (("baselines", base), ("plan", plan))}
         path_launches["robust"] = robust["counts"][
             "hessian_update_cuda"].get(key, 0)
+        path_launches["dist"] = dph["counts"]["hessian_update_cuda"][
+            1].get(key, 0)
         entries.append({
             "name": "hessian_xtx", "shape": f"x (1024, {b}) bf16",
             "route": "cuda",
@@ -3760,7 +4306,8 @@ def main() -> None:
                             for name, ph in (("baselines", base),
                                              ("plan", plan),
                                              ("paged", paged))},
-                         "robust": robust["counts"]["nm_matmul_cuda"]})
+                         "robust": robust["counts"]["nm_matmul_cuda"],
+                         "dist": dph["counts"]["nm_matmul_cuda"][1]})
     entries += moe_times(gen, dev, moe_chk, moe)
     entries += path_times(gen, dev, mla_chk, mla["by_shape"], MLA_ARCH,
                           MLA_K1,

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeCell
 
 ARCHS: tuple[str, ...] = ("gemma3-1b", "h2o-danube-1.8b", "mistral-large-123b",
                           "tinyllama-1.1b", "whisper-medium",
@@ -22,9 +22,28 @@ _MODULES = {"gemma3-1b": "gemma3_1b",
             "internvl2-76b": "internvl2_76b",
             "xlstm-1.3b": "xlstm_1_3b"}
 
+# archs with sub-quadratic long-context decode
+LONG_CONTEXT_OK = frozenset(
+    {"gemma3-1b", "h2o-danube-1.8b", "zamba2-7b", "xlstm-1.3b"})
+
 
 def get_config(arch: str, *, reduced: bool = False) -> ModelConfig:
     if arch not in _MODULES:
         raise ValueError(f"unknown arch {arch!r}; the port has {ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.REDUCED if reduced else mod.CONFIG
+
+
+def cell_supported(cfg: ModelConfig, cell: ShapeCell) -> bool:
+    if cell.name == "long_500k":
+        return cfg.name in LONG_CONTEXT_OK
+    return True
+
+
+def all_cells(include_skipped: bool = False):
+    """Yield every (arch, cell) pair of the 10×4 assignment grid."""
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for cell in SHAPES.values():
+            if include_skipped or cell_supported(cfg, cell):
+                yield arch, cell

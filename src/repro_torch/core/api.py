@@ -196,8 +196,9 @@ class GuardInfo:
 
 def prune_layer_guarded(w: Tensor, h: "Tensor | None", cfg: PruneConfig, *,
                         on_singular: str = "escalate",
-                        max_escalations: int = 4, faults=None,
-                        path: str = "") -> tuple[PruneResult, GuardInfo]:
+                        max_escalations: int = 4, solver=None,
+                        faults=None, path: str = ""
+                        ) -> tuple[PruneResult, GuardInfo]:
     """``prune_layer`` with numerical guards: an ill-conditioned H surfaces
     as a policy decision, never as silent NaN weights.
 
@@ -209,6 +210,9 @@ def prune_layer_guarded(w: Tensor, h: "Tensor | None", cfg: PruneConfig, *,
     ``max_escalations`` extra attempts, then raises;
     ``fallback:magnitude`` escalates, then completes the layer data-free.
     A non-finite H skips escalation: damping cannot repair entries.
+    ``solver`` swaps the per-attempt solve (default ``prune_layer``):
+    ``prune_model(mesh=)`` passes a ``dist.prune.prune_layer_sharded``
+    closure, so escalation and the fallback run the same row-parallel path.
     ``faults`` is an armed :class:`repro_torch.faults.FaultPlan`: the
     ``cholesky`` site fires once per attempt, and a firing counts as a
     failed factorization (it drives every policy on a healthy H).
@@ -220,8 +224,10 @@ def prune_layer_guarded(w: Tensor, h: "Tensor | None", cfg: PruneConfig, *,
         raise ValueError(f"max_escalations must be >= 0, "
                          f"got {max_escalations}")
 
+    solve = solver if solver is not None else prune_layer
+
     def magnitude_fallback(attempts: int, finite_h: bool):
-        res = prune_layer(w, h, dataclasses.replace(cfg, method="magnitude"))
+        res = solve(w, h, dataclasses.replace(cfg, method="magnitude"))
         return res, GuardInfo(damp_attempts=attempts, percdamp_used=0.0,
                               fallback="magnitude", h_finite=finite_h)
 
@@ -240,7 +246,7 @@ def prune_layer_guarded(w: Tensor, h: "Tensor | None", cfg: PruneConfig, *,
                  dataclasses.replace(cfg, percdamp=cfg.percdamp * 10.0 ** k))
         if faults is not None and faults.fire("cholesky") is not None:
             continue
-        res = prune_layer(w, h, cfg_k)
+        res = solve(w, h, cfg_k)
         if solution_finite(res.weights, res.loss):
             return res, GuardInfo(damp_attempts=k,
                                   percdamp_used=cfg_k.percdamp)

@@ -77,6 +77,36 @@ class HessianAccumulator:
         scale = torch.where(self.count > 0, self.count, 1.0)
         return 2.0 * self.xtx / scale
 
+    def psum(self, group) -> "HessianAccumulator":
+        """Cross-replica reduction for data-parallel calibration: a SUM
+        ``all_reduce`` of the three sums over the process group ``group``,
+        in place (as ``update``); returns itself."""
+        import torch.distributed as dist
+
+        for t in (self.xtx, self.count, self.skipped):
+            dist.all_reduce(t, group=group)
+        return self
+
+    @staticmethod
+    def combine(*accs: "HessianAccumulator") -> "HessianAccumulator":
+        """Host-level reduction: sum partial accumulators (e.g. one per
+        calibration shard) into a new one, left to right.  The
+        out-of-collective twin of ``psum`` / ``all_reduce``."""
+        return HessianAccumulator(
+            *(sum(xs[1:], xs[0]) for xs in zip(
+                *((a.xtx, a.count, a.skipped) for a in accs))))
+
+    def all_reduce(self, mesh, axes: tuple[str, ...] = ("data",)
+                   ) -> "HessianAccumulator":
+        """Cross-replica reduction over ``axes`` of ``mesh`` (a DeviceMesh),
+        so data-parallel calibration composes with
+        ``dist.prune.prune_layer_sharded``, which needs the summed Hessian
+        on every rank.  See ``dist.prune.hessian_all_reduce`` for the
+        stacked layout and where the port parts from JAX."""
+        from repro_torch.dist.prune import hessian_all_reduce
+
+        return hessian_all_reduce(self, mesh, axes)
+
 
 DAMP_FLOOR = 1e-8
 

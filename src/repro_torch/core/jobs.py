@@ -176,6 +176,44 @@ class PruneJournal:
         return LayerRecord(report=report, kernel=kernel, mask=mask)
 
 
+class _MeshJournal:
+    """The journal as the ranks of a mesh share it: the lead rank (rank 0
+    of the mesh) writes, every rank reads, and each write's outcome is
+    broadcast, so a failed write raises on every rank at the same layer and
+    no rank runs on into a collective the others never reach."""
+
+    def __init__(self, journal: PruneJournal, mesh, lead: bool, group):
+        self.journal, self.lead, self.group = journal, lead, group
+        self.device = torch.device(mesh.device_type)
+
+    @property
+    def completed(self) -> int:
+        return self.journal.completed
+
+    def load(self, ordinal: int) -> LayerRecord:
+        return self.journal.load(ordinal)
+
+    def write(self, ordinal: int, report: LayerReport, **kw) -> None:
+        import torch.distributed as dist
+
+        err = None
+        if self.lead:
+            try:
+                self.journal.write(ordinal, report, **kw)
+            except Exception as e:      # re-raised below, after the vote
+                err = e
+        flag = torch.tensor([err is not None], dtype=torch.int32,
+                            device=self.device)
+        dist.broadcast(flag, src=dist.get_global_rank(self.group, 0),
+                       group=self.group)
+        if err is not None:
+            raise err
+        if int(flag[0]):
+            raise JournalWriteError(
+                f"journal write failed on the lead rank (layer {ordinal})",
+                site="journal_write")
+
+
 class PruneJob:
     """Journaled ``prune_model`` run rooted at ``job_dir``.
 
@@ -186,6 +224,12 @@ class PruneJob:
     an uninterrupted run.  The final artifact is ``job_dir/report.json``
     (atomic) — its presence marks the job finished, and resuming a
     finished job replays entirely from the journal.
+
+    ``mesh`` (a DeviceMesh) runs every layer solve row-parallel
+    (``prune_model(mesh=)``); every rank of the mesh runs the job with the
+    same arguments.  The lead rank (rank 0 of the mesh) alone writes the
+    manifest, the journal and the report; every rank validates the manifest
+    and resumes from the journal.
     """
 
     MANIFEST = "manifest.json"
@@ -193,12 +237,13 @@ class PruneJob:
 
     def __init__(self, job_dir: str, *, on_singular: str = "escalate",
                  max_escalations: int = 4, min_calib_samples: int = 1,
-                 faults: FaultPlan | None = None):
+                 faults: FaultPlan | None = None, mesh=None):
         self.job_dir = job_dir
         self.on_singular = on_singular
         self.max_escalations = max_escalations
         self.min_calib_samples = min_calib_samples
         self.faults = faults
+        self.mesh = mesh
 
     def _manifest_path(self) -> str:
         return os.path.join(self.job_dir, self.MANIFEST)
@@ -219,9 +264,26 @@ class PruneJob:
             "batch_digest": digest,
         }
 
+    def _ranks(self):
+        """(lead, group, barrier) for this process: the lead is rank 0 of
+        the mesh's group; without a mesh the process leads alone and the
+        barrier does nothing."""
+        if self.mesh is None:
+            return True, None, lambda: None
+        import torch.distributed as dist
+
+        from repro_torch.dist.prune import axis_group
+        from repro_torch.dist.sharding import axis_names
+
+        group = axis_group(self.mesh, axis_names(self.mesh)).group
+        return (dist.get_rank(group) == 0, group,
+                lambda: dist.barrier(group=group))
+
     def run(self, params, adapter, batches,
-            plan: "PrunePlan | PruneConfig", *, resume: bool = False
+            plan: "PrunePlan | PruneConfig", *, resume: bool = False,
+            keep_masks: bool = True, progress=None
             ) -> tuple[Any, PruneReport]:
+        lead, group, barrier = self._ranks()
         recipe = as_plan(plan)
         batches = list(batches)
         digest = batch_digest(batches)
@@ -268,16 +330,24 @@ class PruneJob:
             if run_plan.allocation is not None:
                 run_plan = run_plan.allocate_sparsity(
                     collect_hessian_stats(params, adapter, batches))
-            os.makedirs(self.job_dir, exist_ok=True)
-            atomic_write_json(
-                manifest_path,
-                self._build_manifest(recipe, run_plan, digest, len(batches)))
+            barrier()           # every rank has seen the job dir free
+            if lead:
+                os.makedirs(self.job_dir, exist_ok=True)
+                atomic_write_json(
+                    manifest_path, self._build_manifest(
+                        recipe, run_plan, digest, len(batches)))
+        barrier()               # the manifest is down before any journal
 
         journal = PruneJournal(self.job_dir)
+        if self.mesh is not None:
+            journal = _MeshJournal(journal, self.mesh, lead, group)
         pruned, report = prune_model(
-            params, adapter, batches, run_plan, journal=journal,
-            faults=self.faults, on_singular=self.on_singular,
+            params, adapter, batches, run_plan, keep_masks=keep_masks,
+            progress=progress, journal=journal, faults=self.faults,
+            mesh=self.mesh, on_singular=self.on_singular,
             max_escalations=self.max_escalations,
             min_calib_samples=self.min_calib_samples)
-        report.save(self.report_path())
+        if lead:
+            report.save(self.report_path())
+        barrier()
         return pruned, report

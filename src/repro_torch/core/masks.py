@@ -3,8 +3,10 @@
 * ``wanda_metric``        S_ij = |W_ij|·‖X_j‖₂ (Eq. 5 / 46)
 * ``rank_threshold_mask`` the r smallest entries, stable ties, sort-free —
                           the global residual mask ψ_X of Alg. 1 (Eq. 11)
+* ``psi_x``               ψ_X(W, r) as a float mask (Eq. 11)
 * ``nm_mask``             per-m-group exactly-n mask (Alg. 8 line 10)
 * ``phi_padded``          φ indices per row padded to r_max (App. H.1)
+* ``mask_sparsity``       p = ‖M‖²_F / (c·b) (Eq. 18)
 
 Every selection is bit-equal to the JAX package's, ties included.
 """
@@ -62,6 +64,13 @@ def rank_threshold_mask(metric: Tensor, r) -> Tensor:
     return sel.reshape(metric.shape)
 
 
+def psi_x(w: Tensor, xnorm: Tensor, r) -> Tensor:
+    """Global residual mask ψ_X(W, r): 1 at the r smallest-metric positions,
+    ties broken by flat index (stable-sort order).  Float (c, b) in w's
+    dtype, 1.0 = prune."""
+    return rank_threshold_mask(wanda_metric(w, xnorm), r).to(w.dtype)
+
+
 def nm_mask(w: Tensor, xnorm: Tensor, n: int, m: int) -> Tensor:
     """n:m mask: in every group of m consecutive columns prune exactly the n
     smallest-metric weights (stable ties).  Float (c, b), 1.0 = prune."""
@@ -91,6 +100,11 @@ def phi_padded(mask_block: Tensor, r_max: int) -> tuple[Tensor, Tensor]:
         counts[:, None]
     q = torch.where(valid, order, 0)
     return q, valid
+
+
+def mask_sparsity(mask: Tensor) -> Tensor:
+    """p = ‖M‖²_F / (c·b)   (Eq. 18)."""
+    return mask.sum() / mask.numel()
 
 
 def check_nm(mask: Tensor, n: int, m: int) -> bool:

@@ -23,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
-from typing import Any, Iterable, Mapping, Protocol
+from typing import Any, Callable, Iterable, Mapping, Protocol
 
 import torch
 
@@ -227,10 +227,11 @@ def _capture(adapter, params, i: int, carries: list, accs: dict,
 
 
 def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
-                plan: "PrunePlan | PruneConfig", *,
+                plan: "PrunePlan | PruneConfig", *, keep_masks: bool = True,
+                progress: "Callable[[str], None] | None" = None,
+                journal=None, faults=None, mesh=None,
                 on_singular: str = "escalate", max_escalations: int = 4,
-                min_calib_samples: int = 1, journal=None, faults=None
-                ) -> tuple[Any, PruneReport]:
+                min_calib_samples: int = 1) -> tuple[Any, PruneReport]:
     """Run Alg. 3 over the whole model.  Returns (pruned params, report).
 
     ``plan`` is a ``PrunePlan`` or a bare ``PruneConfig``.  A plan with an
@@ -247,6 +248,15 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
     already holds instead of solving them; the forwards replay, so
     accumulators and carries are bitwise those of an uninterrupted run.
     ``faults`` is an armed ``FaultPlan`` for the prune sites.
+
+    ``keep_masks=False`` leaves the masks out of the report (a full-size
+    run's fp32 masks are as large as its weights); ``progress`` gets one
+    line a layer, JAX's text.  ``mesh`` (a DeviceMesh) routes every layer
+    solve — escalation and the magnitude fallback included — through
+    ``dist.prune.prune_layer_sharded``; every rank of the mesh calls
+    ``prune_model`` with the same arguments, runs the same captures (K1) on
+    the same batches, solves its rows of each layer and gets the whole
+    pruned tree back.
     """
     plan = as_plan(plan)
     t_start = time.perf_counter()
@@ -255,6 +265,13 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
         plan = plan.allocate_sparsity(
             collect_hessian_stats(params, adapter, batches))
     carries = [adapter.prepare(params, b) for b in batches]
+    solver = None
+    if mesh is not None:
+        from repro_torch.dist.prune import prune_layer_sharded
+
+        def solver(w, h, cfg):     # row-parallel per-layer solve
+            return prune_layer_sharded(w, h, cfg, mesh)
+
     reports: list[LayerReport] = []
     masks: dict[Path, Tensor] = {}
     owned: set[Path] = set()          # expert stacks copied by this run
@@ -287,11 +304,14 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
                         dev = get_path(params, path).device
                         params = _write_layer(params, path,
                                               rec.kernel.to(dev), owned)
-                        if rec.mask is not None:
+                        if keep_masks and rec.mask is not None:
                             masks[path] = rec.mask.to(dev)
                     accs.pop(path, None)
                     reports.append(rec.report)
                     ordinal += 1
+                    if progress:
+                        progress(f"block {i} {path_str(path)}: journaled "
+                                 f"(layer {ordinal - 1})")
                     continue
                 t0 = time.perf_counter()
                 kernel = get_path(params, path)          # (in, out)
@@ -306,6 +326,9 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
                         journal.write(ordinal, rep, faults=faults)
                     reports.append(rep)
                     ordinal += 1
+                    if progress:
+                        progress(f"block {i} {path_str(path)}: skipped "
+                                 f"(rule {rule_idx})")
                     continue
                 h = None
                 calib_skipped = 0
@@ -319,12 +342,13 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
                        if rule_idx >= 0 else "") or on_singular
                 res, guard = prune_layer_guarded(     # paper layout (out, in)
                     kernel.T, h, cfg, on_singular=pol,
-                    max_escalations=max_escalations, faults=faults,
-                    path=path_str(path))
+                    max_escalations=max_escalations, solver=solver,
+                    faults=faults, path=path_str(path))
                 new_kernel = res.weights.T.contiguous().to(kernel.dtype)
                 params = _write_layer(params, path, new_kernel, owned)
                 mask_t = res.mask.T.contiguous()            # (in, out)
-                masks[path] = mask_t
+                if keep_masks:
+                    masks[path] = mask_t
                 rep = LayerReport(
                     path=path, sparsity=float(res.mask.mean()),
                     obs_loss=float(res.loss),
@@ -338,6 +362,10 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
                                   mask=mask_t, faults=faults)
                 reports.append(rep)
                 ordinal += 1
+                if progress:
+                    progress(f"block {i} {path_str(path)}: "
+                             f"sparsity={rep.sparsity:.3f} "
+                             f"loss={rep.obs_loss:.3e}")
 
             # ---- pass 2: propagate through the pruned block ---------------
             carries = [adapter.block_apply(params, i, c, capture=False)[0]

@@ -19,6 +19,10 @@ import torch
 
 Tensor = torch.Tensor
 
+# kernels consumed as reshaped raw weights (MLA's absorbed decode), which
+# can never stream the compressed form: compress_params leaves them dense
+NON_STREAMABLE_KERNELS = frozenset({"wkv_b"})
+
 
 @dataclasses.dataclass(frozen=True)
 class NmCompressed:

@@ -103,15 +103,38 @@ def _categorical(rng: np.random.Generator, probs: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _sample(vocab_size: int, corpus_seed: int, seed: int, index: int,
-            batch: int, seq_len: int) -> np.ndarray:
+def _sample(corpus: SyntheticCorpus, seed: int, index: int, batch: int,
+            seq_len: int) -> np.ndarray:
     """Batch ``index`` of the stream ``seed``: drawn once per process and
     kept (the draw is deterministic, and at a vocabulary of 262 144 it
     takes tens of seconds on the host), so a held-out slice taken before
     and after pruning is sampled once."""
-    corpus = SyntheticCorpus(vocab_size=vocab_size, seed=corpus_seed)
     return corpus.sample(np.random.default_rng([seed, index]), batch,
                          seq_len)
+
+
+@dataclasses.dataclass
+class CalibrationStream:
+    """The paper's calibration set: ``num_samples`` fixed sequences (§5.1),
+    ``num_samples // batch`` batches of {"tokens": (batch, seq_len)} on
+    ``device`` (CUDA unless the caller passes ``device="cpu"``), batch i
+    drawn from numpy's stream ``[seed, i]``."""
+
+    corpus: SyntheticCorpus
+    num_samples: int = 128
+    seq_len: int = 2048
+    batch: int = 8
+    seed: int = 1234
+    device: "str | torch.device" = "cuda"
+
+    def batches(self) -> list[dict[str, torch.Tensor]]:
+        if self.num_samples % self.batch:
+            raise ValueError(f"num_samples={self.num_samples} must be a "
+                             f"multiple of batch={self.batch}")
+        device = resolve_device(self.device)
+        return [{"tokens": torch.from_numpy(_sample(
+            self.corpus, self.seed, i, self.batch, self.seq_len).copy()
+        ).to(device)} for i in range(self.num_samples // self.batch)]
 
 
 def calibration_batches(cfg, *, num_samples: int = 32, seq_len: int = 256,
@@ -132,12 +155,10 @@ def calibration_batches(cfg, *, num_samples: int = 32, seq_len: int = 256,
     seeded with ``seed + 2``.
     """
     device = resolve_device(device)
-    if num_samples % batch:
-        raise ValueError(f"num_samples={num_samples} must be a multiple of "
-                         f"batch={batch}")
-    toks = [torch.from_numpy(_sample(cfg.vocab_size, corpus_seed, seed, i,
-                                     batch, seq_len).copy()).to(device)
-            for i in range(num_samples // batch)]
+    toks = [b["tokens"] for b in CalibrationStream(
+        SyntheticCorpus(vocab_size=cfg.vocab_size, seed=corpus_seed),
+        num_samples=num_samples, seq_len=seq_len, batch=batch, seed=seed,
+        device=device).batches()]
     if cfg.family == "vlm":
         gen = torch.Generator(device=device).manual_seed(seed + 2)
         n_img = min(cfg.vlm_image_tokens, seq_len // 2)

@@ -21,13 +21,10 @@ import torch
 
 from repro_torch.core.plan import PrunePlan, path_str
 from repro_torch.core.schedule import get_path, set_path
-from repro_torch.core.sparsity import (NmCompressed, NmStackedCompressed,
+from repro_torch.core.sparsity import (NON_STREAMABLE_KERNELS,
+                                       NmCompressed, NmStackedCompressed,
                                        pack_nm, pack_nm_stacked, unpack_nm,
                                        unpack_nm_stacked)
-
-# kernels consumed as reshaped raw weights (MLA's absorbed decode), which
-# can never stream the compressed form
-NON_STREAMABLE_KERNELS = frozenset({"wkv_b"})
 
 
 class CompressionDowngrade(UserWarning):
