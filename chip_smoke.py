@@ -8,6 +8,25 @@ non-zero without the final result line):
 
 1. build   — compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
              (one ``nvcc`` per source, in parallel).
+tooling. tooling — right after the build, on the empty card and in a
+             spawned process of its own, the JAX package's tooling as
+             the port runs it: (a) the dry run's
+             abstract sweep of all 40 (arch, cell) pairs on the 16 × 16
+             mesh (meta device: fits, bottleneck, roofline step on the
+             H100's peaks); (b) ``--measure``: every supported decode cell
+             whose arguments fit one card at full depth runs on the card
+             (median of 5 steps, temporaries); (c) the three perf ladders
+             (mistral-large-123b, xlstm-1.3b, whisper-medium decode_32k) at
+             full width, B = 128 and the cell's cache depth, each cut in
+             depth only (perf.LADDER_DEPTH; whisper's cache448 rungs also
+             at full depth): per rung ms, peak bytes and measured/bound;
+             nm rungs' first-step logits against the decompressed tree at
+             rel ≤ 5e-2 (xlstm's on the rung's first block, as phase
+             families holds it), int8 rungs' against a bf16 cache filled
+             with the same random k/v at max |Δ| < 1.0 and < 0.1 × the
+             filled cache's own effect; then K2 checked and timed at the nm
+             rungs' B = 128 shapes beside torch.matmul and the bound (rows
+             added to phase 5's).
 2. kernels — hold each kernel against its plain PyTorch version on the card:
              K1 (Hessian update) fp32/bf16 at b ∈ {2048, 5632}, a masked-rows
              batch and a NaN batch that must be skipped; K2 (n:m matmul) at
@@ -73,11 +92,11 @@ plan. plan — tinyllama under examples/recipes/mixed_2to4_serve.json: MLP
              the expert stacks, K2 for attention); exact launch counts and
              the first-step logits against the decompressed params.
 4mla. mla  — the MLA path: deepseek-v3-671b at full width, depth cut to
-             its MLA_LAYERS leading dense layers; Thanos 2:4 prunes the 24
-             linears (K1 at b up to 18 432), every wkv_b serves dense (one
-             CompressionDowngrade each), the engine serves the phase-4
-             request set with the bf16 latent cache (MlaCache) and again
-             with the int8 one (QuantMlaCache); exact launch counts, the
+             its MLA_LAYERS leading dense layers; Thanos 2:4 prunes their
+             8 linears a layer (K1 at b up to 18 432), every wkv_b serves
+             dense (one CompressionDowngrade each), the engine serves the
+             phase-4 request set with the bf16 latent cache (MlaCache) and
+             again with the int8 one (QuantMlaCache); exact launch counts, the
              first-step logits against the decompressed params and the
              int8 logits against the bf16 cache's.
 paged. paged — the paged KV cache (page pools shared by the slots, prefix
@@ -90,10 +109,11 @@ paged. paged — the paged KV cache (page pools shared by the slots, prefix
              with the int8 pool (tokens identical to phase 4's int8 run);
              after the mla phase, deepseek-v3 serves it with both paged
              latent caches (tokens identical to that phase's); then
-             gemma3-1b at full width and depth: Thanos 2:4 prune (K1,
-             2 · 7 · 26 launches), compress, and 4 requests — one of 528
+             gemma3-1b at full width, depth cut 26 → GEMMA_LAYERS (5
+             local layers and the global one): Thanos 2:4 prune (K1,
+             2 · 7 · L launches), compress, and 4 requests — one of 528
              tokens, which wraps every window-512 ring — served contiguous
-             and paged in the mixed layout (4 page pools beside 22 rings),
+             and paged in the mixed layout (1 page pool beside 5 rings),
              tokens identical, K2 in every serve, and the first-step logits
              against the decompressed params.
 families. families — the recurrent and encoder–decoder families, bf16
@@ -103,10 +123,12 @@ families. families — the recurrent and encoder–decoder families, bf16
              zamba2-7b at full width, depth cut 81 → 24 (shared sites 5,
              11, 17, 23: each shared set pruned once, at its second site,
              from both sites' Hessians), the phase-4 set served with bf16
-             and int8 shared caches; xlstm-1.3b at full width and depth,
-             served, its bf16 matrix memory against fp32; each engine's
+             and int8 shared caches; xlstm-1.3b at full width, depth cut
+             48 → XLSTM_LAYERS (14 mLSTM, 2 sLSTM blocks), served, its
+             bf16 matrix memory against fp32; each engine's
              tokens against teacher-forced B = 1 loops; whisper-medium at
-             full width and depth: encode 4 × 1500 frames (K2 at x
+             full width, depth cut to WHISPER_LAYERS + WHISPER_LAYERS:
+             encode 4 × 1500 frames (K2 at x
              (6000, b)), cross k/v once, 12 greedy tokens at B = 4,
              identical to the uncached decode's; every family's
              first-step logits against its decompressed tree.
@@ -115,11 +137,11 @@ dense2. dense2 — the rest of the dense family and the VLM backbone, bf16
              tokens (K1), compressed (0.625 of dense bytes) and serving the
              phase-4 request set compressed-resident (K2), launch counts
              exact, first-step logits against the decompressed tree at rel
-             ≤ 5e-2: h2o-danube-1.8b at full width and depth (head_dim 80,
-             every layer a window of 4096), also served paged — every
-             layer a ring, no pool — with tokens identical to the
-             contiguous engine's; mistral-large-123b and internvl2-76b at
-             full width, depth cut to 2 layers (DENSE2_LAYERS); internvl
+             ≤ 5e-2: h2o-danube-1.8b at full width, 8 of 24 layers
+             (head_dim 80, every layer a window of 4096), also served
+             paged — every layer a ring, no pool — with tokens identical
+             to the contiguous engine's; mistral-large-123b and internvl2-76b at
+             full width, depth cut to 1 layer (DENSE2_LAYERS); internvl
              calibrated on the VLM batch (64 image + 64 text positions a
              row), then VLM_IMAGE patch embeddings through
              decode_step(embeds=) and VLM_TEXT tokens from an empty cache,
@@ -186,8 +208,8 @@ dist. dist — right after robust, on phase 3's tree, over two spawned
 
 Kernel launch counts are zeroed just before each path (phases 3,
 train's serve, robust, dist (in each rank), baselines, plan, 4m, mla and
-each part of paged, of families and of dense2) and read just after its
-serve (the mla path: after both serves; gemma3: after its paged serve;
+each part of paged, of families and of dense2; the tooling ladders) and
+read just after its serve (the mla path: after both serves; gemma3: after its paged serve;
 baselines and plan also per method and per step); the comparison and
 timing launches are not counted, nor are the contiguous serves the paged
 ones are held against (``uncounted``).  The tinyllama rows of phase 5
@@ -217,8 +239,9 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 
 MOE_ARCH = "qwen3-moe-30b-a3b"
 # 48 layers hold 61 GB of bf16 weights before a compressed copy and give
-# ~18 000 expert solves; 4 layers keep every width and the phase short
-MOE_LAYERS = 4
+# ~18 000 expert solves; 2 layers keep every width and the phase short
+# (4 until the script neared its time limit: ~45 s of expert solves less)
+MOE_LAYERS = 2
 # x (C, b) → W (E, c, b) of the two full-width expert leaves: gate/up, down
 MOE_LEAVES = [(128, 8, 768, 2048), (128, 8, 2048, 768)]
 MOE_ATTN = [(4096, 2048), (512, 2048), (2048, 4096)]      # K2, (c, b)
@@ -228,9 +251,10 @@ MOE_K1 = [(1024, 2048, False), (1024, 4096, False), (80, 2048, True),
 # the paper's comparison methods, run beside phase 3's Thanos
 BASELINES = ("sparsegpt", "wanda", "magnitude")
 MLA_ARCH = "deepseek-v3-671b"
-# its three leading dense layers (num_dense_layers = 3): a full-width MoE
-# block needs ~110 GB of expert Hessians at once under the port's schedule
-MLA_LAYERS = 3
+# the first of its three leading dense layers (num_dense_layers = 3): a
+# full-width MoE block needs ~110 GB of expert Hessians at once under the
+# port's schedule (3 layers until the script neared its time limit)
+MLA_LAYERS = 1
 # K2, (c, b): wq_a, wq_b, wkv_a, wo, gate/up and down (wkv_b serves dense)
 MLA_K2 = [(1536, 7168), (24576, 1536), (576, 7168), (7168, 16384),
           (18432, 7168), (7168, 18432)]
@@ -247,6 +271,9 @@ SERVE_MAX_LEN = 48
 # rows of 64 tokens (4 pages) hold a prompt and its 12 new tokens
 PREFIX_HEAD, PREFIX_TAIL, PREFIX_MAX_LEN = 40, 7, 64
 GEMMA_ARCH = "gemma3-1b"
+# depth cut 26 → 6 (5 local layers and the global one, the model's own
+# pattern): its 587 single-token model steps a serve dominated the script
+GEMMA_LAYERS = 6
 # one 528-token prompt wraps every local ring (window 512); rows of 544
 # tokens (34 pages) hold it and its 12 new tokens
 GEMMA_LONG, GEMMA_MAX_LEN = 528, 544
@@ -264,23 +291,28 @@ ZAMBA_LAYERS = 24
 ZAMBA_K1 = [3584, 7168, 14336]
 ZAMBA_K2 = [(14704, 3584), (3584, 7168), (3584, 3584), (14336, 3584),
             (3584, 14336)]
+# xlstm-1.3b's depth cut 48 → 16 (14 mLSTM, 2 sLSTM blocks: every 8th)
+XLSTM_LAYERS = 16
 XLSTM_K1 = [2048, 4096]
 XLSTM_K2 = [(8192, 2048), (4096, 4096), (4, 4096), (2048, 4096),
             (2048, 2048)]
 # the depths at which xlstm's first-step logits are held (depth_profile)
-XLSTM_DEPTHS = (1, 8, 16, 24, 32, 48)
+XLSTM_DEPTHS = (1, 8, 16)
+# whisper-medium's depth cut 24 + 24 → 8 + 8 (encoder + decoder layers)
+WHISPER_LAYERS = 8
 WHISPER_K1 = [1024, 4096]
 WHISPER_K2 = [(1024, 1024), (4096, 1024), (1024, 4096)]
 # 4 sources of the 30 s window (1500 frames), 12 greedy tokens: the encoder
 # runs K2 at x (6000, b), the decoder at B = 4
 WHISPER_FRAMES, WHISPER_NEW = 1500, 12
 WHISPER_B = (4, 4 * WHISPER_FRAMES)
-# the dense2 phase: h2o-danube-1.8b at full depth (24 layers, 3.6 GB of
-# bf16 weights); mistral-large-123b's 88 layers hold ~244 GB and
-# internvl2-76b's 80 ~137 GB of bf16 weights, so both are cut to 2 layers
-# (every width kept: ~7 GB and ~7.6 GB with embedding and head)
-DENSE2_LAYERS = {"h2o-danube-1.8b": 24, "mistral-large-123b": 2,
-                 "internvl2-76b": 2}
+# the dense2 phase: h2o-danube-1.8b cut 24 → 8 layers (time: 24 held 3.6
+# GB of bf16 weights); mistral-large-123b's 88 layers hold ~244 GB and
+# internvl2-76b's 80 ~137 GB of bf16 weights, so both are cut to 1 layer
+# (every width kept: ~4.3 GB and ~4.7 GB with embedding and head; 2 layers
+# until the script neared its time limit)
+DENSE2_LAYERS = {"h2o-danube-1.8b": 8, "mistral-large-123b": 1,
+                 "internvl2-76b": 1}
 # K1 at x (1024, b): the inputs of wq/wk/wv/wo/gate/up, down; K2, (c, b):
 # wq/wo, wk/wv, gate/up, down — down at b = 28 672 runs K2's cluster split
 # (CS 2 at B = 1, CS 4 at B = 4: one block's rows do not fit 227 KB)
@@ -334,6 +366,18 @@ K2_EDGE = [(2048, 2048, 4), (256, 2048, 1), (37, 128, 9)]
 # the redesign checks: K1 at ragged (tokens, b); K3 (E, C, c, b, n, m)
 # with all-zero row groups, from a full-width leaf to ragged shapes
 ODD_K1 = [(37, 100), (37, 770), (80, 100), (80, 770)]
+# the tooling phase: K2 at the ladders' decode batch, at the (c, b) the nm
+# rungs launch — mistral's wq/wo, wk/wv, gate/up, down and xlstm's five
+TOOLING_B = 128
+TOOLING_TIMEOUT = 400        # s: the phase in its child process
+# the ladders' gates: nm rungs' first step rel ≤ NM_REL against the
+# decompressed tree (xlstm's on the rung's first NM_GATE_BLOCKS blocks);
+# int8 rungs' max |Δ| < INT8_TOL and < INT8_SHARE × the filled cache's own
+# effect on the logits
+NM_REL, NM_GATE_BLOCKS = 5e-2, {"xlstm-1.3b/decode_32k": 1}
+INT8_TOL, INT8_SHARE = 1.0, 0.1
+TOOLING_K2 = {"mistral-large-123b": DENSE2_K2["mistral-large-123b"],
+              "xlstm-1.3b": XLSTM_K2}
 ZERO_K3 = [(128, 8, 768, 2048, 2, 4), (6, 3, 37, 128, 2, 4),
            (6, 17, 300, 128, 5, 8), (5, 17, 37, 96, 2, 4),
            (4, 3, 33, 104, 5, 8), (4, 17, 200, 512, 2, 4)]
@@ -1782,14 +1826,15 @@ def paged_mla(model, model8, comp, prompts, done, done8) -> dict:
 
 
 def gemma3_phase(dev) -> dict:
-    """Paged phase, gemma3-1b at full width and depth (26 layers, 5 local
-    window-512 layers to 1 global, head_dim 256, one kv head, vocab
-    262 144, tied embeddings), bf16 from seed 0: ``prune_arch``'s Thanos
-    2:4 with its calibration (K1, exactly 2 · 7 · 26 launches), compress,
-    and serve 4 requests — one of GEMMA_LONG tokens, which wraps every
-    local ring, and three phase-4 prompts, 12 new tokens each — on the
-    contiguous engine and on the paged one in the mixed layout (4 page
-    pools beside 22 rings, prefix reuse off), tokens identical (K2 for
+    """Paged phase, gemma3-1b at full width (5 local window-512 layers to
+    1 global, head_dim 256, one kv head, vocab 262 144, tied embeddings),
+    depth cut 26 → GEMMA_LAYERS, bf16 from seed 0: ``prune_arch``'s steps
+    (``prune_family``: Thanos 2:4 with its calibration, K1 exactly 2 · 7 ·
+    L launches), compress, and serve 4 requests — one of GEMMA_LONG
+    tokens, which wraps every local ring, and three phase-4 prompts, 12
+    new tokens each — on the contiguous engine and on the paged one in the
+    mixed layout (a page pool for each global layer beside a ring for each
+    local one, prefix reuse off), tokens identical (K2 for
     every pruned linear).  Then the first-step logits against the
     decompressed params.  Launch counts zeroed before the prune, read
     after the paged serve; the contiguous serve is the reference and is
@@ -1798,56 +1843,34 @@ def gemma3_phase(dev) -> dict:
     import torch
 
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.api import PruneConfig
-    from repro_torch.core.masks import check_nm
     from repro_torch.kernels import hessian_accum as K1
-    from repro_torch.launch.prune import prune_arch
-    from repro_torch.models.model_builder import build_model
-    from repro_torch.serve.compressed import (compress_params,
-                                              compressed_bytes)
 
-    cfg = get_config(GEMMA_ARCH)
+    full = get_config(GEMMA_ARCH)
+    cfg = full.replace(num_layers=GEMMA_LAYERS)
     L = cfg.num_layers
     local = sum(not cfg.layer_is_global(i) for i in range(L))
-    print(f"phase paged: {GEMMA_ARCH} at full width and depth (d_model "
+    print(f"phase paged: {GEMMA_ARCH} at full width (d_model "
           f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, kv "
           f"heads {cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}, {L} layers: {local} local window "
           f"{cfg.sliding_window} θ {cfg.rope_theta_local:g}, {L - local} "
-          f"global θ {cfg.rope_theta:g}), {cfg.dtype}")
+          f"global θ {cfg.rope_theta:g}), {cfg.dtype}; depth cut "
+          f"{full.num_layers} → {L}")
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pruned, report, out = prune_arch(
-        GEMMA_ARCH, PruneConfig("thanos", "nm", n=2, m=4, block_size=64),
-        reduced=False, device=dev, log=None)
-    torch.cuda.synchronize()
+    out = prune_family(cfg, dev)
+    model, comp, layers = out.pop("model"), out.pop("comp"), out.pop("layers")
     t_prune = time.perf_counter() - t0
-    check(len(report.masks) == 7 * L, f"{len(report.masks)} pruned linears")
-    check(all(check_nm(mk.T, 2, 4) for mk in report.masks.values()),
-          "a pruned linear breaks 2:4")
-    check(all(r.fallback == "" for r in report.layers),
-          "a layer fell back to magnitude pruning")
-    check(abs(out["mean_sparsity"] - 0.5) < 1e-9,
-          f"sparsity {out['mean_sparsity']}")
-    check(math.isfinite(out["dense_loss"])
-          and math.isfinite(out["pruned_loss"]), "non-finite held-out loss")
-    k1_expect = 2 * 7 * L
+    check(len(layers) == 7 * L, f"{len(layers)} pruned linears")
+    k1_expect = out["batches"] * 7 * L
     k1 = K1.hessian_update_cuda.launches
     check(k1 == k1_expect, f"K1 launches {k1}, expected {k1_expect}")
     k1_shapes = {b: k for (_, b, _), k in
                  sorted(K1.hessian_update_cuda.by_shape.items())}
     check(set(k1_shapes) == set(GEMMA_K1), f"K1 shapes {k1_shapes}")
-    print(f"  prune: thanos 2:4 B=64: dense loss {out['dense_loss']:.4f}, "
-          f"pruned loss {out['pruned_loss']:.4f}, prune "
-          f"{out['prune_seconds']:.1f} s (prune_arch {t_prune:.1f} s), K1 "
-          f"launches {k1} (expect 2 × 7 × {L} = {k1_expect}), by b "
-          f"{k1_shapes}")
-    comp = compress_params(pruned, report.masks, 2, 4)
-    del pruned, report
-    cb, db = compressed_bytes(comp)
-    check(cb / db == 0.625, f"compressed ratio {cb / db}")
-    model = build_model(cfg, device=dev)
+    print(f"  K1 launches {k1} (expect {out['batches']} × 7 × {L} = "
+          f"{k1_expect}), by b {k1_shapes}")
     rng = np.random.default_rng(2)
     prompts = ([rng.integers(0, cfg.vocab_size, size=GEMMA_LONG)]
                + request_prompts(cfg.vocab_size)[:3])
@@ -1876,10 +1899,10 @@ def gemma3_phase(dev) -> dict:
     check(got_p == got_c, "gemma3 paged tokens differ from the contiguous "
           "engine's")
     pool_b, cont_b = cache_bytes(eng_p._cache), cache_bytes(eng_c._cache)
-    print(f"  compressed {cb / db:.4f} of dense bf16 bytes on the {7 * L} "
-          f"pruned linears; paged tokens identical to the contiguous "
-          f"engine's; {L - local} paged layers beside {local} rings of "
-          f"{cfg.sliding_window} (last position {top}, every ring wrapped); "
+    print(f"  compressed {out['ratio']:.4f} of dense bf16 bytes on the "
+          f"{7 * L} pruned linears; paged tokens identical to the "
+          f"contiguous engine's; {L - local} paged layers beside {local} "
+          f"rings of {cfg.sliding_window} (last position {top}, every ring wrapped); "
           f"resident cache paged {pool_b} B vs contiguous {cont_b} B; "
           f"K2 launches {counts['nm_matmul_cuda'][0]} in the paged serve")
     e = first_step_line(model, comp, prompts)
@@ -1891,7 +1914,7 @@ def gemma3_phase(dev) -> dict:
             "pruned_loss": out["pruned_loss"],
             "prune_seconds": out["prune_seconds"],
             "phase_prune_seconds": t_prune, "serve_seconds": t_serve,
-            "ratio": cb / db, "k1_launches": k1,
+            "ratio": out["ratio"], "k1_launches": k1,
             "contiguous": serve_record(got_c, secs_c, eng_c),
             "paged": serve_record(got_p, secs_p, eng_p),
             "last_position": top, "stats": dict(eng_p.stats),
@@ -2178,20 +2201,23 @@ def serve_summary(done, seconds: float, steps: int) -> dict:
 
 
 def xlstm_part(dev) -> dict:
-    """Families (b): xlstm-1.3b at full width and depth (42 mLSTM + 6
-    sLSTM blocks); then the fp32 against the bf16 matrix memory."""
+    """Families (b): xlstm-1.3b at full width, depth cut 48 →
+    XLSTM_LAYERS (14 mLSTM + 2 sLSTM blocks); then the fp32 against the
+    bf16 matrix memory."""
     import torch
 
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model_builder import build_model
 
-    cfg = get_config("xlstm-1.3b")
+    full = get_config("xlstm-1.3b")
+    cfg = full.replace(num_layers=XLSTM_LAYERS)
     L = cfg.num_layers
     n_s = sum((i + 1) % cfg.slstm_every == 0 for i in range(L))
-    print(f"phase families: xlstm-1.3b at full width and depth ({L} blocks: "
+    print(f"phase families: xlstm-1.3b at full width ({L} blocks: "
           f"{L - n_s} mLSTM, {n_s} sLSTM; d_model {cfg.d_model}, "
           f"{cfg.num_heads} heads, proj factor {cfg.xlstm_proj_factor}, "
-          f"vocab {cfg.vocab_size}), {cfg.dtype}")
+          f"vocab {cfg.vocab_size}), {cfg.dtype}; depth cut "
+          f"{full.num_layers} → {L}")
     zero_counts()
     t0 = time.perf_counter()
     out = prune_family(cfg, dev)
@@ -2216,9 +2242,9 @@ def xlstm_part(dev) -> dict:
     b1 = lockstep_check(model, comp, prompts, done, "xlstm")
     # a random-init xLSTM in bf16 amplifies rounding block after block
     # (the dense tree's own B = 4 and B = 1 logits part by ~1.1 of their
-    # magnitude at 48 blocks, PERF.md §6), so the first-step logits
-    # are held at rel 5e-2 on one block and, at every depth, to twice that
-    # spread of the model's own
+    # magnitude at 48 blocks, ~0.2 at 16, PERF.md §6), so the first-step
+    # logits are held at rel 5e-2 on one block and, at every depth, to
+    # twice that spread of the model's own
     prof = depth_profile(cfg, comp, prompts, XLSTM_DEPTHS)
     check(all(v["finite"] for v in prof.values())
           and prof[1]["kernel_rel"] <= 5e-2
@@ -2246,8 +2272,8 @@ def xlstm_part(dev) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     print(f"phase families, xlstm-1.3b: {secs:.1f} s")
-    return dict(out, layers_cut=L, seconds_part=secs, by_shape=by_shape,
-                b1=b1, serve=serve_summary(done, t_serve, steps),
+    return dict(out, layers_cut=L, layers_full=full.num_layers,
+                seconds_part=secs, by_shape=by_shape, b1=b1, serve=serve_summary(done, t_serve, steps),
                 engine_stats=dict(engine.stats),
                 bf16_state={"max_abs_err": eb[0], "rel_err": eb[1],
                             "argmax_agree": agree},
@@ -2275,7 +2301,8 @@ def whisper_decode(model, params, frames, starts, kv_cached: bool):
 
 
 def whisper_part(dev, gen) -> dict:
-    """Families (c): whisper-medium at full width and depth: prune on the
+    """Families (c): whisper-medium at full width, depth cut to
+    WHISPER_LAYERS encoder and decoder layers: prune on the
     frames stub, compress; encode 4 sources of WHISPER_FRAMES frames (the
     30 s window), precompute the cross k/v once, decode WHISPER_NEW greedy
     tokens at B = 4; the kernel path's first logits against the
@@ -2286,11 +2313,14 @@ def whisper_part(dev, gen) -> dict:
     from repro_torch.configs.registry import get_config
     from repro_torch.serve.compressed import decompress_params
 
-    cfg = get_config("whisper-medium")
+    full = get_config("whisper-medium")
+    cfg = full.replace(encoder_layers=WHISPER_LAYERS,
+                       decoder_layers=WHISPER_LAYERS)
     E, D = cfg.encoder_layers, cfg.decoder_layers
-    print(f"phase families: whisper-medium at full width and depth ({E} + "
-          f"{D} layers, d_model {cfg.d_model}, {cfg.num_heads} heads, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_size}), {cfg.dtype}")
+    print(f"phase families: whisper-medium at full width ({E} + {D} "
+          f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}), {cfg.dtype}; depth cut "
+          f"{full.encoder_layers} + {full.decoder_layers} → {E} + {D}")
     zero_counts()
     t0 = time.perf_counter()
     out = prune_family(cfg, dev)
@@ -2337,8 +2367,8 @@ def whisper_part(dev, gen) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     print(f"phase families, whisper-medium: {secs:.1f} s")
-    return dict(out, seconds_part=secs, by_shape=by_shape,
-                decode_seconds=t_dec, encode_rows=rows,
+    return dict(out, layers_cut=(E, D), seconds_part=secs,
+                by_shape=by_shape, decode_seconds=t_dec, encode_rows=rows,
                 logits_max_abs_err=e[0], logits_rel_err=e[1],
                 argmax_agree=agree)
 
@@ -3864,6 +3894,15 @@ def dist_phase(cfg, pruned, report, comp, dev, setup=None) -> dict:
     ref = {"masks": report.masks,
            "linears": {p: get_path(pruned, p) for p in report.masks},
            "indices": {p: get_path(comp, p).indices for p in report.masks}}
+    if torch.device(dev).type == "cuda":
+        # the ranks share the card with this process: hand back the blocks
+        # its allocator still caches from the earlier phases
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"  dist: this process holds "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved "
+              f"beside the ranks")
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=dist_rank, args=(
         r, str(tmp), str(dev), ref if r == 0 else {}, setup))
@@ -3969,6 +4008,227 @@ def nccl_parts(tmp: Path, a: dict, dev) -> dict:
     return {"nccl_two_ranks": answer, "b": one}
 
 
+def tooling_sweep() -> list:
+    """Tooling (a): the dry run's abstract sweep over all 40 (arch, cell)
+    pairs, skipped ones too, on the single-pod 16 × 16 mesh (meta device,
+    no card)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    mesh = make_production_mesh()
+    out = []
+    for arch in registry.ARCHS:
+        cfg = registry.get_config(arch)
+        for cell in SHAPES.values():
+            rec = dryrun.run_cell(arch, cell, mesh, "pod16x16", 256)
+            rec["supported"] = registry.cell_supported(cfg, cell)
+            check(rec["roofline_step_s"] > 0 and
+                  all(k not in rec for k in dryrun.LEFT_OUT),
+                  f"dry run {arch} {cell.name}: {rec['roofline']}")
+            print(f"  sweep {arch:19s} {cell.name:12s} "
+                  f"{'' if rec['supported'] else '(skipped cell) '}fits "
+                  f"{rec['fits']} (one card: {rec['fits_one_card']}, "
+                  f"{rec['argument_bytes']['whole']['total'] / 1e9:.1f} GB) "
+                  f"{rec['bottleneck']} roofline "
+                  f"{rec['roofline_step_s'] * 1e3:.4f} ms (256 cards)")
+            out.append(rec)
+    check(len(out) == 40, f"{len(out)} dry-run cells")
+    return out
+
+
+def tooling_measure(sweep: list) -> list:
+    """Tooling (b): ``dryrun --measure`` on every supported decode cell
+    whose arguments fit one card at full depth: its step on random-init
+    weights, median of 5 after a warm-up, peak bytes above the arguments."""
+    import torch
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+
+    out = []
+    for rec in sweep:
+        if not (rec["supported"] and rec["fits_one_card"]
+                and SHAPES[rec["cell"]].kind == "decode"):
+            continue
+        m = dryrun.measure_cell(rec["arch"], SHAPES[rec["cell"]],
+                                device="cuda")
+        torch.cuda.empty_cache()
+        check(m["finite"] and m["logits_shape"][0] ==
+              SHAPES[rec["cell"]].global_batch,
+              f"measured {rec['arch']} {rec['cell']}: {m['logits_shape']}, "
+              f"finite {m['finite']}")
+        print(f"  measure {rec['arch']:19s} {rec['cell']:12s} full depth: "
+              f"{m['step_ms']:.3f} ms a step (one-card bound "
+              f"{m['roofline_step_s'] * 1e3:.3f} ms, {m['bottleneck']}; "
+              f"×{m['measured_over_bound']:.2f}), arguments "
+              f"{m['argument_bytes'] / 1e9:.2f} GB, temporaries "
+              f"{m['temp_bytes'] / 1e9:.2f} GB")
+        out.append(m)
+    check(len(out) > 0, "no decode cell fits one card")
+    return out
+
+
+def tooling_ladders() -> dict:
+    """Tooling (c): the three perf ladders on the card at full width, B =
+    128, each at its ladder's depth (whisper's cache448 rungs again at full
+    depth), K2 launches counted over the nm rungs.  Gates: an nm rung's
+    first-step logits against its decompressed tree from a fresh cache at
+    rel ≤ NM_REL (xlstm on the rung's leaves and inputs cut to its first
+    NM_GATE_BLOCKS blocks, as phase families holds it: random-init bf16
+    blocks amplify rounding block after block); an int8 rung's logits
+    against the same model's over a bf16 cache, both filled with the same
+    random k/v (perf.int8_cache_check), at max |Δ| < INT8_TOL and below
+    INT8_SHARE of what the filled cache itself moves them."""
+    import torch
+
+    from repro_torch.launch import perf
+    from repro_torch.models.model_builder import build_model
+    from repro_torch.serve.compressed import decompress_params
+
+    gates: list = []
+
+    def gate(key):
+        def on_rung(tag, opts, entry, keep):
+            first = keep["logits"]
+            check(entry["finite"] and bool(torch.isfinite(first).all()),
+                  f"{key} [{tag}]: non-finite logits")
+            step, args = keep["step"], keep["args"]
+            B, depth = entry["batch"], entry["cache_len"]
+            if opts.nm:
+                d = NM_GATE_BLOCKS.get(key)
+                if d is None:
+                    # the rung's first step ran on a fresh cache: the
+                    # decompressed tree on a fresh one again
+                    model, comp, kern = step.model, args[0], first
+                    args[1].clear()
+                    args[1].update(model.init_cache(B, depth))
+                    cache = args[1]
+                else:
+                    model = build_model(step.model.cfg.replace(num_layers=d),
+                                        device=args[2].device)
+                    comp = dict(args[0], blocks={i: args[0]["blocks"][i]
+                                                 for i in range(d)})
+                    with uncounted(), torch.no_grad():
+                        kern = model.decode_step(comp, model.init_cache(
+                            B, depth), *args[2:])[0].float().cpu()
+                    cache = model.init_cache(B, depth)
+                dense = decompress_params(comp)
+                with uncounted(), torch.no_grad():
+                    ref = model.decode_step(dense, cache, *args[2:])[0]
+                    ref = ref.float().cpu()
+                del dense, cache
+                e = errs(kern, ref)
+                where = f"{d} block" if d else f"depth {entry['depth']}"
+                check(e[1] <= NM_REL, f"{key} [{tag}] compressed vs dense "
+                      f"first-step logits at {where}: rel {e[1]:.4g} (limit "
+                      f"{NM_REL:g})")
+                gates.append((key, tag, f"nm rel at {where}", e[1], NM_REL))
+            if opts.kv_dtype == "int8" and not opts.nm:
+                with uncounted():
+                    r = perf.int8_cache_check(step, args)
+                lim = min(INT8_TOL, INT8_SHARE * r["content"])
+                check(r["max_abs"] < lim, f"{key} [{tag}] int8 vs bf16 "
+                      f"filled-cache logits: max abs err {r['max_abs']:.4g} "
+                      f"(limit {lim:.4g}: {INT8_TOL:g}, and {INT8_SHARE:g} × "
+                      f"the cache content's {r['content']:.4g})")
+                gates.append((key, tag, f"int8 max|Δ|, filled cache (content "
+                              f"{r['content']:.4g})", r["max_abs"], lim))
+        return on_rung
+
+    zero_counts()
+    out: dict = {}
+    for key in perf.LADDERS:
+        t0 = time.perf_counter()
+        recs = perf.run_ladder(key, device="cuda", on_rung=gate(key))
+        torch.cuda.synchronize()
+        for r in recs:
+            sp = ("" if "measured_speedup_vs_prev" not in r else
+                  f"; ×{r['measured_speedup_vs_prev']:.2f} vs the previous "
+                  f"rung, ×{r['measured_speedup_vs_baseline']:.2f} vs "
+                  f"baseline (bound: ×{r['speedup_vs_prev']:.2f}, "
+                  f"×{r['speedup_vs_baseline']:.2f})")
+            print(f"  ladder {key} [{r['tag']}] depth {r['depth']}"
+                  f"{' (' + ', '.join(r['cuts']) + ')' if r['cuts'] else ''}"
+                  f", B {r['batch']}, cache {r['cache_len']}: "
+                  f"{r['measured_ms']:.3f} ms a step, peak "
+                  f"{r['peak_bytes'] / 1e9:.2f} GB; bound "
+                  f"{r['step_s'] * 1e3:.3f} ms ({r['bottleneck']}: memory_s "
+                  f"{r['terms']['memory_s'] * 1e3:.3f}, compute_s "
+                  f"{r['terms']['compute_s'] * 1e3:.3f}), measured/bound "
+                  f"{r['measured_over_bound']:.2f}{sp}; predicted "
+                  f"{r['prediction']}"
+                  f"{'; ' + r['note'] if r['note'] else ''}")
+        out[key] = {"records": recs, "seconds": time.perf_counter() - t0}
+    out["by_shape"] = path_counts()["nm_matmul_cuda"][1]
+    out["gates"] = gates
+    for key, tag, what, val, lim in gates:
+        print(f"  gate {key} [{tag}]: {what} {val:.4g} (limit {lim:g})")
+    return out
+
+
+def tooling_phase(gen, dev) -> dict:
+    """Phase tooling: the dry run's sweep, its --measure, the perf ladders
+    (the K2 launches of their nm rungs are this path's), then K2 checked
+    and timed at the ladders' B = 128 shapes."""
+    import torch
+
+    t0 = time.perf_counter()
+    print(f"phase tooling on {gpu_line()} (name, power limit); "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before it")
+    sweep = tooling_sweep()
+    t_sweep = time.perf_counter() - t0
+    measured = tooling_measure(sweep)
+    t_meas = time.perf_counter() - t0 - t_sweep
+    ladders = tooling_ladders()
+    by_shape = ladders.pop("by_shape")
+    rows, chk = [], {}
+    for arch, shapes in TOOLING_K2.items():
+        want = [(TOOLING_B, c, b, str(torch.bfloat16), 4) for c, b in shapes]
+        check(all(by_shape.get(k, 0) > 0 for k in want),
+              f"tooling: K2 not launched at {arch}'s B = {TOOLING_B} shapes: "
+              f"{ {k: by_shape.get(k, 0) for k in want} }")
+        chk[arch] = path_kernel_checks(gen, dev, f"{arch} B={TOOLING_B}", [],
+                                       shapes, (TOOLING_B,))
+    for arch in TOOLING_K2:
+        rows += k2_times(gen, dev, chk[arch]["packs2"], chk[arch]["k2"],
+                         by_shape, f"{arch} ladder", None, (TOOLING_B,))
+        del chk[arch]["packs2"]
+        torch.cuda.empty_cache()
+    for r in rows:
+        print(f"  K2 {r['path']} {r['shape']}: launches {r['launches']}, "
+              f"kernel {r['ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+              f"ms ({r['bound_by']}), err {r['max_abs_err']:.3g}")
+    secs = time.perf_counter() - t0
+    print(f"phase tooling: {secs:.1f} s (sweep {t_sweep:.1f} s, measure "
+          f"{t_meas:.1f} s, ladders "
+          + ", ".join(f"{k.split('/')[0]} {v['seconds']:.1f} s"
+                      for k, v in ladders.items() if k != "gates")
+          + ")")
+    return {"sweep": sweep, "measured": measured, "ladders": ladders,
+            "rows": rows, "seconds": secs}
+
+
+def tooling_child(tmp: str) -> None:
+    """The tooling phase in a spawned process on the still-empty card, its
+    result saved to ``tmp/tooling.pt``: what its B = 128 ladders leave
+    behind (cached segments, workspaces, their place in the allocator's
+    history) leaves with the process, and the later phases find the card
+    as they would without it."""
+    import torch
+
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import _build
+
+    dev = resolve_device("cuda")
+    for name in _build.SOURCES:
+        _build.load(name)                  # built by phase 1
+    out = tooling_phase(torch.Generator(device=dev).manual_seed(22), dev)
+    torch.save(out, f"{tmp}/tooling.pt")
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -4011,6 +4271,29 @@ def main() -> None:
             print(f"  ptxas K2 tensor-core {kern}: {info}")
     print(f"phase build: {len(_build.SOURCES)} kernels in {secs:.2f} s")
     results["build_seconds"] = secs
+
+    # ---- tooling: dry run, --measure, the perf ladders, K2 at B = 128 -----
+    # first, on an empty card: the ladders' B = 128 caches and int8-kv's
+    # 16 GiB dequant temporaries need it nearly whole and unfragmented (by
+    # phase 5 the script holds ~20 GiB); in a child process of its own
+    # generator, so the later phases draw what they drew before it and
+    # find the card's memory as they would without it
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="tooling-", dir=ROOT / "build"))
+    child = mp.get_context("spawn").Process(target=tooling_child,
+                                            args=(str(tmp),))
+    sys.stdout.flush()                     # the child writes to it too
+    child.start()
+    join_ranks([child], TOOLING_TIMEOUT, "tooling")
+    tooling = torch.load(tmp / "tooling.pt", weights_only=False)
+    shutil.rmtree(tmp, ignore_errors=True)
+    results["tooling"] = {k: v for k, v in tooling.items() if k != "rows"}
+    torch.cuda.empty_cache()
 
     # ---- 2. kernels vs plain ---------------------------------------------
     k1_err: dict = {}
@@ -4324,6 +4607,8 @@ def main() -> None:
         entries += path_times(gen, dev, dense2_chk[arch],
                               dense2[arch]["by_shape"], arch,
                               DENSE2_K1[arch])
+
+    entries += tooling["rows"]
     torch.cuda.synchronize()
     print(f"phase times on {results['gpu']} (name, power limit):")
     for e in entries:

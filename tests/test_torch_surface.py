@@ -7,8 +7,9 @@ fields, defaults and batch layout; the tokens are numpy's, as the port's
 calibration batches are), ``prune_model(keep_masks=, progress=)`` and the
 package re-exports of ``serve``, ``data``, ``util`` and ``kernels``.  Then a
 symbol diff of every reference module against its port counterpart: what
-the port still lacks must be exactly the JAX-only tooling still queued
-(ROADMAP item 26) and the names the ROADMAP says are not to be ported.
+the port lacks must be exactly the names and modules the ROADMAP says are
+not to be ported (the numpy oracle, the jit-only lint rules, the dry run's
+HLO readers, the Pallas entry points and tile knobs).
 """
 from __future__ import annotations
 
@@ -167,8 +168,15 @@ def test_package_reexports_equal_jax(pkg):
 
 # names in a reference module that the port does not carry, and why
 NOT_PORTED = {
-    # JAX-only tooling, queued as ROADMAP item 26
-    "configs/registry.py": {"input_specs", "decode_specs", "concrete_batch"},
+    # the dry run's readers of compiled XLA: HLO text parsing (collective
+    # bytes, shape bytes and their regexes), memory_analysis() and the
+    # TPU's ICI rate for the collective term — the port has no HLO
+    "launch/dryrun.py": {"shape_bytes", "collective_bytes", "mem_dict",
+                         "COLLECTIVE_RE", "SHAPE_RE", "DTYPE_BYTES",
+                         "COMP_HEADER_RE", "WHILE_RE", "CONST_RE",
+                         "ICI_BW"},
+    # the two rules of traced code (the modules below)
+    "analysis/rules/__init__.py": {"JitPurityRule", "RecompileHazardsRule"},
     # the Pallas tile knobs and their switch: K2 plans its own tiles
     "kernels/ops.py": {"choose_tiles"},
     "models/layers.py": {"set_nm_kernel", "get_nm_kernel"},
@@ -177,11 +185,10 @@ NOT_PORTED = {
     "kernels/hessian_accum.py": {"hessian_xtx"},
     "kernels/nm_spmm.py": {"nm_matmul"},
 }
-# whole modules: the JAX-only tooling (item 26) and the numpy oracle the
-# port's tests already use
-MODULES_NOT_PORTED = ("analysis/", "launch/costmodel.py", "launch/dryrun.py",
-                      "launch/mesh.py", "launch/perf.py", "launch/steps.py",
-                      "core/reference.py")
+# whole modules: the numpy oracle the port's tests already use, and the
+# lint rules of jit-traced code (the port traces and compiles nothing)
+MODULES_NOT_PORTED = ("core/reference.py", "analysis/rules/jit_purity.py",
+                      "analysis/rules/recompile.py")
 
 
 def _public_names(path: pathlib.Path) -> set:
