@@ -50,6 +50,19 @@ tooling. tooling — right after the build, on the empty card and in a
              logits against the same params decompressed and served dense;
              then serve the same requests with the int8 KV cache
              (QuantGqaCache) and hold its logits against the bf16 cache's.
+graphs. graphs — every ServingEngine on the card serves from CUDA graphs
+             of its model step (B = 1 admissions, B = 4 decode; a wave
+             engine one B = 4 graph), and every serve prints the graphs
+             each engine captured and replayed.  This phase, right after
+             phase 4 (tinyllama bf16, int8 and paged) and inside 4m
+             (qwen3-moe: K3 in the graph) and families (zamba2, xlstm: the
+             recurrent state written in place), serves the phase-4 trace
+             captured and through an eager ``model.decode_step`` loop (B =
+             1 prefills, then a B = 4 lockstep decode): tokens identical,
+             K2 and K3 launches equal, the logits' max |Δ| printed
+             (expected 0), tok/s both ways, the capture's seconds and its
+             pool's bytes, and one replayed and one eager step at B = 4
+             and B = 1.
 train. train — right after phase 4, on phase 3's pruned tree and masks:
              (a) ``python -m repro_torch.launch.train`` on tinyllama at full
              width and depth, batch 8 × 256, 4 steps saving at step 4 (an
@@ -165,9 +178,9 @@ robust. robust — on phase 4's compressed tinyllama tree, right after the
              calib_skipped 1 (on SITE_LAYERS layers); (d) the SSE front
              end on 127.0.0.1 streams two requests with phase 4's tokens,
              /healthz answers, and one slot with a queue of one answers a
-             third request 503.  Launches: K2 154 a decode_step call (the
-             model's decode_step is wrapped to count them), K1 those of
-             the prune jobs.
+             third request 503.  Launches: K2 154 a model step (each
+             engine's ``graph_stats()`` counts its steps, eager or
+             replayed), K1 those of the prune jobs.
 dist. dist — right after robust, on phase 3's tree, over two spawned
              ranks on the one card (NCCL refuses two ranks on one device:
              its answer is printed once; so gloo, FileStore in a temp dir
@@ -976,7 +989,8 @@ def moe_phase(dev) -> dict:
           f"equal {c['routing_sets_equal']:.3f}")
     e = (c["max_abs_err"], c["rel_err"])
     agree, route_sets = c["argmax_agree"], c["routing_sets_equal"]
-    return {"layers": L, "layers_full": full.num_layers,
+    graphs = graphs_case(MOE_ARCH, model, comp, prompts)
+    return {"layers": L, "layers_full": full.num_layers, "graphs": graphs,
             "dense_loss": dense_loss, "pruned_loss": pruned_loss,
             "prune_seconds": t_prune, "phase_seconds": t_phase,
             "damp_escalations": damp, "ratio": cb / db, "tokens": ntok,
@@ -1296,7 +1310,23 @@ def run_engine(model, params, specs: list, label: str, *, max_len: int,
                   for r, (_, new) in zip(done, specs))
           and all(0 <= t < vocab for r in done for t in r.out),
           f"{label}: served requests incomplete or out of vocabulary")
+    graph_line(engine, label)
     return done, seconds, engine
+
+
+def graph_line(engine, label: str) -> dict:
+    """An engine on the card serves from CUDA graphs: fails unless every
+    compiled step it ran was captured and replayed; prints how many →
+    ``engine.graph_stats()``."""
+    gs = engine.graph_stats()
+    check(gs["graphs"] > 0 and gs["graphs"] == len(engine._steps)
+          and gs["replays"] > 0,
+          f"{label}: not served from captured graphs ({gs})")
+    print(f"  {label}: {gs['graphs']} CUDA graphs captured "
+          f"({', '.join(engine._steps)}), {gs['replays']} replays of "
+          f"{gs['steps']} model steps; warm-up + capture "
+          f"{gs['capture_s']:.3f} s, pool {gs['pool_bytes'] / 2**20:.1f} MiB")
+    return gs
 
 
 def serve_requests(model, params, prompts):
@@ -1691,8 +1721,8 @@ def serve_record(got: dict, seconds: float, engine) -> dict:
     """One serve's numbers for the results file."""
     ntok = sum(len(v) for v in got.values())
     return {"tokens": ntok, "seconds": seconds, "tok_per_s": ntok / seconds,
-            "stats": dict(engine.stats), "cache_bytes":
-            cache_bytes(engine._cache)}
+            "stats": dict(engine.stats), "graphs": engine.graph_stats(),
+            "cache_bytes": cache_bytes(engine._cache)}
 
 
 def agreement(a: dict, b: dict) -> float:
@@ -1996,6 +2026,43 @@ def stack_rows(rows: list):
         if isinstance(getattr(rows[0], f.name), torch.Tensor)})
 
 
+def eager_trace(model, comp, prompts, new: int):
+    """The engine's model steps through an eager ``model.decode_step``
+    loop: each prompt prefilled alone at B = 1 from a fresh cache, the
+    rows concatenated, then ``new`` − 1 greedy steps of the four side by
+    side at B = 4 → (tokens per row, the logits each token was taken
+    from, in the engine's order: 4 admissions, then each B = 4 step, and
+    each row's B = 1 prefill logits (S, V) in fp32)."""
+    import numpy as np
+    import torch
+
+    dev = model.device
+    seen, rows, first, prefill = [], [], [], []
+    for prompt in prompts:
+        row = model.init_cache(1, SERVE_MAX_LEN)
+        toks = torch.tensor(np.asarray(prompt)[None], device=dev)
+        out = []
+        for s in range(toks.shape[1]):
+            lg, row = model.decode_step(comp, row, toks[:, s:s + 1], s)
+            out.append(lg[0, -1].float())
+        prefill.append(torch.stack(out))
+        seen.append(lg[:, -1].float())
+        first.append(int(lg[0, -1].argmax()))
+        rows.append(row)
+    cache = stack_rows(rows)
+    tok = torch.tensor(first, device=dev)[:, None]
+    pos = torch.full((len(prompts),), len(prompts[0]), dtype=torch.int64,
+                     device=dev)
+    got = [tok[:, 0]]
+    for _ in range(new - 1):
+        lg, cache = model.decode_step(comp, cache, tok, pos)
+        seen.append(lg[:, -1].float())
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        got.append(tok[:, 0])
+        pos = pos + 1
+    return torch.stack(got, dim=1).tolist(), seen, prefill
+
+
 def lockstep_check(model, comp, prompts, done, label: str) -> dict:
     """The engine's tokens against a reference without the engine (not
     counted): each prompt prefilled alone at B = 1 from a fresh cache, as
@@ -2020,28 +2087,8 @@ def lockstep_check(model, comp, prompts, done, label: str) -> dict:
           f"{label}: the lockstep reference needs equal prompt lengths and "
           "max_new")
     with uncounted(), torch.no_grad():
-        rows, lg1, first = [], [], []
-        for prompt in prompts:
-            row = model.init_cache(1, SERVE_MAX_LEN)
-            toks = torch.tensor(np.asarray(prompt)[None], device=dev)
-            out = []
-            for s in range(toks.shape[1]):
-                lg, row = model.decode_step(comp, row, toks[:, s:s + 1], s)
-                out.append(lg[0, -1].float())
-            rows.append(row)
-            lg1.append(torch.stack(out))
-            first.append(int(lg[0, -1].argmax()))
+        got, _, lg1 = eager_trace(model, comp, prompts, new)
         S = len(prompts[0])
-        cache = stack_rows(rows)
-        tok = torch.tensor(first, device=dev)[:, None]
-        pos = torch.full((len(prompts),), S, dtype=torch.int64, device=dev)
-        got = [tok[:, 0]]
-        for _ in range(new - 1):
-            lg, cache = model.decode_step(comp, cache, tok, pos)
-            tok = lg[:, -1].argmax(-1, keepdim=True)
-            got.append(tok[:, 0])
-            pos = pos + 1
-        got = torch.stack(got, dim=1).tolist()
         toks = torch.tensor(np.stack(prompts), device=dev)
         c4 = model.init_cache(len(prompts), SERVE_MAX_LEN)
         lg4 = []
@@ -2058,6 +2105,99 @@ def lockstep_check(model, comp, prompts, done, label: str) -> dict:
           f"decode of the concatenated rows ({same} tokens); ε (B = 4 vs "
           f"B = 1 logits on the prompts) {eps:.4g}")
     return {"tokens": same, "eps": eps}
+
+
+def step_ms(fn, iters: int = 10) -> float:
+    """Host ms of one call of ``fn`` (a model step), over ``iters`` calls
+    ending in a synchronize, after one call to warm up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def graphs_case(label: str, model, comp, prompts, **serve_kw) -> dict:
+    """Phase graphs, one case (not counted in the path's launches): the
+    phase-4 trace served by the engine — captured — against the same
+    model steps through an eager ``model.decode_step`` loop
+    (``eager_trace``): tokens identical, K2 and K3 launches equal (the
+    replays' tallies against the eager wrappers' counts), and the largest
+    |Δ| between every logit row the engine sampled from and the eager
+    one (a replay runs the eager step's kernels on its shapes: expected
+    0).  Then tok/s of each, the capture's seconds, the pool's bytes, and
+    one B = 4 and one B = 1 step's ms, replayed and eager, on the
+    engine's own buffers."""
+    import torch
+
+    from repro_torch.kernels import nm_spmm as K2
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+
+    t_case = time.perf_counter()
+    fns = (K2.nm_matmul_cuda, K2.nm_matmul_stacked_cuda)
+    with uncounted(), torch.no_grad():
+        eng = ServingEngine(model, comp, ServeConfig(
+            batch_slots=len(prompts), max_len=SERVE_MAX_LEN, **serve_kw))
+        seen, select = [], eng._select
+
+        def record(logits):
+            seen.append(logits.float().clone())
+            return select(logits)
+
+        eng._select = record
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid, p, max_new=12))
+        c0 = [f.launches for f in fns]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        t_graph = time.perf_counter() - t0
+        gs = eng.graph_stats()
+        c1 = [f.launches for f in fns]
+        want, ref, _ = eager_trace(model, comp, prompts, 12)
+        torch.cuda.synchronize()
+        t_eager = time.perf_counter() - t0 - t_graph
+        c2 = [f.launches for f in fns]
+        del eng._select                 # the recorder's reference cycle
+        ms = {}
+        for B, kind in ((len(prompts), "decode"), (1, "row")):
+            st = eng._steps[kind]
+            ms[B] = (step_ms(st.run), step_ms(
+                lambda: model.decode_step(comp, st.cache, st.tokens,
+                                          st.pos)))
+    got = [r.out for r in done]
+    k_graph = [b - a for a, b in zip(c0, c1)]
+    k_eager = [b - a for a, b in zip(c1, c2)]
+    diff = max(float((a - b).abs().max()) for a, b in zip(seen, ref))
+    ntok = sum(len(t) for t in got)
+    check(got == want and len(seen) == len(ref),
+          f"graphs {label}: engine tokens differ from the eager loop's")
+    check(k_graph == k_eager and k_graph[0] > 0,
+          f"graphs {label}: K2, K3 launches {k_graph} captured, {k_eager} "
+          f"eager")
+    check(gs["graphs"] == 2 and gs["replays"] > 0,
+          f"graphs {label}: {gs}")
+    print(f"  graphs {label}: tokens identical to the eager loop's ({ntok}),"
+          f" logits max |Δ| {diff:.6g} over {len(seen)} sampled rows; K2, K3 "
+          f"launches {k_graph[0]}, {k_graph[1]} both ways; captured "
+          f"{ntok / t_graph:.1f} tok/s ({t_graph:.3f} s, of which warm-up + "
+          f"capture {gs['capture_s']:.3f} s) vs eager {ntok / t_eager:.1f} "
+          f"tok/s ({t_eager:.3f} s); pool {gs['pool_bytes'] / 2**20:.1f} MiB;"
+          f" one step replayed / eager: B = 4 {ms[4][0]:.3f} / {ms[4][1]:.3f}"
+          f" ms, B = 1 {ms[1][0]:.3f} / {ms[1][1]:.3f} ms")
+    return {"tokens": ntok, "logits_max_abs_diff": diff,
+            "k2": k_graph[0], "k3": k_graph[1],
+            "graph_seconds": t_graph, "eager_seconds": t_eager,
+            "graph_tok_per_s": ntok / t_graph,
+            "eager_tok_per_s": ntok / t_eager, "capture_s": gs["capture_s"],
+            "pool_bytes": gs["pool_bytes"], "replays": gs["replays"],
+            "step_ms_b4": ms[4], "step_ms_b1": ms[1],
+            "seconds": time.perf_counter() - t_case}
 
 
 def depth_profile(cfg, comp, prompts, depths) -> dict:
@@ -2163,6 +2303,7 @@ def zamba2_part(dev) -> dict:
           f"{ntok / t_serve8:.1f} tok/s; resident cache {nb8} B vs {nb} B")
     print(f"  req 0: {done[0].out}")
     b1 = lockstep_check(model, comp, prompts, done, "zamba2")
+    graphs = graphs_case("zamba2-7b", model, comp, prompts)
     with uncounted():
         e = first_step_line(model, comp, prompts)
         lg = chain_logits(model, comp, prompts)
@@ -2183,7 +2324,7 @@ def zamba2_part(dev) -> dict:
     print(f"phase families, zamba2-7b: {secs:.1f} s")
     return dict(out, layers_cut=L, layers_full=full.num_layers,
                 sites=sites, seconds_part=secs, by_shape=by_shape, b1=b1,
-                serve=serve_summary(done, t_serve, steps[0]),
+                graphs=graphs, serve=serve_summary(done, t_serve, steps[0]),
                 engine_stats={k: engine.stats[k] + engine8.stats[k]
                               for k in engine.stats},
                 int8={"max_abs_err": e8[0], "rel_err": e8[1],
@@ -2240,6 +2381,7 @@ def xlstm_part(dev) -> dict:
           f"{cache_bytes(engine._cache)} B")
     print(f"  req 0: {done[0].out}")
     b1 = lockstep_check(model, comp, prompts, done, "xlstm")
+    graphs = graphs_case("xlstm-1.3b", model, comp, prompts)
     # a random-init xLSTM in bf16 amplifies rounding block after block
     # (the dense tree's own B = 4 and B = 1 logits part by ~1.1 of their
     # magnitude at 48 blocks, ~0.2 at 16, PERF.md §6), so the first-step
@@ -2273,7 +2415,8 @@ def xlstm_part(dev) -> dict:
     secs = time.perf_counter() - t0
     print(f"phase families, xlstm-1.3b: {secs:.1f} s")
     return dict(out, layers_cut=L, layers_full=full.num_layers,
-                seconds_part=secs, by_shape=by_shape, b1=b1, serve=serve_summary(done, t_serve, steps),
+                seconds_part=secs, by_shape=by_shape, b1=b1, graphs=graphs,
+                serve=serve_summary(done, t_serve, steps),
                 engine_stats=dict(engine.stats),
                 bf16_state={"max_abs_err": eb[0], "rel_err": eb[1],
                             "argmax_agree": agree},
@@ -2872,21 +3015,6 @@ def dense2_phase(dev) -> dict:
     return out
 
 
-def counting_decode(model) -> list:
-    """Count the model's decode_step calls (each one model step: 7 K2
-    launches a layer on a compressed dense tree) → a one-item list holding
-    the count; ``del model.decode_step`` removes the wrapper."""
-    calls = [0]
-    inner = model.decode_step
-
-    def decode_step(*a, **kw):
-        calls[0] += 1
-        return inner(*a, **kw)
-
-    model.decode_step = decode_step
-    return calls
-
-
 def supervised_serve(model, comp, prompts, want: dict, plan_text: str,
                      label: str, *, deadline: float = 0.0,
                      paged: bool = False, snapshot_dir: str = "") -> dict:
@@ -2895,7 +3023,10 @@ def supervised_serve(model, comp, prompts, want: dict, plan_text: str,
     the fault plan ``plan_text``: every request completes, no quarantine,
     tokens identical to ``want`` (phase 4's), and — with a plan — at least
     one recovery, every site of the plan fired, the pager audit clean.
-    → the run's numbers and its longest pump."""
+    → the run's numbers, its longest pump (also printed: the longest of
+    the supervisor's deadline-exempt warm-up pumps, where the engine
+    captures its graphs, and the longest after them) and the engine's
+    model steps (eager or replayed; rolled-back ones too)."""
     import torch
 
     from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
@@ -2933,6 +3064,8 @@ def supervised_serve(model, comp, prompts, want: dict, plan_text: str,
     sites = {s.site for s in plan.specs} if plan is not None else set()
     if paged:
         eng.pager.check()
+    gs = graph_line(eng, label)
+    warm = sup.cfg.warmup_pumps
     same = got == want
     check(len(got) == len(want) and not errors and not sup.quarantined
           and same and (plan is None or (st["recoveries"] > 0
@@ -2946,14 +3079,18 @@ def supervised_serve(model, comp, prompts, want: dict, plan_text: str,
           f"phase 4's; recoveries {st['recoveries']}, faults {st['faults']}, "
           f"fired {fired}, snapshots {st['snapshots']}, replayed "
           f"{st['replayed_requests']}, rolled-back decode steps "
-          f"{st['rollback_decode_steps']}; state {sup.state}"
+          f"{st['rollback_decode_steps']}; state {sup.state}; longest "
+          f"pump {max(pumps[:warm]):.3f} s in the {warm} warm-up pumps, "
+          f"{max(pumps[warm:]):.3f} s after"
           + ("; pager audit clean" if paged else ""))
     return {"seconds": secs, "recoveries": st["recoveries"],
             "faults": dict(st["faults"]), "fired": fired,
             "snapshots": st["snapshots"],
             "replayed": st["replayed_requests"],
             "rollback_decode_steps": st["rollback_decode_steps"],
-            "max_pump_s": max(pumps), "pumps": len(pumps)}
+            "max_pump_s": max(pumps),
+            "max_warmup_pump_s": max(pumps[:warm]), "pumps": len(pumps),
+            "model_steps": gs["steps"]}
 
 
 def snapshot_restore(model, comp, prompts, want: dict, path: Path) -> dict:
@@ -2987,6 +3124,8 @@ def snapshot_restore(model, comp, prompts, want: dict, path: Path) -> dict:
     path.unlink()
     got1 = {r.uid: r.out for r in e1.run()}
     got2 = {r.uid: r.out for r in e2.run()}
+    steps = sum(graph_line(e, f"snapshot engine {i}")["steps"]
+                for i, e in ((1, e1), (2, e2)))
     check(devs == {"cpu"} and got2 == got1 == want,
           f"snapshot/restore: cache on {devs}, restored tokens identical "
           f"{got2 == want}, original {got1 == want}")
@@ -2995,7 +3134,7 @@ def snapshot_restore(model, comp, prompts, want: dict, path: Path) -> dict:
           f"tensors only, {nbytes} B pickled and written atomically, "
           f"restored into a fresh engine; both run on with tokens identical "
           f"to phase 4's")
-    return {"bytes": nbytes}
+    return {"bytes": nbytes, "model_steps": steps}
 
 
 def tree_equal(a, b) -> bool:
@@ -3107,6 +3246,7 @@ def http_checks(model, comp, prompts, want: dict) -> dict:
             health = await fetch_json("127.0.0.1", fe.port, "/healthz")
         finally:
             drained = await fe.stop(drain_timeout_s=10.0)
+        engines.append(fe.engine)
         return res, health, drained
 
     async def shed():
@@ -3127,8 +3267,10 @@ def http_checks(model, comp, prompts, want: dict) -> dict:
             finished = await asyncio.gather(a, b)
         finally:
             await fe.stop()
+        engines.append(fe.engine)
         return rejected, finished
 
+    engines: list = []
     t0 = time.perf_counter()
     res, health, drained = asyncio.run(stream())
     got = {r["uid"]: r["tokens"] for r in res}
@@ -3147,7 +3289,10 @@ def http_checks(model, comp, prompts, want: dict) -> dict:
           f"phase 4's, /healthz {health}; 1 slot + a queue of 1: the third "
           f"request answered 503 (Retry-After {rfinal['retry_after_s']:g} s), "
           f"the other two finished ({secs:.1f} s)")
-    return {"seconds": secs, "retry_after_s": rfinal["retry_after_s"]}
+    steps = sum(graph_line(e, f"http engine {i}")["steps"]
+                for i, e in enumerate(engines, 1))
+    return {"seconds": secs, "retry_after_s": rfinal["retry_after_s"],
+            "model_steps": steps}
 
 
 def leaf_bytes(tree) -> tuple[int, int]:
@@ -3445,7 +3590,8 @@ def robust_phase(cfg, model, comp, prompts, done, dev) -> dict:
     and restored into a fresh engine; (c) the prune job killed and
     resumed, and the cholesky / hessian_accum sites; (d) the HTTP front
     end.  Launch counts are zeroed before it and read after it: K2 154 a
-    decode_step call (counted by wrapping the model's), K1 those of (c)."""
+    model step (each engine's ``graph_stats()`` counts its steps, eager or
+    replayed), K1 those of (c)."""
     import shutil
 
     import torch
@@ -3455,7 +3601,6 @@ def robust_phase(cfg, model, comp, prompts, done, dev) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     zero_counts()
-    calls = counting_decode(model)
     t0 = time.perf_counter()
     out = {"clean": supervised_serve(model, comp, prompts, want, "",
                                      "supervised, no faults")}
@@ -3473,16 +3618,17 @@ def robust_phase(cfg, model, comp, prompts, done, dev) -> dict:
     out["snapshot"] = snapshot_restore(model, comp, prompts, want,
                                        root / "snapshot_b.pkl")
     out["http"] = http_checks(model, comp, prompts, want)
-    del model.decode_step
+    steps = sum(out[k]["model_steps"] for k in ("clean", "contiguous",
+                                                 "paged", "snapshot", "http"))
     out["job"] = prune_job_checks(cfg, dev, root)
     out["counts"] = family_counts("robust", {
         "hessian_update_cuda": out["job"]["k1"],
-        "nm_matmul_cuda": 7 * cfg.num_layers * calls[0]})
+        "nm_matmul_cuda": 7 * cfg.num_layers * steps})
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.synchronize()
     out["seconds"] = time.perf_counter() - t0
-    print(f"phase robust: {out['seconds']:.1f} s; {calls[0]} model steps "
-          f"served ({7 * cfg.num_layers * calls[0]} K2 launches), K1 "
+    print(f"phase robust: {out['seconds']:.1f} s; {steps} model steps "
+          f"served ({7 * cfg.num_layers * steps} K2 launches), K1 "
           f"launches {out['job']['k1']}")
     return out
 
@@ -4470,6 +4616,16 @@ def main() -> None:
                            engine, engine8, ntok / t_serve,
                            sum(len(r.out) for r in done8) / t_serve8, None)
 
+    # ---- graphs: the engine's captured steps against the eager loop ------
+    graphs = {
+        "tinyllama-1.1b bf16": graphs_case("tinyllama-1.1b bf16", model, comp,
+                                           prompts),
+        "tinyllama-1.1b int8": graphs_case("tinyllama-1.1b int8", model8,
+                                           comp, prompts),
+        "tinyllama-1.1b paged": graphs_case(
+            "tinyllama-1.1b paged", model, comp, prompts, paged=True,
+            page_size=PAGE)}
+
     # ---- train: the CLI, a bitwise restart, the sparse finetune ----------
     train = train_phase(cfg, model, pruned, report, prompts, dev,
                         out["pruned_loss"])
@@ -4542,6 +4698,20 @@ def main() -> None:
                                 if kk != "by_shape"}
                                if isinstance(v, dict) else v)
                            for k, v in fams.items()}
+
+    graphs[MOE_ARCH] = moe["graphs"]
+    for arch in ("zamba2-7b", "xlstm-1.3b"):
+        graphs[arch] = fams[arch]["graphs"]
+    t_graphs = sum(g["seconds"] for g in graphs.values())
+    results["graphs"] = dict(graphs, seconds=t_graphs)
+    print(f"phase graphs: {len(graphs)} cases in {t_graphs:.1f} s, tokens "
+          f"identical to the eager loop in each; logits max |Δ| "
+          + ", ".join(f"{k} {g['logits_max_abs_diff']:.6g}"
+                      for k, g in graphs.items())
+          + "; captured / eager tok/s "
+          + ", ".join(f"{k} {g['graph_tok_per_s']:.1f} / "
+                      f"{g['eager_tok_per_s']:.1f}"
+                      for k, g in graphs.items()))
 
     # ---- dense2: danube, mistral, internvl prune → compress → serve -------
     dense2 = dense2_phase(dev)

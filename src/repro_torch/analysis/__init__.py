@@ -4,12 +4,12 @@ dtype invariants (port of ``repro/analysis``).
 Two layers:
 
 * **AST rules** (`repro_torch.analysis.rules`) — a visitor-based rule
-  engine over every module in ``src/repro_torch``: fault-hook-cost,
-  serve-never-decompresses, atomic-writes, dtype-discipline,
-  import-hygiene.  Findings support per-line ``# lint: disable=<rule>``
-  suppressions and a baseline (``analysis/baseline.json``, empty).  The
-  JAX package's jit-purity and recompile-hazards rules have no
-  counterpart: the port traces and compiles nothing.
+  engine over every module in ``src/repro_torch``: jit-purity,
+  fault-hook-cost, serve-never-decompresses, atomic-writes,
+  recompile-hazards, dtype-discipline, import-hygiene (JAX's seven;
+  jit-purity and recompile-hazards read the code a CUDA graph captures).
+  Findings support per-line ``# lint: disable=<rule>`` suppressions and a
+  baseline (``analysis/baseline.json``, empty).
 
 * **Abstract-eval contracts** (`repro_torch.analysis.contracts`) — builds
   the full model zoo × serve representations (dense, NmCompressed,

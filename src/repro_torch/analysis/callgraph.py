@@ -10,9 +10,13 @@ right bias for the reachability rules built on top: serve-never-
 decompresses and dtype-discipline must not miss a path.
 
 Jit seeds are the captured-entry points: targets of ``torch.compile`` /
-``torch.jit.script`` / ``torch.jit.trace`` call or decorator forms,
-unwrapping ``functools.partial`` either way around.  The port captures
-nothing today, so the set is empty; it is kept for a capture-safety rule.
+``torch.jit.script`` / ``torch.jit.trace`` / ``torch.cuda.
+make_graphed_callables`` call or decorator forms, unwrapping
+``functools.partial`` either way around, and the calls a CUDA graph
+records — those in the body of a ``with torch.cuda.graph(...)`` block, and
+those after ``<graph>.capture_begin()`` up to ``capture_end()`` in the
+same block (the capture-safety rules ``jit-purity`` and
+``recompile-hazards`` read them).
 """
 from __future__ import annotations
 
@@ -24,7 +28,11 @@ JIT_WRAPPERS = frozenset({
     "torch.compile",
     "torch.jit.script",
     "torch.jit.trace",
+    "torch.cuda.make_graphed_callables",
 })
+# context managers whose body a CUDA graph records
+CAPTURE_BLOCKS = frozenset({"torch.cuda.graph", "torch.cuda.graphs.graph"})
+CAPTURE_BEGIN = "torch.cuda.CUDAGraph.capture_begin"
 _PARTIAL = frozenset({"functools.partial", "partial"})
 
 
@@ -89,6 +97,7 @@ class CallGraph:
         self.jit_seeds: set[str] = set()               # function keys
         self.jit_sites: list = []                      # (module, relpath,
                                                        #  call node, wrapper)
+        self._capture_calls: list = []                 # (module, call node)
         self._edges: dict[str, set[str]] | None = None
 
     # ----------------------------------------------------------- indexing
@@ -165,6 +174,12 @@ class CallGraph:
                 elif isinstance(node, ast.Name) and isinstance(
                         node.ctx, ast.Load):
                     info.refs.append(node.id)
+                elif isinstance(node, ast.Attribute) and isinstance(
+                        node.ctx, ast.Load) and isinstance(
+                        node.value, ast.Name) and node.value.id in imports:
+                    # a module's function taken by reference
+                    # (`dec = X.slstm_decode if ... else X.mlstm_decode`)
+                    info.refs.append(f"{imports[node.value.id]}.{node.attr}")
 
     def _scan_lambda(self, module: str, relpath: str, node: ast.Lambda,
                      info: FuncInfo) -> None:
@@ -234,6 +249,11 @@ class CallGraph:
                     for kw in node.keywords:
                         if kw.arg in ("model", "obj", "func", "fn"):
                             self._seed_expr(module, kw.value)
+        for site, wrapper, stmts in capture_regions(tree, imports):
+            self.jit_sites.append((module, relpath, site, wrapper))
+            self._capture_calls += [(module, sub) for stmt in stmts
+                                    for sub in ast.walk(stmt)
+                                    if isinstance(sub, ast.Call)]
 
     def _seed_name(self, module: str, name: str) -> None:
         quals = self.by_module.get(module, {})
@@ -323,6 +343,8 @@ class CallGraph:
             for ref in info.refs:
                 if ref in self.functions:              # direct key ref
                     tgt.add(ref)
+                elif "." in ref:                       # module.function
+                    tgt.update(self.resolve(info.module, ref, None))
                 else:
                     # Name load matching a same-module def or an imported
                     # repo function (callback passed by reference)
@@ -362,4 +384,53 @@ class CallGraph:
         return chains
 
     def jit_reachable(self) -> dict[str, tuple[str, ...]]:
+        # the calls a graph records, resolved once every module is indexed
+        for module, call in self._capture_calls:
+            imports = self.imports[module]
+            func = call.func
+            if isinstance(func, ast.Call):            # partial(f, ...)(x)
+                self._seed_expr(module, func)
+                continue
+            bare = (func.attr if isinstance(func, ast.Attribute)
+                    else getattr(func, "id", None))
+            self.jit_seeds.update(self.resolve(
+                module, dotted_name(func, imports), bare))
+        self._capture_calls = []
         return self.reachable(self.jit_seeds)
+
+
+def capture_regions(tree: ast.AST, imports: dict[str, str]):
+    """The code a CUDA graph records, as (site node, wrapper, statements):
+    the body of each ``with torch.cuda.graph(...)`` block, and the
+    statements after each ``<g>.capture_begin(...)`` up to the one calling
+    ``capture_end`` in the same block."""
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.With, ast.AsyncWith)):
+            for item in node.items:
+                ctx = item.context_expr
+                if isinstance(ctx, ast.Call) and \
+                        dotted_name(ctx.func, imports) in CAPTURE_BLOCKS:
+                    yield ctx, "torch.cuda.graph", node.body
+        for field in ("body", "orelse", "finalbody"):
+            stmts = getattr(node, field, None)
+            if not isinstance(stmts, list):
+                continue
+            for i, stmt in enumerate(stmts):
+                call = _method_call(stmt, "capture_begin")
+                if call is None:
+                    continue
+                region = []
+                for nxt in stmts[i + 1:]:
+                    if _method_call(nxt, "capture_end") is not None:
+                        break
+                    region.append(nxt)
+                yield call, CAPTURE_BEGIN, region
+
+
+def _method_call(stmt: ast.AST, attr: str) -> ast.Call | None:
+    """The call of statement ``stmt`` when it is ``<x>.<attr>(...)``."""
+    if isinstance(stmt, ast.Expr) and isinstance(stmt.value, ast.Call) and \
+            isinstance(stmt.value.func, ast.Attribute) and \
+            stmt.value.func.attr == attr:
+        return stmt.value
+    return None

@@ -9,9 +9,16 @@ build or launch raises.
 
 ``NmKernelConfig`` is the serving-side choice: the engine threads it from
 ``ServeConfig`` through ``model_builder`` into ``layers.dense``.
+
+Each CUDA wrapper counts the launches it makes (``launches``, and
+``by_shape``).  A CUDA graph replays kernels without running the wrappers,
+so the serving engine takes a graph's tally at capture
+(``launch_counts`` / ``take_launches``) and adds it on every replay
+(``add_launches``).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
@@ -98,3 +105,39 @@ def hessian_xtx(x: Tensor) -> Tensor:
     if x2.is_cuda:
         return hessian_accum.hessian_xtx_cuda(x2)
     return ref.hessian_ref(x2)
+
+
+def _counted() -> tuple:
+    """The CUDA wrappers that count their launches (read at call time)."""
+    return (hessian_accum.hessian_update_cuda, nm_spmm.nm_matmul_cuda,
+            nm_spmm.nm_matmul_stacked_cuda)
+
+
+def launch_counts() -> list:
+    """Each wrapper's counts, read now → [(wrapper, launches, by_shape)]."""
+    return [(fn, fn.launches, collections.Counter(fn.by_shape))
+            for fn in _counted()]
+
+
+def take_launches(before: list) -> list:
+    """The launches counted since ``before`` (a ``launch_counts()``
+    reading), with every wrapper's counts put back to it — a capture counts
+    the kernels it records but launches none → the tally
+    [(wrapper, launches, by_shape)] that ``add_launches`` adds."""
+    tally = []
+    for fn, n, shapes in before:
+        delta = collections.Counter(fn.by_shape)
+        delta.subtract(shapes)
+        tally.append((fn, fn.launches - n, +delta))
+        fn.launches = n
+        fn.by_shape.clear()
+        fn.by_shape.update(shapes)
+    return tally
+
+
+def add_launches(tally: list) -> None:
+    """Add a tally to its wrappers' counts (a replay's launches)."""
+    for fn, n, shapes in tally:
+        fn.launches += n
+        for key, k in shapes.items():
+            fn.by_shape[key] = fn.by_shape.get(key, 0) + k

@@ -21,7 +21,8 @@ Cache layouts:
              a sliding-window layer keeps its ring.
 
 Decode positions are per slot: ``pos`` is a python int (every row at the
-same depth) or a (B,) tensor.  Unlike the JAX caches, which are returned
+same depth) or a (B,) tensor — the serving engine always passes its static
+(B,) buffer.  Unlike the JAX caches, which are returned
 anew, the port writes each new token into the cache tensors in place
 (``index_put_``) and returns the same cache.  Positions, lengths and page
 tables are int64 (int32 in JAX).
@@ -44,8 +45,14 @@ NEG_INF = -1e30
 
 
 def slot_positions(pos, batch: int, device) -> Tensor:
-    """Normalize decode positions to a per-slot (B,) int64 vector."""
-    p = torch.as_tensor(pos, dtype=torch.int64, device=device)
+    """Normalize decode positions to a per-slot (B,) int64 vector on
+    ``device``.  A tensor — the serving engine's static (B,) buffer — is
+    used as it is, so a captured step reads the buffer the engine writes
+    before each replay; an int every row shares is filled on the device
+    (``torch.full``: no host-to-device copy, which a capture refuses)."""
+    if not isinstance(pos, torch.Tensor):
+        return torch.full((batch,), pos, dtype=torch.int64, device=device)
+    p = pos.to(device=device, dtype=torch.int64)
     if p.dim() == 0:
         return p.expand(batch)
     if p.shape != (batch,):

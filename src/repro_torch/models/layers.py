@@ -186,7 +186,7 @@ def sinusoidal_positions(seq: int, d: int, device="cpu") -> Tensor:
     """Whisper-style sinusoidal absolute embeddings (seq, d) in fp32."""
     pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
     ar = torch.arange(0, d, 2, dtype=torch.float32, device=device)
-    log10k = torch.log(torch.tensor(10000.0, device=device))
+    log10k = torch.full((), 10000.0, device=device).log()
     ang = pos * torch.exp(-ar / d * log10k)[None, :]
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 

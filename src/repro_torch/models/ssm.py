@@ -131,7 +131,9 @@ def mamba2_cache_init(cfg, batch: int, dtype=torch.float32,
 
 
 def mamba2_decode(p, cfg, x: Tensor, cache: MambaCache):
-    """One-token step.  x (B, 1, d) → (y (B, 1, d), the next MambaCache)."""
+    """One-token step.  x (B, 1, d) → (y (B, 1, d), ``cache``): the next
+    state is written into the cache's own tensors in place, so a captured
+    step keeps reading and writing the same buffers."""
     B = x.shape[0]
     d_inner, heads = mamba2_dims(cfg)
     ng, st, hd = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
@@ -156,4 +158,6 @@ def mamba2_decode(p, cfg, x: Tensor, cache: MambaCache):
     y = y + p["D"].to(f32)[None, :, None] * xh
     y = (y.reshape(B, 1, d_inner) * F.silu(z.to(f32))).to(x.dtype)
     out = L.dense(p["out_proj"], y)
-    return out, MambaCache(ssm=s, conv=window[:, 1:].contiguous())
+    cache.ssm.copy_(s)
+    cache.conv.copy_(window[:, 1:])
+    return out, cache

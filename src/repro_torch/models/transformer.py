@@ -215,7 +215,7 @@ class TransformerLM:
         (B, 1, V), cache); the cache is updated in place."""
         h = (L.embed(params["embed"], tokens.to(self.device))
              if embeds is None else embeds.to(self.device))
-        # one host→device copy of the positions per step, not one per layer
+        # the positions normalized once a step, not once a layer
         pos = A.slot_positions(pos, h.shape[0], self.device)
         for i in range(self.cfg.num_layers):
             blk = params["blocks"][i]

@@ -10,7 +10,8 @@ Prunable linears: up/down projections, q/k/v and the gate pre-activations
 (i/f/z/o).  The per-head recurrent R matrices of sLSTM are not pruned: their
 inputs live inside the recurrence, where no calibration tape reaches.
 
-Caches are dataclasses; decode returns a new one.  ``MlstmCache`` stores C
+Caches are dataclasses; decode writes the next state into the cache's own
+tensors in place and returns the same object.  ``MlstmCache`` stores C
 and n in bf16 when ``cfg.kv_cache_dtype`` is "bf16" or "int8" and updates
 them in fp32.
 """
@@ -128,7 +129,10 @@ def mlstm_decode(p, cfg, x: Tensor, cache: MlstmCache):
     y = (num / (den[..., None] + 1e-6)).reshape(B, 1, di).to(x.dtype)
     y = L.rmsnorm(p["onorm"], y) * torch.sigmoid(gate)
     out = L.dense(p["down"], y)
-    return out, MlstmCache(C.to(cache.C.dtype), n.to(cache.n.dtype), m_new)
+    cache.C.copy_(C.to(cache.C.dtype))
+    cache.n.copy_(n.to(cache.n.dtype))
+    cache.m.copy_(m_new)
+    return out, cache
 
 
 # ==========================================================================
@@ -218,7 +222,9 @@ def slstm_decode(p, cfg, x: Tensor, cache: SlstmCache):
     pre = {g: L.dense(p[g], x).reshape(B, H, d // H).to(_F32)
            for g in ("wi", "wf", "wz", "wo")}
     st = _slstm_cell(p, pre["wi"], pre["wf"], pre["wz"], pre["wo"], cache)
-    return _slstm_out(p, x, st.h.reshape(B, 1, d), None, ()), st
+    for f in ("c", "n", "h", "m"):
+        getattr(cache, f).copy_(getattr(st, f))
+    return _slstm_out(p, x, st.h.reshape(B, 1, d), None, ()), cache
 
 
 def xlstm_linear_paths(p: dict, path=()) -> list[tuple]:

@@ -52,6 +52,26 @@ Compressed weights: params whose pruned linears are ``NmCompressed``
 through ``kernels/ops.nm_matmul`` (K2 on the card); an expert stack is one
 ``NmStackedCompressed`` leaf through ``ops.nm_matmul_stacked`` (K3).
 
+Compiled step (the port of JAX's ``_model_jits``): every model step is
+``_decode_fn`` over static buffers — a (B, 1) token and a (B,) position
+tensor filled in place before the step, and a cache the step writes in
+place: the resident cache (continuous decode at B = batch_slots), one
+B = 1 row cache that each admission resets from a template and prefills,
+and, for the wave scheduler, one B = batch_slots wave cache reset the same
+way.  On a card each of those steps is captured once as a CUDA graph
+(``_Step``): its first call runs eagerly on a side stream — the warm-up
+PyTorch asks for before a capture, and a real step — then the step is
+captured in thread-local mode (the SSE front end drives the engine from
+its own thread) into one memory pool the engine's graphs share, and every
+later call replays the graph.  A continuous engine holds at most two
+graphs, a wave engine one.  On the CPU the same step runs eagerly.  There
+is no switch and no fallback: a capture that fails raises.  Sampling, the
+fault hooks, the watchdog and the admission's scatter, prefix gather and
+copy-on-write stay eager, outside the graphs; the paged layers share one
+table tensor that ``_sync_tables`` copies the pager's table into, and
+``restore`` copies into the live cache, so a replay never reads a stale
+buffer.
+
 Fault tolerance: ``snapshot()`` captures the whole engine — **host copies**
 of the resident cache, the tokens, the positions and the generator state
 (the live cache is written in place by every step, so a snapshot holding
@@ -68,13 +88,16 @@ step raises ``NonFiniteLogits`` before any token is absorbed
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
+import threading
 import time
 from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ops import NmKernelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -220,6 +243,139 @@ def _copy_tree(tree, device):
     return tree
 
 
+def _fill_tree(dst, src) -> None:
+    """Copy cache tree ``src`` into ``dst`` in place, tensor by tensor (any
+    device to any): a B = 1 source fills every row, so a template made by
+    ``init_cache(1, …)`` resets a cache of any batch."""
+    if isinstance(dst, dict):
+        for k, layer in dst.items():
+            _fill_tree(layer, src[k])
+        return
+    for f in dataclasses.fields(dst):
+        t = getattr(dst, f.name)
+        if isinstance(t, torch.Tensor):
+            t.copy_(getattr(src, f.name).expand_as(t))
+
+
+def _leaf_ptrs(tree) -> list:
+    """The data pointers of every tensor of a cache tree, in order."""
+    if isinstance(tree, dict):
+        return [p for k in tree for p in _leaf_ptrs(tree[k])]
+    return [getattr(tree, f.name).data_ptr()
+            for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)]
+
+
+def _decode_fn(model, params, cache, tokens, pos) -> torch.Tensor:
+    """The captured step: one decode of ``tokens`` (B, 1) at positions
+    ``pos`` (B,), written into ``cache`` in place → the logits (B, V)."""
+    logits, _ = model.decode_step(params, cache, tokens, pos)
+    return logits[:, -1, :]
+
+
+_SIDE = threading.local()     # a thread's capture stream for each device
+
+
+def _capture_stream(device) -> "torch.cuda.Stream":
+    """The calling thread's side stream on ``device``, made once: every
+    engine of the thread warms up and captures on it, so the streams (and
+    the cuBLAS workspaces PyTorch keeps for each) do not grow with the
+    engines."""
+    streams = getattr(_SIDE, "streams", None)
+    if streams is None:
+        streams = _SIDE.streams = {}
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device)
+    return streams[device]
+
+
+class _Step:
+    """One batch size's model step over one static cache (an entry of
+    JAX's ``_model_jits``): static ``tokens`` (B, 1) and ``pos`` (B,) that
+    the caller fills in place, and ``_decode_fn`` writing ``cache`` in
+    place → the logits (B, V).
+
+    On the CPU every call runs the step eagerly.  On a card the first call
+    runs it eagerly on the thread's side stream and checks that it wrote
+    its cache in place (a rebound tensor would leave a graph writing stale
+    buffers), then captures it as a CUDA graph in ``pool``; every later
+    call replays the graph.  A replay runs no Python, so the kernel
+    wrappers' launch tally taken at capture is added to their counts on
+    each replay.  The logits a replay returns live in the pool: consume or
+    copy them before any graph of the pool replays again."""
+
+    def __init__(self, model, params, cache, batch: int, pool):
+        dev = model.device
+        self.model, self.params, self.cache, self.pool = (model, params,
+                                                          cache, pool)
+        self.tokens = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
+        self.pos = torch.zeros((batch,), dtype=torch.int64, device=dev)
+        self.graph: "torch.cuda.CUDAGraph | None" = None
+        self.logits: "torch.Tensor | None" = None
+        self.tally: list = []
+        self.calls = 0           # model steps run, eager or replayed
+        self.replays = 0
+        self.capture_s = 0.0     # the warm-up step and the capture
+        self.pool_bytes = 0      # bytes the capture added to the reserve
+
+    def run(self) -> torch.Tensor:
+        self.calls += 1
+        if self.graph is not None:
+            self.graph.replay()
+            self.replays += 1
+            kops.add_launches(self.tally)
+            return self.logits
+        if self.tokens.device.type != "cuda":
+            return _decode_fn(self.model, self.params, self.cache,
+                              self.tokens, self.pos)
+        return self._warm_and_capture()
+
+    def _warm_and_capture(self) -> torch.Tensor:
+        t0 = time.perf_counter()
+        dev = self.tokens.device
+        side = _capture_stream(dev)
+        main = torch.cuda.current_stream(dev)
+        ptrs = _leaf_ptrs(self.cache)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            logits = _decode_fn(self.model, self.params, self.cache,
+                                self.tokens, self.pos)
+        main.wait_stream(side)
+        logits.record_stream(main)
+        if _leaf_ptrs(self.cache) != ptrs:
+            raise RuntimeError(
+                f"{type(self.model).__name__}.decode_step rebinds a cache "
+                f"tensor: a captured step would replay into stale buffers")
+        # A dead engine left in a reference cycle frees its graphs' pool
+        # (cudaFree) when the collector finds it: refused while this
+        # thread captures, it would invalidate the capture.  So the
+        # collector is held off from the reserve's reading to the end of
+        # the capture.
+        collecting = gc.isenabled()
+        gc.disable()
+        before = kops.launch_counts()
+        try:
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, pool=self.pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                self.logits = _decode_fn(self.model, self.params,
+                                         self.cache, self.tokens, self.pos)
+        except BaseException:
+            self.graph = None
+            raise
+        finally:
+            if collecting:
+                gc.enable()
+            # the capture counted its kernels but launched none
+            self.tally = kops.take_launches(before)
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.capture_s = time.perf_counter() - t0
+        return logits
+
+
 class ServingEngine:
     def __init__(self, model, params, cfg: ServeConfig, *,
                  gen: "torch.Generator | None" = None):
@@ -242,6 +398,13 @@ class ServingEngine:
                       "prefix_hit_tokens": 0, "pages_hwm": 0}
         self._slots: list[Request | None] = [None] * cfg.batch_slots
         self._cache = None
+        # the compiled steps ("decode", "row", "wave"), their graphs' pool
+        # (on a card), the B = 1 cache template the static caches are reset
+        # from, and the table tensor every paged layer shares
+        self._steps: dict[str, _Step] = {}
+        self._pool = None
+        self._tmpl = None
+        self._table: torch.Tensor | None = None
         self._tokens = np.zeros((cfg.batch_slots, 1), np.int64)
         self._pos = np.zeros((cfg.batch_slots,), np.int64)
         # admission order per slot: preemption victims are LIFO
@@ -278,6 +441,42 @@ class ServingEngine:
     # ----------------------------------------------------------- helpers
     def _device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.array(a, np.int64)).to(self.model.device)
+
+    def _step(self, kind: str, cache, batch: int) -> _Step:
+        """The compiled step ``kind`` over ``cache`` at batch ``batch``,
+        made at its first use."""
+        step = self._steps.get(kind)
+        if step is None:
+            if self._pool is None and self.model.device.type == "cuda":
+                self._pool = torch.cuda.graph_pool_handle()
+            step = self._steps[kind] = _Step(self.model, self.params, cache,
+                                             batch, self._pool)
+        return step
+
+    def _static_cache(self, kind: str, batch: int) -> _Step:
+        """The step over the static cache ``kind`` ("row" at B = 1, "wave"
+        at B = batch_slots), its cache reset in place from the template."""
+        if self._tmpl is None:
+            self._tmpl = self.model.init_cache(1, self.cfg.max_len)
+        step = self._steps.get(kind)
+        if step is None:
+            return self._step(kind, self.model.init_cache(
+                batch, self.cfg.max_len), batch)
+        _fill_tree(step.cache, self._tmpl)
+        return step
+
+    def graph_stats(self) -> dict:
+        """The engine's compiled steps: ``steps`` model steps run (eager or
+        replayed), ``graphs`` captured, their ``replays``, the seconds of
+        the warm-ups and captures (``capture_s``) and the bytes the
+        captures added to the card's reserve (``pool_bytes``).  Counters
+        of the process, not serving state: ``restore`` leaves them."""
+        steps = list(self._steps.values())
+        return {"steps": sum(s.calls for s in steps),
+                "graphs": sum(s.graph is not None for s in steps),
+                "replays": sum(s.replays for s in steps),
+                "capture_s": sum(s.capture_s for s in steps),
+                "pool_bytes": sum(s.pool_bytes for s in steps)}
 
     def _select(self, logits: torch.Tensor) -> np.ndarray:
         """(B, V) logits → (B,) int64 tokens on the host: argmax, or a
@@ -392,15 +591,28 @@ class ServingEngine:
         return sorted(done, key=lambda r: r.uid)
 
     # ------------------------------------------------- continuous scheduler
+    def _new_cache(self) -> dict:
+        """A fresh resident cache: page pools when paged."""
+        if self.cfg.paged:
+            return self.model.init_paged_cache(
+                self.cfg.batch_slots, num_pages=self._num_pages,
+                page_size=self.cfg.page_size, pages_per_slot=self._pps)
+        return self.model.init_cache(self.cfg.batch_slots, self.cfg.max_len)
+
+    def _share_tables(self) -> None:
+        """Bind every paged layer of the resident cache to one table
+        tensor, which ``_sync_tables`` then writes in place."""
+        layers = [layer for layer in self._cache.values()
+                  if A.is_paged(layer)]
+        if layers:
+            self._table = layers[0].table
+            for layer in layers:
+                layer.table = self._table
+
     def _ensure_state(self) -> None:
         if self._cache is None:
-            if self.cfg.paged:
-                self._cache = self.model.init_paged_cache(
-                    self.cfg.batch_slots, num_pages=self._num_pages,
-                    page_size=self.cfg.page_size, pages_per_slot=self._pps)
-            else:
-                self._cache = self.model.init_cache(self.cfg.batch_slots,
-                                                    self.cfg.max_len)
+            self._cache = self._new_cache()
+            self._share_tables()
 
     def _retire(self, slot: int) -> None:
         req = self._slots[slot]
@@ -414,16 +626,19 @@ class ServingEngine:
         # re-decoding idempotently until the next admission overwrites it
         # (paged: its table row points at the scratch page, a write sink)
 
-    def _prefill(self, cache: dict, tokens: np.ndarray, start: int = 0):
+    def _prefill(self, step: _Step, tokens: np.ndarray, start: int = 0):
         """Sequential decode over positions [start, S) of ``tokens`` (B, S)
-        into ``cache`` (positions below ``start`` are already there: a
-        shared prefix) → (cache, last logits (B, V))."""
+        into ``step``'s cache (positions below ``start`` are already there:
+        a shared prefix), one step a position → the last logits (B, V).
+        The prompt goes to the device once; each step's token and position
+        are written into the static buffers there."""
         toks = self._device(tokens)
         logits = None
         for i in range(start, toks.shape[1]):
-            logits, cache = self.model.decode_step(self.params, cache,
-                                                   toks[:, i:i + 1], i)
-        return cache, logits[:, -1, :]
+            step.tokens.copy_(toks[:, i:i + 1])
+            step.pos.fill_(i)
+            logits = step.run()
+        return logits
 
     def _write_slot(self, row: dict, slot: int) -> None:
         """Copy a B=1 row cache into row ``slot`` of the resident
@@ -466,7 +681,8 @@ class ServingEngine:
             except PoolExhausted:
                 return False
         self.queue.pop(0)
-        row = self.model.init_cache(1, self.cfg.max_len)
+        step = self._static_cache("row", 1)
+        row = step.cache
         start = 0
         if plan is not None:
             start = plan.start
@@ -475,7 +691,7 @@ class ServingEngine:
                                self._pages(plan.gather_pids, SCRATCH),
                                plan.n_shared_tok)
                 self.stats["prefix_hit_tokens"] += plan.n_shared_tok
-        row, last = self._prefill(row, tokens_all[None, :], start)
+        last = self._prefill(step, tokens_all[None, :], start)
         if plan is not None:
             _admit_write_fn(self._cache, row, slot,
                             self._pages(plan.fresh_lps, 0),
@@ -571,13 +787,14 @@ class ServingEngine:
 
     def _sync_tables(self) -> None:
         """Mirror the host's page table to the device: one copy a dirty
-        step, one tensor shared by every paged layer."""
+        step, into the one table tensor every paged layer shares (a
+        captured step reads that tensor, so it is written, never
+        rebound)."""
         if not self.pager.dirty:
             return
-        table = self._device(self.pager.table)
-        for layer in self._cache.values():
-            if A.is_paged(layer):
-                layer.table = table
+        if self._table is not None:
+            self._table.copy_(torch.from_numpy(
+                np.asarray(self.pager.table, np.int64)))
         self.pager.dirty = False
 
     def _continuous_step(self) -> bool:
@@ -594,10 +811,10 @@ class ServingEngine:
             used = self.pager.pool.used_pages
             if used > self.stats["pages_hwm"]:
                 self.stats["pages_hwm"] = used
-        logits, self._cache = self.model.decode_step(
-            self.params, self._cache, self._device(self._tokens),
-            self._device(self._pos))
-        logits = logits[:, -1, :]
+        step = self._step("decode", self._cache, self.cfg.batch_slots)
+        step.tokens.copy_(torch.from_numpy(self._tokens))
+        step.pos.copy_(torch.from_numpy(self._pos))
+        logits = step.run()
         if self.faults is not None:
             stall = self.faults.fire("decode_stall")
             if stall is not None:
@@ -653,8 +870,8 @@ class ServingEngine:
         prompts = np.zeros((B, S), np.int64)
         for slot, req in enumerate(wave):
             prompts[slot] = np.asarray(req.prompt, np.int64)
-        cache = self.model.init_cache(B, self.cfg.max_len)
-        cache, last = self._prefill(cache, prompts)
+        step = self._static_cache("wave", B)
+        last = self._prefill(step, prompts)
         self.stats["prefills"] += 1
         self.stats["prefill_tokens"] += S * len(wave)
         self.stats["vtime"] += S        # work units: batched ≈ one B=1 pass
@@ -667,9 +884,9 @@ class ServingEngine:
         for t in range(horizon):
             if all(r.done for r in wave):
                 break                       # early finishers end the wave
-            logits, cache = self.model.decode_step(
-                self.params, cache, self._device(nxt[:, None]), S + t)
-            nxt = self._select(logits[:, -1, :])
+            step.tokens.copy_(torch.from_numpy(nxt.reshape(B, 1)))
+            step.pos.fill_(S + t)
+            nxt = self._select(step.run())
             self.stats["decode_steps"] += 1
             self.stats["busy_slot_steps"] += sum(1 for r in wave
                                                  if not r.done)
@@ -782,8 +999,15 @@ class ServingEngine:
         if self.pager is not None:
             self.pager.restore(snap["pager"])    # marks the tables dirty
         dev = snap["device"]
-        self._cache = (None if dev["cache"] is None
-                       else _copy_tree(dev["cache"], self.model.device))
+        if self._cache is not None:
+            # the compiled decode step holds the live buffers: write the
+            # snapshot (or, from a snapshot taken before any admission, a
+            # fresh cache) into them
+            _fill_tree(self._cache, self._new_cache() if dev["cache"] is None
+                       else dev["cache"])
+        elif dev["cache"] is not None:
+            self._cache = _copy_tree(dev["cache"], self.model.device)
+            self._share_tables()
         self._tokens = np.array(dev["tokens"], np.int64)
         self._pos = np.array(dev["pos"], np.int64)
         self.gen.set_state(dev["rng"])

@@ -60,7 +60,11 @@ class SupervisorConfig:
     backoff_base_s: float = 0.0    # capped exponential backoff between
     backoff_cap_s: float = 0.25    # consecutive recoveries (0 base = none)
     step_deadline_s: float = 0.0   # watchdog: max seconds per pump (0 = off)
-    warmup_pumps: int = 2          # deadline-exempt first pumps
+    # deadline-exempt first pumps: on a card the engine captures its CUDA
+    # graphs (B = 1 and B = slots) in its first pump that admits and
+    # decodes, as JAX's engine compiles in its first; a rollback replays
+    # the same graphs against the restored buffers and captures nothing
+    warmup_pumps: int = 2
     healthy_after: int = 4         # clean pumps for DEGRADED -> HEALTHY
     max_consecutive_recoveries: int = 8   # then EngineDown
     snapshot_dir: str = ""         # optional on-disk snapshot persistence

@@ -4,8 +4,9 @@ package's rule fixtures of the kept rules, re-pointed at the port's layout
 serve entry modules), the dtype rule's torch cases, suppressions and the
 baseline, the CLI, a self-lint of ``src/repro_torch`` (empty baseline),
 the meta-device contract sweep, and ``Finding`` fingerprints and JSON
-byte-equal to JAX's.  ``jit-purity`` and ``recompile-hazards`` are not
-ported (the port traces nothing).
+byte-equal to JAX's.  ``jit-purity`` and ``recompile-hazards`` read the
+code a CUDA graph captures; their fixtures are in
+``tests/test_torch_capture.py``.
 """
 from __future__ import annotations
 
@@ -41,8 +42,11 @@ def rule_findings(idx: RepoIndex, rule_name: str):
 
 
 def test_rules_are_the_kept_five():
-    assert list(RULES) == ["fault-hook-cost", "serve-never-decompresses",
-                           "atomic-writes", "dtype-discipline",
+    """All seven of JAX's rules, in JAX's report order (the name is from
+    when the two capture rules were not ported)."""
+    assert list(RULES) == ["jit-purity", "fault-hook-cost",
+                           "serve-never-decompresses", "atomic-writes",
+                           "recompile-hazards", "dtype-discipline",
                            "import-hygiene"]
 
 
@@ -452,7 +456,7 @@ class TestSelfLint:
                    "--check", "--root", str(REPO_ROOT)])
         assert rc == 0
         with pytest.raises(SystemExit):
-            main(["--rules", "jit-purity", "--root", str(REPO_ROOT)])
+            main(["--rules", "no-such-rule", "--root", str(REPO_ROOT)])
 
     def test_module_check_without_jax(self):
         """``python -m repro_torch.analysis --check`` (the reduced sweep)

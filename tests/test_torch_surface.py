@@ -175,8 +175,6 @@ NOT_PORTED = {
                          "COLLECTIVE_RE", "SHAPE_RE", "DTYPE_BYTES",
                          "COMP_HEADER_RE", "WHILE_RE", "CONST_RE",
                          "ICI_BW"},
-    # the two rules of traced code (the modules below)
-    "analysis/rules/__init__.py": {"JitPurityRule", "RecompileHazardsRule"},
     # the Pallas tile knobs and their switch: K2 plans its own tiles
     "kernels/ops.py": {"choose_tiles"},
     "models/layers.py": {"set_nm_kernel", "get_nm_kernel"},
@@ -185,10 +183,8 @@ NOT_PORTED = {
     "kernels/hessian_accum.py": {"hessian_xtx"},
     "kernels/nm_spmm.py": {"nm_matmul"},
 }
-# whole modules: the numpy oracle the port's tests already use, and the
-# lint rules of jit-traced code (the port traces and compiles nothing)
-MODULES_NOT_PORTED = ("core/reference.py", "analysis/rules/jit_purity.py",
-                      "analysis/rules/recompile.py")
+# whole modules: the numpy oracle the port's tests already use
+MODULES_NOT_PORTED = ("core/reference.py",)
 
 
 def _public_names(path: pathlib.Path) -> set:
