@@ -44,6 +44,20 @@ tooling. tooling — right after the build, on the empty card and in a
              two launches bitwise equal.
 3. prune   — the dense path: Thanos 2:4 prunes tinyllama-1.1b at full width
              and depth from a seeded random init (K1 carries the Hessians).
+             Every prune of every phase runs its solves and block passes
+             from CUDA graphs (``util.graphs``, captured at a key's second
+             use) and prints its graphs, replays, capture seconds, pool
+             bytes, the card's reserve before and after, and its seconds
+             (``graphs_line``).
+prune-graphs. right after phase 3, outside the path's counts: (a) the twelve
+             method × pattern solves at tinyllama's four full-width shapes
+             (PG_SHAPES), each replayed against its direct eager call on two
+             (W, H) pairs in turn — weights, mask and loss bitwise — with
+             the direct and replayed ms, capture s and pool bytes; (b) the
+             first PG_BLOCKS blocks of phase 3's graphed prune against an
+             eager loop of ``block_apply``, ``HessianAccumulator`` and the
+             solver called directly: 0 differing mask entries, bf16 weights
+             max |Δ| 0.
 4. serve   — compress the pruned linears and serve 4 requests through the
              continuous-batching engine, compressed-resident (K2 carries
              every pruned linear); then hold the kernel path's first-step
@@ -144,7 +158,9 @@ families. families — the recurrent and encoder–decoder families, bf16
              encode 4 × 1500 frames (K2 at x
              (6000, b)), cross k/v once, 12 greedy tokens at B = 4,
              identical to the uncached decode's; every family's
-             first-step logits against its decompressed tree.
+             first-step logits against its decompressed tree (xlstm's
+             in bf16 at one block and in fp32 at XLSTM_DEPTHS, where a
+             lane shift planted in one block must fail the check).
 dense2. dense2 — the rest of the dense family and the VLM backbone, bf16
              from seed 0, each pruned with Thanos 2:4 B=64 on 2 × 8 × 128
              tokens (K1), compressed (0.625 of dense bytes) and serving the
@@ -355,6 +371,11 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_RESTART_LAYERS, FINETUNE_STEPS = 8, 256, 2, 16
 # collectives give up after DIST_PG_TIMEOUT s, the ranks after
 # DIST_JOIN_TIMEOUT s
 DIST_STEPS, DIST_LR, DIST_LOSS_TOL = 3, 1e-4, 1e-2
+# prune-graphs: tinyllama's four linear shapes (c, b) — q/o, k/v, gate/up,
+# down — and the blocks of phase 3's prune held against the eager loop
+PG_SHAPES = [(2048, 2048), (256, 2048), (5632, 2048), (2048, 5632)]
+PG_BLOCKS = 4
+GRAPH_LINES: dict = {}        # label → graphs_line's record, this run
 DIST_PG_TIMEOUT, DIST_JOIN_TIMEOUT = 180, 360
 K3_REPLACES = ("src/repro/kernels/ops.py:151-161 (loops the pallas_call of "
                "src/repro/kernels/nm_spmm.py:135)")
@@ -860,12 +881,14 @@ def moe_phase(dev) -> dict:
     dense_loss = heldout_loss(model, params, cfg)
     batches = calibration_batches(cfg, num_samples=16, seq_len=128, batch=8,
                                   device=dev)
+    r0 = torch.cuda.memory_reserved()
     t1 = time.perf_counter()
     pruned, report = prune_model(
         params, ModelAdapter(model), batches,
         PruneConfig("thanos", "nm", n=2, m=4, block_size=64))
     torch.cuda.synchronize()
     t_prune = time.perf_counter() - t1
+    graphs_line(cfg.name, report.graphs, t_prune, r0)
     pruned_loss = heldout_loss(model, pruned, cfg)
     t_phase = time.perf_counter() - t0
     del params
@@ -1534,12 +1557,14 @@ def mla_phase(dev) -> dict:
     dense_loss = heldout_loss(model, params, cfg)
     batches = calibration_batches(cfg, num_samples=16, seq_len=128, batch=8,
                                   device=dev)
+    r0 = torch.cuda.memory_reserved()
     t1 = time.perf_counter()
     pruned, report = prune_model(
         params, ModelAdapter(model), batches,
         PruneConfig("thanos", "nm", n=2, m=4, block_size=64))
     torch.cuda.synchronize()
     t_prune = time.perf_counter() - t1
+    graphs_line(cfg.name, report.graphs, t_prune, r0)
     pruned_loss = heldout_loss(model, pruned, cfg)
     t_phase = time.perf_counter() - t0
     del params
@@ -1954,6 +1979,32 @@ def gemma3_phase(dev) -> dict:
             "argmax_agree": e[2]}
 
 
+def graphs_line(label: str, stats: dict, seconds: float,
+                reserved: int) -> dict:
+    """One prune run's CUDA graphs (``PruneReport.graphs``): captured,
+    replayed, eager first calls, capture seconds and the bytes its scope
+    returned to the card at its close (pool and static buffers); the
+    card's reserve before the run and after it; its seconds.  Gated:
+    graphs captured and replayed (every run repeats keys: two calibration
+    batches a block)."""
+    import torch
+
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_reserved()
+    check(stats.get("graphs", 0) > 0 and stats.get("replays", 0) > 0,
+          f"{label}: the prune captured or replayed no graph ({stats})")
+    print(f"  graphs {label}: {stats['graphs']} captured, "
+          f"{stats['replays']} replays, {stats['eager']} eager first calls "
+          f"of {stats['calls']} keyed calls; capture {stats['capture_s']:.2f}"
+          f" s, pool {stats['pool_bytes'] / 2**20:.1f} MiB; reserved "
+          f"{reserved / 2**30:.2f} → {after / 2**30:.2f} GiB; prune "
+          f"{seconds:.2f} s")
+    rec = dict(stats, seconds=seconds, reserved_before=reserved,
+               reserved_after=after)
+    GRAPH_LINES[label] = rec
+    return rec
+
+
 def prune_family(cfg, dev) -> dict:
     """``prune_arch``'s steps on ``cfg`` (which may cut the registry's
     depth): init from seed 0, held-out loss, Thanos 2:4 B=64 on 2 × 8 × 128
@@ -1976,12 +2027,14 @@ def prune_family(cfg, dev) -> dict:
     dense_loss = heldout_loss(model, params, cfg)
     batches = calibration_batches(cfg, num_samples=16, seq_len=128, batch=8,
                                   device=dev)
+    r0 = torch.cuda.memory_reserved()
     t1 = time.perf_counter()
     pruned, report = prune_model(
         params, ModelAdapter(model), batches,
         PruneConfig("thanos", "nm", n=2, m=4, block_size=64))
     torch.cuda.synchronize()
     t_prune = time.perf_counter() - t1
+    graphs_line(cfg.name, report.graphs, t_prune, r0)
     del params
     pruned_loss = heldout_loss(model, pruned, cfg)
     check(all(check_nm(mk.T, 2, 4) for mk in report.masks.values()),
@@ -2200,39 +2253,147 @@ def graphs_case(label: str, model, comp, prompts, **serve_kw) -> dict:
             "seconds": time.perf_counter() - t_case}
 
 
-def depth_profile(cfg, comp, prompts, depths) -> dict:
+@contextlib.contextmanager
+def fp32_products():
+    """Every dense linear as the fp32 product of its operands rounded once
+    to the activation dtype: cuBLAS's bf16 GEMM summed in another order —
+    the difference K2's own sums make, and no more."""
+    import torch
+
+    from repro_torch.models import layers
+
+    real = layers.dense
+
+    def dense(p, x, tape=None, path=()):
+        if not torch.is_tensor(p["w"]):
+            return real(p, x, tape, path)
+        y = (x.reshape(-1, x.shape[-1]).float() @ p["w"].float()).to(x.dtype)
+        if "b" in p:
+            y = y + p["b"]
+        return y.reshape(*x.shape[:-1], -1)
+
+    layers.dense = dense
+    try:
+        yield
+    finally:
+        layers.dense = real
+
+
+def k2_linear_errors(model, comp, tok) -> list:
+    """Every K2 call of one first step of ``model`` over ``comp``: (W's
+    shape, K2's and the dense bf16 product's max rel err against the fp32
+    product of the same operands)."""
+    import torch
+
+    from repro_torch.kernels import ops as kops, ref
+
+    real, rows = kops.nm_matmul, []
+
+    def spy(x, packed, **kw):
+        y = real(x, packed, **kw)
+        w = ref.nm_expand(packed.values, packed.indices, packed.n, packed.m,
+                          packed.b, packed.idx_bits)
+        y32 = x.float() @ w.float().T
+        rows.append((tuple(w.shape), errs(y, y32)[1],
+                     errs(x @ w.to(x.dtype).T, y32)[1]))
+        return y
+
+    kops.nm_matmul = spy
+    try:
+        with uncounted(), torch.no_grad():
+            model.decode_step(comp, model.init_cache(tok.shape[0], 8), tok,
+                              0)
+    finally:
+        kops.nm_matmul = real
+    return rows
+
+
+def as_fp32(tree):
+    """``tree`` with every floating tensor in fp32, n:m values included
+    (indices and integers as they are)."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: as_fp32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(as_fp32(v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: as_fp32(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    if torch.is_tensor(tree) and tree.is_floating_point():
+        return tree.float()
+    return tree
+
+
+def lane_shifted(comp, block: int):
+    """``comp`` with every n:m leaf of ``block`` reading its values one
+    lane along (each kept weight at its neighbour's index): a planted K2
+    fault for the depth check to find."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.sparsity import NmCompressed
+
+    def shift(node):
+        if isinstance(node, dict):
+            return {k: shift(v) for k, v in node.items()}
+        if isinstance(node, NmCompressed):
+            return dataclasses.replace(node, values=torch.roll(
+                node.values, 1, dims=-1).contiguous())
+        return node
+
+    blocks = dict(comp["blocks"])
+    blocks[block] = shift(blocks[block])
+    return dict(comp, blocks=blocks)
+
+
+def depth_profile(cfg, comp, prompts, depths, fault_block: int) -> dict:
     """First-step logits of the compressed tree's first d blocks (the
-    same leaves, a model of depth d) for each d of ``depths``: kernel path
-    against the decompressed leaves (rel err), and the decompressed
-    leaves' own B = 4 logits against each row alone at B = 1 (the model's
-    rounding sensitivity at that depth, no kernel involved)."""
+    same leaves, a model of depth d) for each d of ``depths``, the kernel
+    path against the decompressed leaves (rel err): in bf16 (``kernel_
+    rel``), beside the decompressed leaves' own logits with every linear
+    summed in another order (``rounding_rel``: the model's sensitivity to
+    the one rounding a K2 product differs by); and with every leaf and
+    activation in fp32 (``fp32_rel``), where that rounding is 2⁻²⁴.
+    ``fault``: the fp32 error at the deepest depth with block
+    ``fault_block``'s leaves lane-shifted (``lane_shifted``)."""
     import torch
 
     from repro_torch.models.model_builder import build_model
     from repro_torch.serve.compressed import decompress_params
 
     dense = decompress_params(comp)
+    comp32, dense32 = as_fp32(comp), as_fp32(dense)
     tok = torch.tensor([[int(p[0])] for p in prompts], device=comp[
         "embed"]["table"].device)
     out = {}
+
+    def first(m, tree, d):
+        cut = dict(tree, blocks={i: tree["blocks"][i] for i in range(d)})
+        return m.decode_step(cut, m.init_cache(4, 8), tok, 0)[0]
+
     with uncounted(), torch.no_grad():
         for d in depths:
             m = build_model(cfg.replace(num_layers=d), device=tok.device)
-
-            def cut(tree):
-                return dict(tree, blocks={i: tree["blocks"][i]
-                                          for i in range(d)})
-
-            lk, _ = m.decode_step(cut(comp), m.init_cache(4, 8), tok, 0)
-            ld, _ = m.decode_step(cut(dense), m.init_cache(4, 8), tok, 0)
-            l1 = torch.cat([m.decode_step(cut(dense), m.init_cache(1, 8),
-                                          tok[r:r + 1], 0)[0]
-                            for r in range(4)])
+            m32 = build_model(cfg.replace(num_layers=d, dtype="float32"),
+                              device=tok.device)
+            lk, ld = first(m, comp, d), first(m, dense, d)
+            with fp32_products():
+                lr = first(m, dense, d)
+            lk32, ld32 = first(m32, comp32, d), first(m32, dense32, d)
             out[d] = {"kernel_rel": errs(lk, ld)[1],
-                      "b4_b1_rel": errs(ld, l1)[1],
-                      "finite": bool(torch.isfinite(lk).all())}
-    del dense
-    return out
+                      "rounding_rel": errs(lr, ld)[1],
+                      "fp32_rel": errs(lk32, ld32)[1],
+                      "finite": bool(torch.isfinite(lk).all()
+                                     and torch.isfinite(lk32).all())}
+        lf = first(m32, lane_shifted(comp32, fault_block), depths[-1])
+        fault = errs(lf, ld32)[1]
+    del dense, comp32, dense32
+    return {"depths": out, "fault": fault}
 
 
 def family_counts(label: str, expect: dict) -> dict:
@@ -2382,23 +2543,42 @@ def xlstm_part(dev) -> dict:
     print(f"  req 0: {done[0].out}")
     b1 = lockstep_check(model, comp, prompts, done, "xlstm")
     graphs = graphs_case("xlstm-1.3b", model, comp, prompts)
-    # a random-init xLSTM in bf16 amplifies rounding block after block
-    # (the dense tree's own B = 4 and B = 1 logits part by ~1.1 of their
-    # magnitude at 48 blocks, ~0.2 at 16, PERF.md §6), so the first-step
-    # logits are held at rel 5e-2 on one block and, at every depth, to
-    # twice that spread of the model's own
-    prof = depth_profile(cfg, comp, prompts, XLSTM_DEPTHS)
-    check(all(v["finite"] for v in prof.values())
-          and prof[1]["kernel_rel"] <= 5e-2
-          and all(v["kernel_rel"] <= max(5e-2, 2 * v["b4_b1_rel"])
-                  for v in prof.values()),
+    # a random-init xLSTM in bf16 amplifies rounding block after block:
+    # the dense tree summed in another order reads rel ~0.75 at 8 blocks
+    # and ~1 at 16 (PERF.md §6, PR 24), what a zero output reads, so the
+    # bf16 logits are held at one block only.  At every depth the kernel
+    # path is held in fp32 (leaves and activations), where rounding is
+    # 2⁻²⁴; a lane shift planted in the first block only the deepest
+    # depth runs must fail that check.  Each bf16 K2 product of the
+    # first step is held to the dense bf16 product's own error against
+    # the fp32 product, plus one bf16 step.
+    prof = depth_profile(cfg, comp, prompts, XLSTM_DEPTHS,
+                         XLSTM_DEPTHS[-2])
+    by_d = prof["depths"]
+    check(all(v["finite"] for v in by_d.values())
+          and by_d[1]["kernel_rel"] <= 5e-2
+          and all(v["fp32_rel"] <= 5e-2 for v in by_d.values()),
           f"xlstm compressed vs dense first-step logits: {prof}")
+    check(prof["fault"] > 5e-2, f"xlstm: the fp32 depth check misses a "
+          f"lane shift planted in block {XLSTM_DEPTHS[-2]}: {prof}")
+    lin = k2_linear_errors(model, comp, torch.tensor(
+        [[int(p[0])] for p in prompts], device=dev))
+    check(len(lin) == per_step and all(k <= d + 2 ** -8 for _, k, d in lin),
+          f"xlstm: a K2 product strays from the fp32 product beyond the "
+          f"dense bf16 product's error: {lin}")
     print(f"  first-step logits, K2 path vs decompressed dense, rel err by "
-          f"depth: " + ", ".join(f"{d}: {v['kernel_rel']:.4g}" for d, v in
-                                 prof.items())
-          + "; the dense tree's B = 4 vs B = 1 rel err by depth: "
-          + ", ".join(f"{d}: {v['b4_b1_rel']:.4g}" for d, v in prof.items())
-          + " (limit: 5e-2 at depth 1, max(5e-2, 2 × the latter) at each)")
+          f"depth, fp32: " + ", ".join(f"{d}: {v['fp32_rel']:.4g}" for d, v
+                                       in by_d.items())
+          + f" (limit 5e-2; block {XLSTM_DEPTHS[-2]} lane-shifted reads "
+          f"{prof['fault']:.4g} at {XLSTM_DEPTHS[-1]}); bf16: "
+          + ", ".join(f"{d}: {v['kernel_rel']:.4g}" for d, v in by_d.items())
+          + " (limit 5e-2 at depth 1); the bf16 dense tree's own, every "
+          "linear summed in another order: "
+          + ", ".join(f"{d}: {v['rounding_rel']:.4g}"
+                      for d, v in by_d.items())
+          + f"; {len(lin)} K2 products of the first step against the fp32 "
+          f"product: max rel {max(k for _, k, _ in lin):.4g} (the dense bf16 "
+          f"product's {max(d for _, _, d in lin):.4g})")
     modelb = build_model(cfg.replace(kv_cache_dtype="bf16"), device=dev)
     with uncounted():
         lg = chain_logits(model, comp, prompts)
@@ -2421,7 +2601,7 @@ def xlstm_part(dev) -> dict:
                 bf16_state={"max_abs_err": eb[0], "rel_err": eb[1],
                             "argmax_agree": agree},
                 depth_profile=prof,
-                logits_rel_err=prof[cfg.num_layers]["kernel_rel"])
+                logits_rel_err=by_d[cfg.num_layers]["fp32_rel"])
 
 
 def whisper_decode(model, params, frames, starts, kv_cached: bool):
@@ -2639,12 +2819,14 @@ def baselines_phase(dev, dense, dense_loss: float) -> dict:
     for method in BASELINES:
         zero_counts()
         torch.cuda.synchronize()
+        r0 = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
         pruned, report = prune_model(
             dense, adapter, batches,
             PruneConfig(method, "nm", n=2, m=4, block_size=64))
         torch.cuda.synchronize()
         t_prune = time.perf_counter() - t0
+        graphs_line(method, report.graphs, t_prune, r0)
         k1 = path_counts()["hessian_update_cuda"][0]
         pruned_loss = heldout_loss(model, pruned, cfg)
         check(len(report.masks) == 7 * cfg.num_layers and
@@ -2769,6 +2951,7 @@ def plan_phase(dev, dense, dense_loss: float) -> dict:
     from repro_torch.data.pipeline import calibration_batches, heldout_loss
     from repro_torch.models.model_builder import ModelAdapter, build_model
     from repro_torch.serve.compressed import compress_params, compressed_bytes
+    from repro_torch.util import graphs
 
     cfg = get_config("tinyllama-1.1b")
     L = cfg.num_layers
@@ -2781,8 +2964,10 @@ def plan_phase(dev, dense, dense_loss: float) -> dict:
     plan = PrunePlan.load(str(recipe))
     zero_counts()
     torch.cuda.synchronize()
+    r0 = torch.cuda.memory_reserved()
     t_path = time.perf_counter()
     pruned, report = prune_model(dense, adapter, batches, plan)
+    graphs_line("plan", report.graphs, time.perf_counter() - t_path, r0)
     pruned_loss = heldout_loss(model, pruned, cfg)
     attn = [r for r in report.layers if "attn" in r.path]
     mlp = [r for r in report.layers if "mlp" in r.path]
@@ -2854,10 +3039,13 @@ def plan_phase(dev, dense, dense_loss: float) -> dict:
                               "besa_trace_budget.json"))
     zero_counts()
     torch.cuda.synchronize()
+    r0 = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
-    stats = collect_hessian_stats(dense, adapter, batches)
+    with graphs.scope() as sc:           # the pass's own: one pool
+        stats = collect_hessian_stats(dense, adapter, batches)
     torch.cuda.synchronize()
     t_stats = time.perf_counter() - t0
+    graphs_line("allocation", sc.stats(), t_stats, r0)
     k1_stats = path_counts()["hessian_update_cuda"][0]
     alloc = besa.allocate_sparsity(stats)
     ps = [alloc.cfg_for(k).p for k in stats]
@@ -3174,11 +3362,13 @@ def prune_job_checks(cfg, dev, root: Path) -> dict:
         return ModelAdapter(model), params, batches
 
     adapter, params, batches = setup(JOB_LAYERS)
+    r0 = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
     ref, ref_rep = PruneJob(str(root / "ref")).run(params, adapter, batches,
                                                    cell)
     torch.cuda.synchronize()
     t_ref = time.perf_counter() - t0
+    graphs_line("job", ref_rep.graphs, t_ref, r0)
     job = str(root / "job")
     try:
         PruneJob(job, faults=FaultPlan.parse(f"journal_write@{JOB_KILL}")
@@ -3765,6 +3955,7 @@ def dist_rank_body(rank: int, mesh, device: str, ref: dict) -> dict:
                                  mesh=mesh, keep_masks=rank == 0)
     torch.cuda.synchronize()
     out["prune_seconds"] = time.perf_counter() - t0
+    out["graphs"] = report.graphs
     out["losses"] = [r.obs_loss for r in report.layers]
     if rank == 0:
         diff, dmax = {}, 0.0
@@ -4080,6 +4271,18 @@ def dist_phase(cfg, pruned, report, comp, dev, setup=None) -> dict:
     check(a["indices_equal"], "dist (a): packed index bytes differ")
     check(k1 == [2 * 7 * cfg.num_layers] * 2, f"dist (a): K1 launches {k1}")
     check(a["losses"] == b["losses"], "dist (a): the ranks' losses differ")
+    for r in ranks:
+        check(r["graphs"]["graphs"] > 0 and r["graphs"]["replays"] > 0,
+              f"dist (a): a rank captured or replayed no graph "
+              f"({r['graphs']})")
+    g = a["graphs"]
+    GRAPH_LINES["dist"] = dict(g, seconds=a["prune_seconds"])
+    print(f"  graphs dist (rank 0): {g['graphs']} captured, {g['replays']} "
+          f"replays, {g['eager']} eager first calls of {g['calls']} keyed "
+          f"calls; capture {g['capture_s']:.2f} s, pool "
+          f"{g['pool_bytes'] / 2**20:.1f} MiB; prune "
+          f"{a['prune_seconds']:.2f} s; "
+          f"the all_gather / all_reduce stay eager")
     print(f"phase dist: 2 gloo ranks on one card, (2, 1) mesh; (a) "
           f"prune_model(mesh=) {a['prune_seconds']:.1f} s / "
           f"{b['prune_seconds']:.1f} s a rank: {a['linears']} linears, "
@@ -4375,6 +4578,189 @@ def tooling_child(tmp: str) -> None:
     torch.save(out, f"{tmp}/tooling.pt")
 
 
+def pg_solves() -> dict:
+    """The twelve method × pattern solves at phase 3's and the baselines
+    phase's settings (Thanos unstructured B = 128, 2:4 B = 64; SparseGPT
+    blocks of 64; p = 0.5)."""
+    from repro_torch.core import magnitude, sparsegpt, thanos, wanda
+
+    return {
+        "thanos unstructured": (thanos.prune_unstructured,
+                                {"p": 0.5, "block_size": 128}),
+        "thanos 2:4": (thanos.prune_nm, {"n": 2, "m": 4, "block_size": 64}),
+        "thanos structured": (thanos.prune_structured,
+                              {"p": 0.5, "alpha": 0.1}),
+        "sparsegpt unstructured": (sparsegpt.prune_unstructured,
+                                   {"p": 0.5, "mask_blocksize": 64}),
+        "sparsegpt 2:4": (sparsegpt.prune_nm,
+                          {"n": 2, "m": 4, "blocksize": 64}),
+        "sparsegpt structured": (sparsegpt.prune_structured,
+                                 {"p": 0.5, "blocksize": 64}),
+        "wanda unstructured": (wanda.prune_unstructured, {"p": 0.5}),
+        "wanda 2:4": (wanda.prune_nm, {"n": 2, "m": 4}),
+        "wanda structured": (wanda.prune_structured, {"p": 0.5}),
+        "magnitude unstructured": (magnitude.prune_unstructured,
+                                   {"p": 0.5}),
+        "magnitude 2:4": (magnitude.prune_nm, {"n": 2, "m": 4}),
+        "magnitude structured": (magnitude.prune_structured, {"p": 0.5}),
+    }
+
+
+def same_tree(a, b) -> bool:
+    """Every leaf bitwise equal (tensors by ``torch.equal``)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def eager_blocks(adapter, params, batches, blocks: int, cell) -> tuple:
+    """Alg. 3's first ``blocks`` blocks as a loop of eager public pieces,
+    outside any graph scope: ``block_apply`` (pass 1 and 2),
+    ``HessianAccumulator`` (K1) and the method's solver called directly
+    (``__wrapped__``) → (params, masks (in, out) by path)."""
+    import torch
+
+    from repro_torch.core import thanos
+    from repro_torch.core.hessian import HessianAccumulator
+    from repro_torch.core.schedule import get_path, set_path
+
+    carries = [adapter.prepare(params, b) for b in batches]
+    masks = {}
+    with torch.no_grad():
+        for i in range(blocks):
+            accs = {}
+            for c in carries:
+                for path, x in adapter.block_apply(params, i, c,
+                                                   capture=True)[1].items():
+                    if path not in accs:
+                        accs[path] = HessianAccumulator.init(x.shape[-1],
+                                                             x.device)
+                    accs[path].update(x)
+            for path in adapter.block_linear_paths(params, i):
+                kernel = get_path(params, path)
+                res = thanos.prune_nm.__wrapped__(
+                    kernel.T, accs.pop(path).finalize(), n=cell.n, m=cell.m,
+                    block_size=cell.block_size, percdamp=cell.percdamp,
+                    row_chunk=cell.row_chunk, alpha=cell.alpha)
+                params = set_path(params, path, res.weights.T.contiguous()
+                                  .to(kernel.dtype))
+                masks[path] = res.mask.T.contiguous()
+            carries = [adapter.block_apply(params, i, c, capture=False)[0]
+                       for c in carries]
+    return params, masks
+
+
+def prune_graphs_phase(gen, dev, pruned, report) -> dict:
+    """prune-graphs: (a) the twelve solves at tinyllama's four full-width
+    shapes, each key replayed against its direct eager call on two (W, H)
+    pairs in turn, bitwise (weights, mask, loss), the direct call's and a
+    replay's ms, the capture's seconds and its pool's bytes; (b) the first
+    PG_BLOCKS blocks of phase 3's graphed prune against ``eager_blocks``
+    from the same init and calibration: 0 differing mask entries, bf16
+    weights max |Δ| 0.  Its launches are not the path's (``uncounted``)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import PruneConfig
+    from repro_torch.core.schedule import get_path
+    from repro_torch.data.pipeline import calibration_batches
+    from repro_torch.models.model_builder import ModelAdapter, build_model
+    from repro_torch.util import graphs
+
+    t_phase = time.perf_counter()
+    rows = []
+    solves = pg_solves()
+    for c, b in PG_SHAPES:
+        pairs = []
+        for _ in range(2):
+            w = (torch.randn((c, b), generator=gen, device=dev)
+                 / math.sqrt(b)).to(torch.bfloat16)
+            x = torch.randn((1024, b), generator=gen, device=dev)
+            pairs.append((w, 2.0 * (x.T @ x) / x.shape[0]))
+        torch.cuda.synchronize()
+        r0 = peak = torch.cuda.memory_reserved()
+        for name, (fn, kw) in solves.items():
+            want, eager, replay = [], [], []
+            for p in pairs:
+                t0 = time.perf_counter()
+                want.append(fn.__wrapped__(*p, **kw))
+                torch.cuda.synchronize()
+                eager.append(time.perf_counter() - t0)
+            # a scope a solve: its close reads the solve's pool bytes
+            with graphs.scope() as sc:
+                for k, s in enumerate((0, 1, 0, 1)):
+                    t0 = time.perf_counter()
+                    got = fn(*pairs[s], **kw)
+                    torch.cuda.synchronize()
+                    if k >= 2:
+                        replay.append(time.perf_counter() - t0)
+                    check(same_tree(got, want[s]),
+                          f"prune-graphs (a): {name} at W ({c}, {b}), call "
+                          f"{k}: not bitwise the direct call")
+                peak = max(peak, torch.cuda.memory_reserved())
+            st = sc.stats()
+            check(st["graphs"] == 1 and st["replays"] == 3,
+                  f"prune-graphs (a): {name} at W ({c}, {b}): {st}")
+            rows.append({"solve": name, "shape": (c, b),
+                         "eager_ms": 1e3 * min(eager),
+                         "replay_ms": 1e3 * min(replay),
+                         "capture_s": st["capture_s"],
+                         "pool_bytes": st["pool_bytes"]})
+        torch.cuda.synchronize()
+        shape = [r for r in rows if r["shape"] == (c, b)]
+        print(f"prune-graphs (a) W ({c}, {b}) bf16, H fp32: 12 solves "
+              f"replayed bitwise the direct call (weights, mask, loss) on 2 "
+              f"pairs in turn; reserved {r0 / 2**30:.2f} → "
+              f"{peak / 2**30:.2f} GiB in the scopes → "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} after; direct / "
+              f"replayed ms, capture s, pool MiB: " + "; ".join(
+                  f"{r['solve']} {r['eager_ms']:.2f} / {r['replay_ms']:.2f}"
+                  f", {r['capture_s']:.2f}, {r['pool_bytes'] / 2**20:.0f}"
+                  for r in shape))
+        del pairs, want, got
+
+    cfg = get_config("tinyllama-1.1b")
+    cell = PruneConfig("thanos", "nm", n=2, m=4, block_size=64)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    batches = calibration_batches(cfg, num_samples=16, seq_len=128, batch=8,
+                                  device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager_p, eager_m = eager_blocks(ModelAdapter(model), params, batches,
+                                    PG_BLOCKS, cell)
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    ndiff = sum(int((eager_m[p] != report.masks[p]).sum()) for p in eager_m)
+    nall = sum(m.numel() for m in eager_m.values())
+    dmax = max(float((get_path(eager_p, p).float()
+                      - get_path(pruned, p).float()).abs().max())
+               for p in eager_m)
+    graphed_s = sum(r.seconds for r in report.layers
+                    if r.path in eager_m)
+    check(len(eager_m) == 7 * PG_BLOCKS and ndiff == 0 and dmax == 0.0,
+          f"prune-graphs (b): {len(eager_m)} linears, {ndiff} mask entries "
+          f"differ, bf16 weights max |Δ| {dmax}")
+    print(f"prune-graphs (b) phase 3's first {PG_BLOCKS} blocks "
+          f"({len(eager_m)} linears) against the eager loop (block_apply, "
+          f"HessianAccumulator, thanos.prune_nm called directly): {ndiff} of "
+          f"{nall} mask entries differ, bf16 weights max |Δ| {dmax:g}; "
+          f"eager loop {t_eager:.2f} s, the graphed run's solves of those "
+          f"linears {graphed_s:.2f} s")
+    secs = time.perf_counter() - t_phase
+    print(f"phase prune-graphs: {secs:.1f} s")
+    return {"solves": rows, "blocks": {"linears": len(eager_m),
+                                       "mask_diff": ndiff, "masks": nall,
+                                       "weights_max_abs": dmax,
+                                       "eager_s": t_eager,
+                                       "graphed_solves_s": graphed_s},
+            "seconds": secs}
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -4555,6 +4941,7 @@ def main() -> None:
     # ---- 3. main path: prune ----------------------------------------------
     zero_counts()
     torch.cuda.synchronize()
+    r0 = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
     pruned, report, out = prune_arch(
         "tinyllama-1.1b",
@@ -4581,6 +4968,13 @@ def main() -> None:
           f"K1 launches {K1.hessian_update_cuda.launches} (expect "
           f"{2 * 7 * cfg.num_layers})")
     results["prune"] = dict(out, phase_seconds=t_prune)
+    graphs_line("tinyllama-1.1b", out["graphs"], out["prune_seconds"], r0)
+
+    # ---- prune-graphs: the solves and phase 3's blocks against eager -----
+    with uncounted():
+        results["prune_graphs"] = prune_graphs_phase(gen, dev, pruned,
+                                                     report)
+    torch.cuda.empty_cache()
 
     # ---- 4. compress + serve ------------------------------------------
     comp = compress_params(pruned, report.masks, 2, 4)
@@ -4825,6 +5219,9 @@ def main() -> None:
     check(all(e["plan"]["mode"] == 2 for e in k2),
           "a K2 path shape is not planned on the tensor-core path")
     results["kernels"] = entries
+    results["prune_graphs"]["prunes"] = GRAPH_LINES
+    print("  prune seconds with graphs: " + ", ".join(
+        f"{k} {v['seconds']:.2f}" for k, v in GRAPH_LINES.items()))
     results["seconds"] = time.perf_counter() - t_all
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

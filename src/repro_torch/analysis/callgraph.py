@@ -11,7 +11,9 @@ decompresses and dtype-discipline must not miss a path.
 
 Jit seeds are the captured-entry points: targets of ``torch.compile`` /
 ``torch.jit.script`` / ``torch.jit.trace`` / ``torch.cuda.
-make_graphed_callables`` call or decorator forms, unwrapping
+make_graphed_callables`` and of the port's own capture helpers
+(``util.graphs.graphed``, ``util.graphs.Graph``) in call or decorator
+forms, unwrapping
 ``functools.partial`` either way around, and the calls a CUDA graph
 records — those in the body of a ``with torch.cuda.graph(...)`` block, and
 those after ``<graph>.capture_begin()`` up to ``capture_end()`` in the
@@ -29,6 +31,8 @@ JIT_WRAPPERS = frozenset({
     "torch.jit.script",
     "torch.jit.trace",
     "torch.cuda.make_graphed_callables",
+    "repro_torch.util.graphs.graphed",
+    "repro_torch.util.graphs.Graph",
 })
 # context managers whose body a CUDA graph records
 CAPTURE_BLOCKS = frozenset({"torch.cuda.graph", "torch.cuda.graphs.graph"})
@@ -98,6 +102,7 @@ class CallGraph:
         self.jit_sites: list = []                      # (module, relpath,
                                                        #  call node, wrapper)
         self._capture_calls: list = []                 # (module, call node)
+        self._wrapped: list = []                       # (module, target)
         self._edges: dict[str, set[str]] | None = None
 
     # ----------------------------------------------------------- indexing
@@ -243,12 +248,14 @@ class CallGraph:
                 if w is None:
                     continue
                 self.jit_sites.append((module, relpath, node, w))
+                # resolved once every module is indexed: a method target
+                # (``partial(adapter.block_apply, ...)``) resolves by name
                 if node.args:
-                    self._seed_expr(module, node.args[0])
+                    self._wrapped.append((module, node.args[0]))
                 else:  # torch.compile(model=..., ...) keyword form
                     for kw in node.keywords:
                         if kw.arg in ("model", "obj", "func", "fn"):
-                            self._seed_expr(module, kw.value)
+                            self._wrapped.append((module, kw.value))
         for site, wrapper, stmts in capture_regions(tree, imports):
             self.jit_sites.append((module, relpath, site, wrapper))
             self._capture_calls += [(module, sub) for stmt in stmts
@@ -384,7 +391,11 @@ class CallGraph:
         return chains
 
     def jit_reachable(self) -> dict[str, tuple[str, ...]]:
-        # the calls a graph records, resolved once every module is indexed
+        # the wrapped targets and the calls a graph records, resolved once
+        # every module is indexed
+        for module, expr in self._wrapped:
+            self._seed_expr(module, expr)
+        self._wrapped = []
         for module, call in self._capture_calls:
             imports = self.imports[module]
             func = call.func

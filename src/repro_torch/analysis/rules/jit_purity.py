@@ -11,7 +11,10 @@ tensor — ``bool()`` / ``int()`` / ``float()`` of it, ``.item()``,
 ``.tolist()``, ``.cpu()``, ``.numpy()`` — and a ``torch.tensor`` /
 ``torch.as_tensor`` of host data onto the card (a pageable host-to-device
 copy) are refused while a stream captures, on the card only, at the first
-capture.  This rule catches them at lint time via call-graph reachability.
+capture — and so is ``t[idx] = 1.0`` with a tensor index (``index_put_``
+copies the host scalar to the card; ``index_fill_`` takes it as an
+argument).  This rule catches them at lint time via call-graph
+reachability.
 """
 from __future__ import annotations
 
@@ -60,6 +63,34 @@ def _mentions_tensor(node: ast.AST, imports: dict) -> bool:
     return False
 
 
+def _own_nodes(fn: ast.AST):
+    """The nodes of a function's body, not those of the functions and
+    lambdas nested in it (the call graph holds those on their own)."""
+    stack = list(ast.iter_child_nodes(fn))
+    while stack:
+        node = stack.pop()
+        yield node
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.Lambda)):
+            stack.extend(ast.iter_child_nodes(node))
+
+
+def _scalar_index_put(node: ast.AST) -> bool:
+    """``t[<index>] = <constant>`` where an index element is a call, a
+    subscript or a name — an advanced-index store of a host scalar when it
+    is a tensor; a name may hold an int (a basic index, no copy): the rule
+    over-approximates, as the call graph does."""
+    if not (isinstance(node, ast.Assign) and len(node.targets) == 1
+            and isinstance(node.targets[0], ast.Subscript)
+            and isinstance(node.value, ast.Constant)
+            and isinstance(node.value.value, (bool, int, float))):
+        return False
+    idx = node.targets[0].slice
+    elts = idx.elts if isinstance(idx, ast.Tuple) else [idx]
+    return any(isinstance(e, (ast.Call, ast.Subscript, ast.Name))
+               for e in elts)
+
+
 def _onto_device(call: ast.Call) -> bool:
     """A ``device=`` keyword other than the literal "cpu"."""
     for kw in call.keywords:
@@ -82,9 +113,15 @@ class JitPurityRule:
         for key, chain in graph.jit_reachable().items():
             info = graph.functions[key]
             imports = graph.imports.get(info.module, {})
-            for dotted, bare, node in info.calls:
+            stores = [(None, None, n) for n in _own_nodes(info.node)
+                      if _scalar_index_put(n)]
+            for dotted, bare, node in info.calls + stores:
                 msg = None
-                if dotted is not None:
+                if isinstance(node, ast.Assign):
+                    msg = ("a host scalar stored at a tensor index "
+                           "(index_put_) is copied to the card, which a "
+                           "capture refuses; use index_fill_")
+                elif dotted is not None:
                     for prefix, why in _FORBIDDEN_PREFIXES.items():
                         if dotted == prefix or dotted.startswith(
                                 prefix + "."):

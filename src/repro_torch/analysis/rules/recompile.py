@@ -7,14 +7,16 @@ is worse: the graph records the kernels with the value it saw at capture,
 and every replay silently reuses it.  Two shapes:
 
 * a captured function — called in the body of a ``with torch.cuda.graph``
-  block or between ``capture_begin()`` and ``capture_end()``, or a
-  ``torch.cuda.make_graphed_callables`` target — whose signature admits a
+  block or between ``capture_begin()`` and ``capture_end()``, a
+  ``torch.cuda.make_graphed_callables`` target, or wrapped by the port's
+  ``util.graphs.graphed`` (decorator or call) — whose signature admits a
   Python scalar or dict (an ``int``/``float``/``bool``/``str``/``dict``
   annotation, or a scalar default).  Arguments bound at capture by
-  ``functools.partial`` are fixed for that graph by construction, as
-  JAX's ``static_argnums`` are, and are not flagged; a value that varies
-  per step belongs in a device tensor the caller writes before each
-  replay;
+  ``functools.partial`` are fixed for that graph by construction, and
+  ``graphed``'s ``static=`` names are part of its key, as JAX's
+  ``static_argnums`` / ``static_argnames`` are: neither is flagged.  A
+  value that varies per step belongs in a device tensor the caller writes
+  before each replay;
 
 * a graph captured in a loop body, or inside a function that keeps
   neither the graph nor the graphed callable (stores it in an attribute
@@ -33,6 +35,7 @@ from repro_torch.analysis.findings import Finding
 
 _SCALAR_ANNOTATIONS = frozenset({"int", "str", "bool", "float", "dict"})
 _GRAPHED = "torch.cuda.make_graphed_callables"
+_PORT_GRAPHED = "repro_torch.util.graphs.graphed"
 _PARTIAL = ("functools.partial", "partial")
 
 
@@ -106,6 +109,15 @@ class RecompileHazardsRule:
                         node.args:
                     findings += self._graphed(index, mf, node, defs,
                                               imports)
+                elif isinstance(node, ast.Call) and \
+                        dotted_name(node.func, imports) == _PORT_GRAPHED \
+                        and node.args:
+                    findings += self._port_graphed(index, mf, node, defs,
+                                                   imports)
+                elif isinstance(node, (ast.FunctionDef,
+                                       ast.AsyncFunctionDef)):
+                    findings += self._port_decorated(index, mf, node,
+                                                     imports)
             for site, wrapper, stmts in capture_regions(mf.tree, imports):
                 findings += self._fresh_graph(index, mf, site, wrapper)
                 for stmt in stmts:
@@ -133,6 +145,46 @@ class RecompileHazardsRule:
             return self._check_signature(index, mf, defs[target.id], bound,
                                          node.lineno)
         return []
+
+    def _port_graphed(self, index, mf, node, defs,
+                      imports) -> list[Finding]:
+        """``graphed(f, static=...)`` / ``graphed(partial(f, ...))``."""
+        target, bound = self._unwrap(node.args[0], imports)
+        if isinstance(target, ast.Name) and target.id in defs:
+            return self._check_signature(
+                index, mf, defs[target.id], bound, node.lineno,
+                self._static_names(node) | self._bound_keywords(
+                    node.args[0], imports))
+        return []
+
+    def _port_decorated(self, index, mf, fn, imports) -> list[Finding]:
+        """``@graphed`` / ``@graphed(static=(...))`` on a def."""
+        for dec in fn.decorator_list:
+            call = dec if isinstance(dec, ast.Call) else None
+            if dotted_name(call.func if call else dec,
+                           imports) == _PORT_GRAPHED:
+                return self._check_signature(
+                    index, mf, fn, 0, fn.lineno,
+                    self._static_names(call) if call else set())
+        return []
+
+    @staticmethod
+    def _static_names(call: ast.Call) -> set:
+        """The literal names of a ``static=(...)`` keyword."""
+        for kw in call.keywords:
+            if kw.arg == "static" and isinstance(kw.value,
+                                                 (ast.Tuple, ast.List)):
+                return {e.value for e in kw.value.elts
+                        if isinstance(e, ast.Constant)}
+        return set()
+
+    @staticmethod
+    def _bound_keywords(target: ast.AST, imports) -> set:
+        """The keywords a ``partial(f, ..., k=v)`` binds."""
+        if isinstance(target, ast.Call) and \
+                dotted_name(target.func, imports) in _PARTIAL:
+            return {kw.arg for kw in target.keywords if kw.arg}
+        return set()
 
     def _captured_call(self, index, mf, call, defs,
                        imports) -> list[Finding]:
@@ -206,19 +258,24 @@ class RecompileHazardsRule:
         return False
 
     def _check_signature(self, index, mf, fn, bound: int,
-                         site_line: int) -> list[Finding]:
+                         site_line: int, fixed: set = frozenset()
+                         ) -> list[Finding]:
+        """Scalar parameters of ``fn`` past its ``bound`` leading ones and
+        outside the names ``fixed`` (static or bound by keyword)."""
         findings = []
         args = fn.args
         pos = list(args.posonlyargs) + list(args.args)
         defaults = [None] * (len(pos) - len(args.defaults)) + \
             list(args.defaults)
         for i, (p, dflt) in enumerate(zip(pos, defaults)):
-            if p.arg in ("self", "cls") or i < bound:
+            if p.arg in ("self", "cls") or i < bound or p.arg in fixed:
                 continue
             if _is_scalar_annotation(p.annotation) or \
                     _is_scalar_default(dflt):
                 findings.append(self._hazard(mf, fn, p, site_line))
         for p, dflt in zip(args.kwonlyargs, args.kw_defaults):
+            if p.arg in fixed:
+                continue
             if _is_scalar_annotation(p.annotation) or \
                     _is_scalar_default(dflt):
                 findings.append(self._hazard(mf, fn, p, site_line))

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.faults import InsufficientCalibration
 from repro_torch.kernels import ops as kops
+from repro_torch.util.graphs import graphed
 
 Tensor = torch.Tensor
 
@@ -133,6 +134,7 @@ def cholesky_nan(a: Tensor, *, upper: bool = False) -> Tensor:
     return torch.where((info == 0)[..., None, None], fac, torch.nan)
 
 
+@graphed
 def inv_cholesky_upper(h: Tensor) -> Tensor:
     """``U`` upper-triangular with ``H⁻¹ = UᵀU`` (one O(b³) setup/layer):
     lower factor of H, triangular inverse, then the upper factor of H⁻¹."""

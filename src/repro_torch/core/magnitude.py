@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.thanos import PruneResult
+from repro_torch.util.graphs import graphed
 
 Tensor = torch.Tensor
 
@@ -16,6 +17,7 @@ def _result(w: Tensor, mask: Tensor) -> PruneResult:
     return PruneResult(w.masked_fill(pruned, 0), mask, loss)
 
 
+@graphed(static=("p",))
 def prune_unstructured(w: Tensor, h: "Tensor | None" = None, *,
                        p: float) -> PruneResult:
     """Layer-global: prune the ⌊pcb⌋ smallest |W_ij| (Alg. 4 line 2)."""
@@ -23,10 +25,11 @@ def prune_unstructured(w: Tensor, h: "Tensor | None" = None, *,
     k = int(p * c * b)
     mag = torch.abs(w.to(torch.float32)).reshape(-1)
     mask = torch.zeros((c * b,), dtype=torch.float32, device=w.device)
-    mask[torch.argsort(mag, stable=True)[:k]] = 1.0
+    mask.index_fill_(0, torch.argsort(mag, stable=True)[:k], 1.0)
     return _result(w, mask.reshape(c, b))
 
 
+@graphed(static=("n", "m"))
 def prune_nm(w: Tensor, h: "Tensor | None" = None, *, n: int,
              m: int) -> PruneResult:
     """n:m magnitude: n smallest |W| per m-group."""
@@ -39,6 +42,7 @@ def prune_nm(w: Tensor, h: "Tensor | None" = None, *, n: int,
     return _result(w, mask.reshape(c, b))
 
 
+@graphed(static=("p",))
 def prune_structured(w: Tensor, h: "Tensor | None" = None, *,
                      p: float) -> PruneResult:
     """Column magnitude: drop the ⌈pb⌉ smallest-‖·‖₂ columns."""
@@ -46,5 +50,5 @@ def prune_structured(w: Tensor, h: "Tensor | None" = None, *,
     s = int(-(-p * b // 1))
     score = (w.to(torch.float32) ** 2).sum(0)
     col = torch.zeros((b,), dtype=torch.float32, device=w.device)
-    col[torch.argsort(score, stable=True)[:s]] = 1.0
+    col.index_fill_(0, torch.argsort(score, stable=True)[:s], 1.0)
     return _result(w, col[None, :].expand(c, b))

@@ -49,7 +49,8 @@ def rank_threshold_mask(metric: Tensor, r) -> Tensor:
     """
     flat = metric.reshape(-1)
     u = _orderable_bits(flat)
-    r = torch.as_tensor(r, dtype=torch.int64, device=flat.device)
+    r = (r.to(torch.int64) if isinstance(r, Tensor) else
+         torch.full((), r, dtype=torch.int64, device=flat.device))
     prefix = torch.zeros((), dtype=torch.int64, device=flat.device)
     for k in range(32):
         cand = prefix | (1 << (31 - k))

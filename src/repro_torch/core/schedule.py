@@ -17,10 +17,21 @@ every forward still replays (``core/jobs.py``).  An armed
 ``repro_torch.faults.FaultPlan`` fires the prune sites ``calib_batch``,
 ``hessian_accum`` (here), ``cholesky`` (``prune_layer_guarded``) and
 ``journal_write`` (the journal).
+
+On a card each run is one ``util.graphs.scope()``: every layer solve
+(``core/api.prune_layer`` → the method's graphed solver) and each block's
+two passes run from CUDA graphs, captured at a key's second use, in one
+pool released when the run returns (JAX jits the same functions).  A
+block's pass 1 is captured over its carry before the block is pruned, its
+pass 2 after (``_write_layer`` rebinds the block's params), and both are
+dropped once the block is done, as JAX compiles per static block index.
+K1's accumulation, the guard's host checks, the journal, the fault sites
+and a mesh's collectives stay outside the graphs.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import time
 from typing import Any, Callable, Iterable, Mapping, Protocol
@@ -32,6 +43,7 @@ from repro_torch.core.api import (PruneConfig, method_spec,
 from repro_torch.core.hessian import HessianAccumulator
 from repro_torch.core.plan import LayerStat, PrunePlan, as_plan, path_str
 from repro_torch.faults import CalibrationError
+from repro_torch.util import graphs
 
 Tensor = torch.Tensor
 Path = tuple[Any, ...]
@@ -127,6 +139,9 @@ class PruneReport:
     masks: dict[Path, Tensor]
     seconds: float
     plan: PrunePlan | None = None
+    # the run's CUDA graphs (util.graphs.Scope.stats; empty on the CPU);
+    # not part of the artifact
+    graphs: dict = dataclasses.field(default_factory=dict)
 
     def mean_sparsity(self) -> float:
         tot = sum(m.numel() for m in self.masks.values())
@@ -205,13 +220,15 @@ def _capture(adapter, params, i: int, carries: list, accs: dict,
     ``calib_batch`` site fires once per (block, batch) forward and raises;
     ``hessian_accum`` fires once per accumulator update and turns the
     batch into NaNs, which the accumulator's non-finite guard drops."""
+    block = graphs.graphed(functools.partial(adapter.block_apply, params, i,
+                                             capture=True))
     for bi, carry in enumerate(carries):
         if faults is not None and \
                 faults.fire("calib_batch", uid=i) is not None:
             raise CalibrationError(
                 f"injected calibration failure (block {i}, batch {bi})",
                 site="calib_batch")
-        _, caps = adapter.block_apply(params, i, carry, capture=True)
+        _, caps = block(carry)
         for path, x in caps.items():
             if keep is not None and path not in accs and not keep(path):
                 continue
@@ -224,6 +241,16 @@ def _capture(adapter, params, i: int, carries: list, accs: dict,
                     faults.fire("hessian_accum") is not None:
                 x = torch.full_like(x, torch.nan)
             accs[path].update(x, valid)
+    graphs.release(block)
+
+
+def _forward(adapter, params, i: int, carries: list) -> list:
+    """Pass 2 of block i: every carry through the (pruned) block."""
+    block = graphs.graphed(functools.partial(adapter.block_apply, params, i,
+                                             capture=False))
+    out = [block(c)[0] for c in carries]
+    graphs.release(block)
+    return out
 
 
 def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
@@ -256,7 +283,8 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
     ``dist.prune.prune_layer_sharded``; every rank of the mesh calls
     ``prune_model`` with the same arguments, runs the same captures (K1) on
     the same batches, solves its rows of each layer and gets the whole
-    pruned tree back.
+    pruned tree back.  The report's ``graphs`` holds the run's graph
+    counters (``util.graphs.Scope.stats``).
     """
     plan = as_plan(plan)
     t_start = time.perf_counter()
@@ -282,7 +310,7 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
     # every site.  An entry goes when its layer is pruned or skipped.
     accs: dict[Path, HessianAccumulator] = {}
     ordinal = 0                  # global sequential layer index (journal key)
-    with torch.no_grad():
+    with torch.no_grad(), graphs.scope() as sc:
         for i in range(adapter.num_blocks(params)):
             # ---- pass 1: capture inputs, accumulate Hessians -------------
             # replays for journaled blocks too (see ``journal`` above)
@@ -368,12 +396,11 @@ def prune_model(params, adapter: BlockwiseAdapter, batches: Iterable[Any],
                              f"loss={rep.obs_loss:.3e}")
 
             # ---- pass 2: propagate through the pruned block ---------------
-            carries = [adapter.block_apply(params, i, c, capture=False)[0]
-                       for c in carries]
+            carries = _forward(adapter, params, i, carries)
 
     return params, PruneReport(layers=reports, masks=masks,
                                seconds=time.perf_counter() - t_start,
-                               plan=plan)
+                               plan=plan, graphs=sc.stats())
 
 
 def collect_hessian_stats(params, adapter: BlockwiseAdapter,
@@ -383,11 +410,12 @@ def collect_hessian_stats(params, adapter: BlockwiseAdapter,
     Alg. 3's pass 1 (capture + Hessian accumulation, K1 on the card) over
     the unpruned model, each layer's Hessian reduced to its mean diagonal
     tr(H)/b — the saliency proxy ``PrunePlan.allocate_sparsity`` reads.
-    No pruning, no weight change; one forward per block and batch.
+    No pruning, no weight change; one forward per block and batch, from
+    CUDA graphs on a card (``prune_model``'s).
     """
     carries = [adapter.prepare(params, b) for b in batches]
     stats: dict[str, LayerStat] = {}
-    with torch.no_grad():
+    with torch.no_grad(), graphs.scope():
         for i in range(adapter.num_blocks(params)):
             accs: dict[Path, HessianAccumulator] = {}
             _capture(adapter, params, i, carries, accs)
@@ -398,6 +426,5 @@ def collect_hessian_stats(params, adapter: BlockwiseAdapter,
                 stats[path_str(path)] = LayerStat(
                     size=get_path(params, path).numel(),
                     trace=float(torch.trace(h)) / h.shape[0])
-            carries = [adapter.block_apply(params, i, c, capture=False)[0]
-                       for c in carries]
+            carries = _forward(adapter, params, i, carries)
     return stats

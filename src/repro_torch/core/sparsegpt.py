@@ -12,8 +12,10 @@ in a panel E, and the block ends with one ``E @ U[j1:j2, j2:]`` product on
 the columns after it.  The loss is ½ Σ err² over every column (summed per
 block; the JAX loop adds it per column — the same sum in another order).
 
-The JAX ``fori_loop`` over columns becomes a Python loop of a few eager
-torch ops per column (everything fp32), on whichever device ``w`` lies.
+The JAX ``fori_loop`` over columns becomes a Python loop of a few torch
+ops per column (everything fp32), on whichever device ``w`` lies; inside
+a prune run on the card each solver (``util.graphs.graphed``, JAX's static
+arguments) replays the whole sweep as one CUDA graph a shape.
 Two layout choices keep it short without changing a result: the block is
 held transposed (bs, c) so a column is a contiguous row, and a pruned
 column's exact zeros are written once at the end of its block (no later
@@ -30,6 +32,7 @@ import torch
 
 from repro_torch.core import hessian as hmod
 from repro_torch.core.thanos import PruneResult
+from repro_torch.util.graphs import graphed
 
 Tensor = torch.Tensor
 
@@ -82,6 +85,7 @@ def _mask_block_size(b: int, requested: int, multiple: int = 1) -> int:
     return bs
 
 
+@graphed(static=("p", "mask_blocksize", "percdamp"))
 def prune_unstructured(w: Tensor, h: Tensor, *, p: float,
                        mask_blocksize: int = 128,
                        percdamp: float = 0.01) -> PruneResult:
@@ -98,13 +102,15 @@ def prune_unstructured(w: Tensor, h: Tensor, *, p: float,
     for j1 in range(0, b, bs):
         metric = (w_cur[:, j1:j1 + bs] / udiag[None, j1:j1 + bs]) ** 2
         mb = torch.zeros((c * bs,), dtype=torch.float32, device=w.device)
-        mb[torch.argsort(metric.reshape(-1), stable=True)[:k]] = 1.0
+        mb.index_fill_(0, torch.argsort(metric.reshape(-1), stable=True)[:k],
+                       1.0)
         mb = mb.reshape(c, bs)
         loss = loss + sweep(j1, w_cur, mb.T.contiguous())
         mask[:, j1:j1 + bs] = mb
     return PruneResult(w_cur.to(w.dtype), mask, loss)
 
 
+@graphed(static=("n", "m", "blocksize", "percdamp"))
 def prune_nm(w: Tensor, h: Tensor, *, n: int, m: int, blocksize: int = 128,
              percdamp: float = 0.01) -> PruneResult:
     """SparseGPT n:m: refresh the mask per m-group at the group's first
@@ -133,6 +139,7 @@ def prune_nm(w: Tensor, h: Tensor, *, n: int, m: int, blocksize: int = 128,
     return PruneResult(w_cur.to(w.dtype), mask, loss)
 
 
+@graphed(static=("p", "blocksize", "percdamp"))
 def prune_structured(w: Tensor, h: Tensor, *, p: float, blocksize: int = 128,
                      percdamp: float = 0.01) -> PruneResult:
     """Structured (column) SparseGPT baseline of the paper's Tab. 2: remove
@@ -144,7 +151,7 @@ def prune_structured(w: Tensor, h: Tensor, *, p: float, blocksize: int = 128,
     u, udiag, w_cur = _solve_prep(w, h, percdamp)
     saliency = ((w_cur / udiag[None, :]) ** 2).sum(0)
     col = torch.zeros((b,), dtype=torch.float32, device=w.device)
-    col[torch.argsort(saliency, stable=True)[:s]] = 1.0
+    col.index_fill_(0, torch.argsort(saliency, stable=True)[:s], 1.0)
     sweep = _block_sweep(u, bs)
     loss = torch.zeros((), dtype=torch.float32, device=w.device)
     for j1 in range(0, b, bs):

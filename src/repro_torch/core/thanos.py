@@ -7,6 +7,10 @@ that is +inf on finished columns, and the trailing inverse Hessian carried
 as a full (b, b) matrix advanced by the rank-B downdate
 (``hessian.block_downdate``, in place).  Every block's padded OBS systems
 are solved once (``solver.prune_block``).
+
+Each solver is ``util.graphs.graphed`` with JAX's static arguments: inside
+a prune run on the card it replays one CUDA graph a shape, so the loops
+above cost their launches once, at the capture.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 from repro_torch.core import hessian as hmod
 from repro_torch.core import masks as mmod
 from repro_torch.core import solver as smod
+from repro_torch.util.graphs import graphed
 
 Tensor = torch.Tensor
 
@@ -38,6 +43,7 @@ def _setup(w: Tensor, h: Tensor, percdamp: float, alpha: float):
     return xnorm, u_hinv, hinv, w32, _outlier_row_mask(w32, h, alpha)
 
 
+@graphed(static=("p", "block_size", "percdamp", "row_chunk", "alpha"))
 def prune_unstructured(w: Tensor, h: Tensor, *, p: float,
                        block_size: int = 128, percdamp: float = 0.01,
                        row_chunk: int = 0, alpha: float = 0.0) -> PruneResult:
@@ -48,7 +54,7 @@ def prune_unstructured(w: Tensor, h: Tensor, *, p: float,
     c, b = w.shape
     B = min(block_size, b)
     xnorm, u_hinv, hinv, w_cur, outlier = _setup(w, h, percdamp, alpha)
-    r = torch.tensor(int(p * c * b), dtype=torch.int64, device=w.device)
+    r = torch.full((), int(p * c * b), dtype=torch.int64, device=w.device)
     cols = torch.arange(b, device=w.device)
     total = torch.zeros((c, b), dtype=torch.float32, device=w.device)
     loss = torch.zeros((), dtype=torch.float32, device=w.device)
@@ -71,6 +77,8 @@ def prune_unstructured(w: Tensor, h: Tensor, *, p: float,
     return PruneResult(w_cur.to(w.dtype), total, loss)
 
 
+@graphed(static=("n", "m", "block_size", "percdamp", "row_chunk",
+                 "alpha"))
 def prune_nm(w: Tensor, h: Tensor, *, n: int, m: int, block_size: int = 512,
              percdamp: float = 0.01, row_chunk: int = 0,
              alpha: float = 0.0) -> PruneResult:
@@ -104,10 +112,11 @@ def _outlier_row_mask(w: Tensor, h: Tensor, alpha: float) -> Tensor:
     mask = torch.zeros((c,), dtype=torch.bool, device=w.device)
     if n_out:
         hi = torch.einsum("ib,bk,ik->i", w, 0.5 * h, w)
-        mask[torch.argsort(-hi, stable=True)[:n_out]] = True
+        mask.index_fill_(0, torch.argsort(-hi, stable=True)[:n_out], True)
     return mask
 
 
+@graphed(static=("p", "alpha", "percdamp"))
 def prune_structured(w: Tensor, h: Tensor, *, p: float, alpha: float = 0.1,
                      percdamp: float = 0.01) -> PruneResult:
     """Thanos Alg. 2 — structured column pruning with outlier-row
@@ -130,7 +139,7 @@ def prune_structured(w: Tensor, h: Tensor, *, p: float, alpha: float = 0.1,
     w_new = torch.where(outlier[:, None], w32, w32 - lam @ hinv[q, :])
 
     col = torch.zeros((b,), dtype=torch.float32, device=w.device)
-    col[q] = 1.0
+    col.index_fill_(0, q, 1.0)
     mask = torch.where(outlier[:, None], 0.0, col[None, :])
     w_new = torch.where(mask > 0.5, 0.0, w_new)
     loss = 0.5 * (lam * u).sum()                              # Σ_k S_k

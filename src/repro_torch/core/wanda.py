@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import masks as mmod
 from repro_torch.core.thanos import PruneResult
+from repro_torch.util.graphs import graphed
 
 Tensor = torch.Tensor
 
@@ -28,6 +29,7 @@ def _metric(w: Tensor, h: Tensor) -> Tensor:
                              mmod.col_norms_from_hessian(h))
 
 
+@graphed(static=("p",))
 def prune_unstructured(w: Tensor, h: Tensor, *, p: float) -> PruneResult:
     """Per row, prune the ⌊pb⌋ smallest-metric weights (row-local)."""
     c, b = w.shape
@@ -38,6 +40,7 @@ def prune_unstructured(w: Tensor, h: Tensor, *, p: float) -> PruneResult:
     return _result(w, mask, metric)
 
 
+@graphed(static=("n", "m"))
 def prune_nm(w: Tensor, h: Tensor, *, n: int, m: int) -> PruneResult:
     """n:m Wanda: the n smallest-metric weights per m-group, no update."""
     xnorm = mmod.col_norms_from_hessian(h)
@@ -45,6 +48,7 @@ def prune_nm(w: Tensor, h: Tensor, *, n: int, m: int) -> PruneResult:
     return _result(w, mask, mmod.wanda_metric(w.to(torch.float32), xnorm))
 
 
+@graphed(static=("p",))
 def prune_structured(w: Tensor, h: Tensor, *, p: float) -> PruneResult:
     """Structured Wanda (paper Tab. 2 baseline): drop the ⌈pb⌉ columns with
     the smallest aggregated metric Σ_i (|W_ij|·‖X_j‖)², no update."""
@@ -52,5 +56,6 @@ def prune_structured(w: Tensor, h: Tensor, *, p: float) -> PruneResult:
     metric = _metric(w, h)
     col_score = (metric ** 2).sum(0)
     col = torch.zeros((b,), dtype=torch.float32, device=w.device)
-    col[torch.argsort(col_score, stable=True)[:int(-(-p * b // 1))]] = 1.0
+    s = int(-(-p * b // 1))
+    col.index_fill_(0, torch.argsort(col_score, stable=True)[:s], 1.0)
     return _result(w, col[None, :].expand(c, b), metric)

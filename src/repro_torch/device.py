@@ -10,7 +10,11 @@ def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
 
     Asking for CUDA without a card raises — there is no silent CPU
     fallback.  On CUDA this also turns TF32 off for matmuls and cuDNN:
-    the OBS solve and the Hessian need full fp32 (TF32 keeps ~3 digits).
+    the OBS solve and the Hessian need full fp32 (TF32 keeps ~3 digits);
+    and it routes the linear algebra to cuSOLVER, which the captured
+    solves need (``util/graphs.py``: PyTorch's default sends a batched
+    ``cholesky_solve`` to MAGMA), so eager and replayed solves run the
+    same routines.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -20,6 +24,7 @@ def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
                 "pass device='cpu' to run the plain PyTorch path")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.preferred_linalg_library("cusolver")
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev

@@ -90,6 +90,7 @@ def prune_arch(arch: str, plan: "PrunePlan | PruneConfig", *,
         "layers_pruned": sum(1 for r in report.layers if not r.skipped),
         "layers_skipped": sum(1 for r in report.layers if r.skipped),
         "rules": report.rule_rollup(),
+        "graphs": report.graphs,
     }
     if job_dir:
         out["job_dir"] = job_dir

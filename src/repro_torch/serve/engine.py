@@ -88,22 +88,20 @@ step raises ``NonFiniteLogits`` before any token is absorbed
 from __future__ import annotations
 
 import dataclasses
-import gc
 import math
-import threading
 import time
 from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ops import NmKernelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.serve.faults import (DeviceOom, FaultPlan, NonFiniteLogits,
                                       QueueFull)
 from repro_torch.serve.pager import SCRATCH, Pager, PoolExhausted
+from repro_torch.util import graphs
 
 
 @dataclasses.dataclass
@@ -273,22 +271,6 @@ def _decode_fn(model, params, cache, tokens, pos) -> torch.Tensor:
     return logits[:, -1, :]
 
 
-_SIDE = threading.local()     # a thread's capture stream for each device
-
-
-def _capture_stream(device) -> "torch.cuda.Stream":
-    """The calling thread's side stream on ``device``, made once: every
-    engine of the thread warms up and captures on it, so the streams (and
-    the cuBLAS workspaces PyTorch keeps for each) do not grow with the
-    engines."""
-    streams = getattr(_SIDE, "streams", None)
-    if streams is None:
-        streams = _SIDE.streams = {}
-    if device not in streams:
-        streams[device] = torch.cuda.Stream(device)
-    return streams[device]
-
-
 class _Step:
     """One batch size's model step over one static cache (an entry of
     JAX's ``_model_jits``): static ``tokens`` (B, 1) and ``pos`` (B,) that
@@ -298,11 +280,10 @@ class _Step:
     On the CPU every call runs the step eagerly.  On a card the first call
     runs it eagerly on the thread's side stream and checks that it wrote
     its cache in place (a rebound tensor would leave a graph writing stale
-    buffers), then captures it as a CUDA graph in ``pool``; every later
-    call replays the graph.  A replay runs no Python, so the kernel
-    wrappers' launch tally taken at capture is added to their counts on
-    each replay.  The logits a replay returns live in the pool: consume or
-    copy them before any graph of the pool replays again."""
+    buffers), then captures it as a CUDA graph in ``pool``
+    (``util.graphs.Graph``); every later call replays the graph.  The
+    logits a replay returns live in the pool: consume or copy them before
+    any graph of the pool replays again."""
 
     def __init__(self, model, params, cache, batch: int, pool):
         dev = model.device
@@ -310,67 +291,35 @@ class _Step:
                                                           cache, pool)
         self.tokens = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
         self.pos = torch.zeros((batch,), dtype=torch.int64, device=dev)
-        self.graph: "torch.cuda.CUDAGraph | None" = None
-        self.logits: "torch.Tensor | None" = None
-        self.tally: list = []
+        self.graph: "graphs.Graph | None" = None
         self.calls = 0           # model steps run, eager or replayed
-        self.replays = 0
         self.capture_s = 0.0     # the warm-up step and the capture
-        self.pool_bytes = 0      # bytes the capture added to the reserve
+        self.pool_bytes = 0      # what the capture added to the reserve
+
+    @property
+    def replays(self) -> int:
+        return 0 if self.graph is None else self.graph.replays
+
+    def _captured_step(self) -> torch.Tensor:
+        return _decode_fn(self.model, self.params, self.cache, self.tokens,
+                          self.pos)
 
     def run(self) -> torch.Tensor:
         self.calls += 1
         if self.graph is not None:
-            self.graph.replay()
-            self.replays += 1
-            kops.add_launches(self.tally)
-            return self.logits
-        if self.tokens.device.type != "cuda":
-            return _decode_fn(self.model, self.params, self.cache,
-                              self.tokens, self.pos)
-        return self._warm_and_capture()
-
-    def _warm_and_capture(self) -> torch.Tensor:
-        t0 = time.perf_counter()
+            return self.graph.replay()
         dev = self.tokens.device
-        side = _capture_stream(dev)
-        main = torch.cuda.current_stream(dev)
+        if dev.type != "cuda":
+            return self._captured_step()
+        t0 = time.perf_counter()
         ptrs = _leaf_ptrs(self.cache)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            logits = _decode_fn(self.model, self.params, self.cache,
-                                self.tokens, self.pos)
-        main.wait_stream(side)
-        logits.record_stream(main)
+        logits = graphs.run_on_side(self._captured_step, dev)
         if _leaf_ptrs(self.cache) != ptrs:
             raise RuntimeError(
                 f"{type(self.model).__name__}.decode_step rebinds a cache "
                 f"tensor: a captured step would replay into stale buffers")
-        # A dead engine left in a reference cycle frees its graphs' pool
-        # (cudaFree) when the collector finds it: refused while this
-        # thread captures, it would invalidate the capture.  So the
-        # collector is held off from the reserve's reading to the end of
-        # the capture.
-        collecting = gc.isenabled()
-        gc.disable()
-        before = kops.launch_counts()
-        try:
-            torch.cuda.synchronize(dev)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(dev)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, pool=self.pool, stream=side,
-                                  capture_error_mode="thread_local"):
-                self.logits = _decode_fn(self.model, self.params,
-                                         self.cache, self.tokens, self.pos)
-        except BaseException:
-            self.graph = None
-            raise
-        finally:
-            if collecting:
-                gc.enable()
-            # the capture counted its kernels but launched none
-            self.tally = kops.take_launches(before)
+        reserved = graphs.settled_reserve(dev)
+        self.graph = graphs.Graph(self._captured_step, dev, self.pool)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.capture_s = time.perf_counter() - t0
         return logits

@@ -389,7 +389,16 @@ class TestJitPurity:
                     "repro_torch.kernels.nm_spmm::nm_matmul_stacked_cuda"):
             assert key in reach, key
         assert not any(k.endswith("::ServingEngine._select") for k in reach)
-        assert [w for *_, w in graph.jit_sites] == ["torch.cuda.graph"]
+        # the one capture (a ``capture_begin``, no ``with torch.cuda.
+        # graph``) is the shared helper's; the engine captures its step
+        # through ``util.graphs.Graph``
+        sites = [(m, w) for m, _, _, w in graph.jit_sites]
+        assert [m for m, w in sites if w in (
+            "torch.cuda.graph", "torch.cuda.CUDAGraph.capture_begin")] == \
+            ["repro_torch.util.graphs"]
+        assert [m for m, w in sites
+                if w == "repro_torch.util.graphs.Graph"] == \
+            ["repro_torch.serve.engine"]
 
 
 class TestRecompileHazards:
