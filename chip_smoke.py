@@ -90,13 +90,22 @@ train. train — right after phase 4, on phase 3's pruned tree and masks:
              on for this check only); (c) the paper's sparse finetune at
              full size: FINETUNE_STEPS steps of the sparsity-preserving
              AdamW (wd 0.01, clip 1.0, cosine 5e-4) on a clone of the
-             pruned tree, from ``TrainStream`` step 1000 — every pruned
-             coordinate of the 154 masked linears exactly 0, held-out loss
-             below the pruned tree's, strict 2:4 compression 0.625, the
-             phase-4 request set served (K2 launches counted), the
-             first-step logits against the decompressed tree at rel ≤
-             5e-2; the median step, tokens/s, the update's share of the
-             step, peak memory and the stream's draw time printed.
+             pruned tree, from ``TrainStream`` step 1000, from the step's
+             CUDA graph (step 1 eager, step 2 captured, then replays; (a)
+             and (b) run graphed too) — every pruned coordinate of the 154
+             masked linears exactly 0, held-out loss below the pruned
+             tree's, strict 2:4 compression 0.625, the phase-4 request
+             set served (K2 launches counted), the first-step logits
+             against the decompressed tree at rel ≤ 5e-2; the eager,
+             capture and replayed step ms, tokens/s, the graph's capture
+             s and pool bytes, peak memory, the stream's draw time, and
+             eager / replayed ms of the loss, loss + grads without and
+             with remat, and the update alone (its own graph: a capture
+             holds no timing event) printed; (c′) REPLAY_STEPS steps of
+             a cosine schedule on fresh clones, from the graph against
+             the direct function — params, moments, losses, grad norms
+             bitwise equal (deterministic algorithms on), and not so
+             with an update that reads the capture's lr planted.
 base. baselines — the paper's comparison methods on phase 3's dense
              tinyllama tree: SparseGPT (block 64), Wanda and magnitude each
              prune 2:4 (K1), compress and serve the phase-4 request set
@@ -365,6 +374,9 @@ JOB_LAYERS, JOB_KILL, SITE_LAYERS = 4, 14, 1
 # full width cut to 2 layers (a checkpoint of ~2.2 GB, not ~11 GB); the
 # sparse finetune takes 16 steps at full width and depth
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_RESTART_LAYERS, FINETUNE_STEPS = 8, 256, 2, 16
+# (c′): replayed vs eager steps of the finetune; the timed replays of one
+# graphed call (the update alone, the loss / grad split)
+REPLAY_STEPS, TIMED_REPLAYS = 6, 5
 # the dist phase: two ranks on the one card; (d) takes DIST_STEPS sharded
 # train steps at lr DIST_LR on the train phase's batch, its losses held to
 # DIST_LOSS_TOL of make_train_step's on the whole batch; a rank's
@@ -3525,6 +3537,14 @@ def train_cli_part(pruned, root: Path) -> dict:
     (r1, s1), (r2, s2) = runs
     check(r2.stdout.splitlines()[0] == "restored checkpoint at step 4",
           f"train CLI resume: {r2.stdout[:300]!r}")
+    g_re = (r"graphs: (\d+) graphs, (\d+) replays, capture (\S+) s, pool "
+            r"(\d+) bytes")
+    g1, g2 = re.search(g_re, r1.stdout), re.search(g_re, r2.stdout)
+    check(None not in (g1, g2), "train CLI: no graphs line")
+    # run 1: steps 0–3 (eager, capture, 2 replays); run 2 restores into
+    # new storage: a new key (eager, capture)
+    check(g1.group(1, 2) == ("1", "3") and g2.group(1, 2) == ("1", "1"),
+          f"train CLI graphs: {g1.group(0)} / {g2.group(0)}")
     loss_re = r"done: first loss (\S+) → last (\S+)"
     ck_re = (r"checkpoint: step (\d+), (\d+) bytes, last save (\S+) s, "
              r"restore (\S+) s")
@@ -3544,16 +3564,22 @@ def train_cli_part(pruned, root: Path) -> dict:
           f"→ {losses[1]:.4f}; run 2 resumed at step 4 (2 steps) {s2:.1f} s,"
           f" losses {losses[2]:.4f} → {losses[3]:.4f}; checkpoint "
           f"{nbytes} bytes ({nbytes / 1e9:.2f} GB), save {save_s:.2f} s, "
-          f"restore {restore_s:.2f} s")
+          f"restore {restore_s:.2f} s; {g1.group(0)} / {g2.group(0)}")
+    graphs = [{"graphs": int(g.group(1)), "replays": int(g.group(2)),
+               "capture_s": float(g.group(3)), "pool_bytes": int(g.group(4))}
+              for g in (g1, g2)]
     return {"run_seconds": [s1, s2], "losses": losses, "ckpt_bytes": nbytes,
-            "save_seconds": save_s, "restore_seconds": restore_s}
+            "save_seconds": save_s, "restore_seconds": restore_s,
+            "graphs": graphs}
 
 
 def train_restart_part(cfg, dev, root: Path) -> dict:
     """(b) ``Trainer`` on tinyllama at full width cut to TRAIN_RESTART_LAYERS
     layers, remat 'block': an uninterrupted 8-step run against one stopped
     at step 4 and resumed — params, both moments and the losses of steps
-    4–7 bitwise equal, with deterministic algorithms on for this check."""
+    4–7 bitwise equal, with deterministic algorithms on for this check.
+    The steps run from graphs: step 4 is a replay in the first run and the
+    eager warm-up of the restored tree in the second."""
     import torch
 
     from repro_torch.data.pipeline import SyntheticCorpus, TrainStream
@@ -3608,33 +3634,40 @@ def train_restart_part(cfg, dev, root: Path) -> dict:
             "restore_seconds": ck.restore_seconds}
 
 
-class _TimedUpdate:
-    """An optimizer whose ``update`` is bracketed by CUDA events (no
-    synchronisation), so a step's update time is read afterwards."""
+def replay_ms(fn, args: tuple, replays: int = TIMED_REPLAYS) -> tuple:
+    """``fn`` (a ``graphed`` callable) in a scope of its own: a call (eager),
+    a call (capture), then ``replays`` replays timed by CUDA events around
+    them → (ms a replay, the scope's stats); the scope is released."""
+    import torch
 
-    def __init__(self, opt):
-        self.opt, self.spans = opt, []
+    from repro_torch.util import graphs
 
-    def init(self, params):
-        return self.opt.init(params)
-
-    def update(self, *args, **kw):
-        import torch
-
+    sc = graphs.Scope(measure=True)
+    with graphs.scope(sc):
+        fn(*args)
+        fn(*args)
+        torch.cuda.synchronize()
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
-        out = self.opt.update(*args, **kw)
+        for _ in range(replays):
+            fn(*args)
         b.record()
-        self.spans.append((a, b))
-        return out
+        b.synchronize()
+    stats = sc.stats()
+    sc.close()
+    return a.elapsed_time(b) / replays, stats
 
 
 def finetune_part(cfg, model, pruned, report, prompts, dev,
                   pruned_loss: float) -> dict:
     """(c) the paper's sparse finetune at full size: FINETUNE_STEPS steps
-    of the sparsity-preserving AdamW on a clone of phase 3's pruned tree,
-    then held-out loss, the pruned coordinates, strict 2:4 compression and
-    the phase-4 request set served through K2."""
+    of the sparsity-preserving AdamW on a clone of phase 3's pruned tree
+    from ``make_train_step``'s graph (step 1 eager, step 2 captured, the
+    rest replayed), then held-out loss, the pruned coordinates, strict 2:4
+    compression and the phase-4 request set served through K2; then where
+    a step's time goes, eager and replayed: the loss alone, loss + grads
+    without and with remat, and the update alone as a graphed call of its
+    own (a capture holds no timing event)."""
     import statistics
 
     import torch
@@ -3642,10 +3675,12 @@ def finetune_part(cfg, model, pruned, report, prompts, dev,
     from repro_torch.core.schedule import get_path
     from repro_torch.data.pipeline import (SyntheticCorpus, TrainStream,
                                            heldout_loss)
-    from repro_torch.optim import AdamW, cosine_warmup, sparsity_preserving
+    from repro_torch.optim import (AdamW, AdamWState, cosine_warmup,
+                                   sparsity_preserving)
     from repro_torch.serve.compressed import compress_params, compressed_bytes
     from repro_torch.train.step import (_loss_with_remat, make_train_step,
                                         value_and_grad)
+    from repro_torch.util import graphs
     from repro_torch.util.tree import map_tree
 
     # compress_params shares phase 4's unpruned leaves with this tree: the
@@ -3654,10 +3689,10 @@ def finetune_part(cfg, model, pruned, report, prompts, dev,
     torch.cuda.synchronize()
     base_mem = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    opt = _TimedUpdate(sparsity_preserving(
-        AdamW(weight_decay=0.01, clip_norm=1.0), report.masks))
-    step = make_train_step(model, opt, cosine_warmup(5e-4, 2, FINETUNE_STEPS),
-                           remat="block")
+    opt = sparsity_preserving(AdamW(weight_decay=0.01, clip_norm=1.0),
+                              report.masks)
+    sched = cosine_warmup(5e-4, 2, FINETUNE_STEPS)
+    step = make_train_step(model, opt, sched, remat="block")
     stream = TrainStream(SyntheticCorpus(vocab_size=cfg.vocab_size),
                          global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                          device=dev)
@@ -3676,24 +3711,12 @@ def finetune_part(cfg, model, pruned, report, prompts, dev,
         step_ms.append(1e3 * (t2 - t1))
         losses.append(float(m["loss"]))
     peak = torch.cuda.max_memory_allocated()
-    upd_ms = [a.elapsed_time(b) for a, b in opt.spans]
-    # where the step's time goes: the loss alone, then loss + grads without
-    # and with remat (wall ms, the median of 3 synchronised calls)
-    parts = {"forward": lambda: model.loss(ft, batch),
-             "grad": lambda: value_and_grad(model.loss, ft, batch),
-             "grad_remat": lambda: value_and_grad(
-                 _loss_with_remat(model, "block"), ft, batch)}
-    split = {}
-    for name, fn in parts.items():
-        times = []
-        for _ in range(4):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with torch.set_grad_enabled(name != "forward"):
-                fn()
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-        split[name] = statistics.median(times[1:])
+    gst = step.stats()
+    check(gst["graphs"] == 1 and gst["replays"] == FINETUNE_STEPS - 1,
+          f"finetune: the step's graphs {gst}")
+    step.release()
+    del m
+    torch.cuda.empty_cache()
     check(all(math.isfinite(x) for x in losses),
           f"finetune: non-finite loss {losses}")
     bad = sum(int(get_path(ft, p)[mk > 0.5].count_nonzero())
@@ -3714,37 +3737,179 @@ def finetune_part(cfg, model, pruned, report, prompts, dev,
     check(k2 > 0, "finetune: the finetuned tree served without K2")
     with uncounted():
         e = first_step_line(model, comp, prompts)
-    med = statistics.median(step_ms[1:])
-    share = statistics.median(u / s for u, s in zip(upd_ms[1:],
-                                                     step_ms[1:]))
+    del comp
+
+    # where a step's time goes, on the last batch: eager (``eager_ms``, 3
+    # calls) and replayed (CUDA events over TIMED_REPLAYS replays of its
+    # own graph); ft is not read after this
+    remat = _loss_with_remat(model, "block")
+    parts = {"forward": lambda p, b: model.loss(p, b),
+             "grad": lambda p, b: value_and_grad(model.loss, p, b)[0],
+             "grad_remat": lambda p, b: value_and_grad(remat, p, b)[0]}
+    split, split_replay = {}, {}
+    for name, fn in parts.items():
+        with torch.set_grad_enabled(name != "forward"):
+            split[name] = eager_ms(lambda: fn(ft, batch), 3)
+            split_replay[name], _ = replay_ms(
+                graphs.graphed(fn, donate=("p",)), (ft, batch))
+    grads = value_and_grad(remat, ft, batch)[1]
+    count = state.step.to(dev)
+
+    def update_only(params, mu, nu, grads, count):
+        new_p, new = opt.update(grads, AdamWState(step=count, mu=mu, nu=nu),
+                                params, sched(count), inplace=True)
+        return new.step
+
+    args = (ft, state.mu, state.nu, grads, count)
+    upd_eager = eager_ms(lambda: update_only(*args), 3)
+    upd_replay, ust = replay_ms(graphs.graphed(
+        update_only, donate=("params", "mu", "nu", "grads")), args)
+    del grads, args
+    torch.cuda.empty_cache()
+
+    first, capture = step_ms[0], step_ms[1]
+    med = statistics.median(step_ms[2:])
+    share = upd_replay / med
     ntok = sum(len(r.out) for r in done)
     print(f"  (c) sparse finetune, full width and depth, {FINETUNE_STEPS} "
-          f"steps of batch {TRAIN_BATCH} × {TRAIN_SEQ} from step 1000: "
-          f"losses {losses[0]:.4f} → {losses[-1]:.4f}; step median "
-          f"{med:.1f} ms (first {step_ms[0]:.1f} ms, min "
-          f"{min(step_ms[1:]):.1f}, max {max(step_ms[1:]):.1f}), "
-          f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} training tokens/s, "
-          f"update {statistics.median(upd_ms[1:]):.1f} ms = {share:.3f} of "
-          f"the step; stream draw {statistics.median(draw_ms):.1f} ms a "
-          f"batch; peak memory {peak / 2**30:.2f} GiB "
-          f"(held before {base_mem / 2**30:.2f} GiB)")
-    print(f"      one batch, wall ms: loss alone {split['forward']:.1f}, "
-          f"loss + grads {split['grad']:.1f}, with remat 'block' "
-          f"{split['grad_remat']:.1f}")
+          f"steps of batch {TRAIN_BATCH} × {TRAIN_SEQ} from step 1000 from "
+          f"the step's graph: losses {losses[0]:.4f} → {losses[-1]:.4f}; "
+          f"step 1 (eager warm-up) {first:.1f} ms, step 2 (capture) "
+          f"{capture:.1f} ms, replayed median {med:.1f} ms over steps 3–"
+          f"{FINETUNE_STEPS} (min {min(step_ms[2:]):.1f}, max "
+          f"{max(step_ms[2:]):.1f}), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} training tokens/s; "
+          f"{gst['graphs']} graph, {gst['replays']} replays, capture "
+          f"{gst['capture_s']:.2f} s, pool {gst['pool_bytes'] / 2**30:.2f} "
+          f"GiB; stream draw {statistics.median(draw_ms):.1f} ms a batch; "
+          f"peak memory {peak / 2**30:.2f} GiB (held before "
+          f"{base_mem / 2**30:.2f} GiB)")
+    print(f"      one batch, eager / replayed ms: loss alone "
+          f"{split['forward']:.1f} / {split_replay['forward']:.1f}, loss + "
+          f"grads {split['grad']:.1f} / {split_replay['grad']:.1f}, with "
+          f"remat 'block' {split['grad_remat']:.1f} / "
+          f"{split_replay['grad_remat']:.1f}; the update alone (masked "
+          f"AdamW, clip) {upd_eager:.1f} / {upd_replay:.1f} ms = "
+          f"{share:.3f} of the replayed step (its graph's pool "
+          f"{ust['pool_bytes'] / 2**30:.2f} GiB)")
     print(f"      held-out loss pruned {pruned_loss:.4f} → finetuned "
           f"{ft_loss:.4f}; all {len(report.masks)} masked linears' pruned "
           f"coordinates exactly 0; strict 2:4 compression {cb / db:.4f}; "
           f"phase-4 set served, {ntok} tokens in {t_serve:.2f} s, K2 "
           f"launches {k2}")
-    return {"losses": losses, "step_ms": step_ms, "step_ms_median": med,
+    return {"losses": losses, "step_ms": step_ms, "eager_ms": first,
+            "capture_ms": capture, "step_ms_median": med,
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
-            "update_ms": upd_ms, "update_share": share,
+            "graphs": gst, "update_ms": {"eager": upd_eager,
+                                         "replayed": upd_replay},
+            "update_share": share, "update_pool_bytes": ust["pool_bytes"],
             "draw_ms": draw_ms, "peak_bytes": peak, "held_bytes": base_mem,
-            "split_ms": split,
+            "split_ms": split, "split_replayed_ms": split_replay,
             "pruned_loss": pruned_loss, "finetuned_loss": ft_loss,
             "ratio": cb / db, "k2_launches": k2, "serve_seconds": t_serve,
             "logits_max_abs_err": e[0], "logits_rel_err": e[1],
             "argmax_agree": e[2], "counts": counts}
+
+
+class _CaptureTimeLr:
+    """(c′)'s planted fault: an update that takes lr as a host number,
+    from a Python count of its calls — right when every step runs its
+    Python, wrong from a graph: the capture bakes its own lr in and every
+    replay repeats it."""
+
+    def __init__(self, opt, sched):
+        self.opt, self.sched, self.calls = opt, sched, 0
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params, lr, *, inplace=False):
+        import torch
+
+        lr = float(self.sched(torch.tensor(self.calls, dtype=torch.int32)))
+        self.calls += 1
+        return self.opt.update(grads, state, params, lr, inplace=inplace)
+
+
+def replay_check(cfg, model, pruned, report, dev) -> dict:
+    """(c′) replayed vs eager: REPLAY_STEPS finetune steps (the masked
+    AdamW, a cosine schedule whose lr changes at every step) on a fresh
+    clone of phase 3's pruned tree through the step's direct function
+    (``__wrapped__``, no graph), and on another from its graph (eager,
+    capture, replays) — params, both moments, losses, grad norms and lrs
+    bitwise equal, with deterministic algorithms on for this check; then
+    the same pair with ``_CaptureTimeLr`` planted, which must differ."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticCorpus, TrainStream
+    from repro_torch.optim import AdamW, cosine_warmup, sparsity_preserving
+    from repro_torch.train.step import make_train_step
+    from repro_torch.util.tree import map_tree
+
+    sched = cosine_warmup(5e-4, 2, REPLAY_STEPS)
+    stream = TrainStream(SyntheticCorpus(vocab_size=cfg.vocab_size),
+                         global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                         device=dev)
+    batches = [stream.batch_at(2000 + i) for i in range(REPLAY_STEPS)]
+
+    def optimizer(fault: bool):
+        opt = sparsity_preserving(AdamW(weight_decay=0.01, clip_norm=1.0),
+                                  report.masks)
+        return _CaptureTimeLr(opt, sched) if fault else opt
+
+    def trajectory(fault: bool, graphed: bool) -> tuple:
+        opt = optimizer(fault)
+        step = make_train_step(model, opt, sched, remat="block")
+        run = step if graphed else step.__wrapped__
+        p = map_tree(torch.clone, pruned)
+        st, rec = opt.init(p), []
+        for b in batches:
+            p, st, m = run(p, st, b)
+            rec.append([m[k].clone() for k in ("loss", "grad_norm", "lr")])
+        torch.cuda.synchronize()
+        stats = step.stats()
+        step.release()
+        return p, st, rec, stats
+
+    def same(a, b) -> dict:
+        return {"params": tree_equal(a[0], b[0]),
+                "mu": tree_equal(a[1].mu, b[1].mu),
+                "nu": tree_equal(a[1].nu, b[1].nu),
+                "metrics": all(torch.equal(x, y) for r, q in zip(a[2], b[2])
+                               for x, y in zip(r, q))}
+
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want = trajectory(False, False)
+        got = trajectory(False, True)
+        ok = same(want, got)
+        lrs = [float(r[2]) for r in got[2]]
+        gst = got[3]
+        del want, got
+        torch.cuda.empty_cache()
+        bad = same(trajectory(True, False), trajectory(True, True))
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    seconds = time.perf_counter() - t0
+    check(all(ok.values()), f"(c′) replayed steps not bitwise the eager "
+          f"ones: {ok}")
+    check(len(set(lrs)) == REPLAY_STEPS, f"(c′) lrs {lrs}")
+    check(gst["graphs"] == 1 and gst["replays"] == REPLAY_STEPS - 1,
+          f"(c′) graphs {gst}")
+    check(not all(bad.values()), "(c′) the planted capture-time lr passed "
+          "the check")
+    lr_list = ", ".join(f"{x:.3g}" for x in lrs)
+    print(f"  (c′) replayed vs eager, {REPLAY_STEPS} finetune steps on a "
+          f"fresh clone of the pruned tree, lr {lr_list}: params / mu / nu "
+          f"/ losses / grad norms / lrs bitwise equal "
+          f"(deterministic algorithms on), {gst['replays']} replays of one "
+          f"graph; with the update reading the capture's lr planted: "
+          f"{', '.join(k for k, v in bad.items() if not v)} differ; "
+          f"{seconds:.1f} s")
+    return {"bitwise": ok, "lrs": lrs, "graphs": gst, "fault": bad,
+            "seconds": seconds}
 
 
 def train_phase(cfg, model, pruned, report, prompts, dev,
@@ -3765,6 +3930,8 @@ def train_phase(cfg, model, pruned, report, prompts, dev,
     torch.cuda.empty_cache()
     out["finetune"] = finetune_part(cfg, model, pruned, report, prompts, dev,
                                     pruned_loss)
+    torch.cuda.empty_cache()
+    out["replay"] = replay_check(cfg, model, pruned, report, dev)
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     print(f"phase train: {out['seconds']:.1f} s")
@@ -4004,7 +4171,10 @@ def dist_train(model, params, batch, mesh, rank: int) -> dict:
     from repro_torch.util.tree import leaves, map_tree
 
     opt = AdamW()
-    start = map_tree(torch.clone, params) if rank == 0 else None
+    # rank 0's reference start waits on the host: the two ranks' graphed
+    # steps share the card with this process's parent
+    start = (map_tree(lambda x: x.to("cpu", copy=True), params) if rank == 0
+             else None)
     st = opt.init(params)
     st = AdamWState(st.step, shard_params(st.mu, mesh, fsdp=False),
                     shard_params(st.nu, mesh, fsdp=False))
@@ -4021,6 +4191,9 @@ def dist_train(model, params, batch, mesh, rank: int) -> dict:
         secs.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
     check(all(math.isfinite(x) for x in losses), f"dist (d) losses {losses}")
+    gst = step.stats()
+    step.release()
+    del step
     full = map_tree(lambda d: d.full_tensor(), sp)
     del st
     torch.cuda.empty_cache()
@@ -4029,7 +4202,7 @@ def dist_train(model, params, batch, mesh, rank: int) -> dict:
     t0 = time.perf_counter()
     all_reduce_mean(grads, axis_group(mesh, ("data",)).group, 2)
     torch.cuda.synchronize()
-    out = {"losses": losses, "step_s": secs,
+    out = {"losses": losses, "step_s": secs, "graphs": gst,
            "collective_s": time.perf_counter() - t0,
            "grad_bytes": sum(g.numel() * g.element_size() for g in grads)}
     del grads
@@ -4037,11 +4210,13 @@ def dist_train(model, params, batch, mesh, rank: int) -> dict:
         out["compress"] = dist_compression(model, full, batch)
         return out
     ref = make_train_step(model, opt, constant(DIST_LR), remat="block")
-    rp, rs = start, opt.init(start)
+    rp = map_tree(lambda x: x.to(model.device), start)
+    rs = opt.init(rp)
     ref_losses = []
     for _ in range(DIST_STEPS):
         rp, rs, rm = ref(rp, rs, batch)
         ref_losses.append(float(rm["loss"]))
+    ref.release()
     del rs
     worst, over, differ, total = 0.0, 0, 0, 0
     for a, b in zip(leaves(full), leaves(rp)):
@@ -4319,7 +4494,14 @@ def dist_phase(cfg, pruned, report, comp, dev, setup=None) -> dict:
           f"differ, none beyond the bound; step {1e3 * step_s:.1f} ms "
           f"median ({', '.join(f'{1e3 * s:.1f}' for s in ta['step_s'])}); "
           f"one gradient all_reduce ({ta['grad_bytes'] / 1e9:.2f} GB bf16, "
-          f"gloo) {1e3 * ta['collective_s']:.1f} ms = {share:.2f} of a step")
+          f"gloo) {1e3 * ta['collective_s']:.1f} ms = {share:.2f} of a step; "
+          f"rank 0's two graphed segments: {ta['graphs']['graphs']} graphs, "
+          f"{ta['graphs']['replays']} replays, capture "
+          f"{ta['graphs']['capture_s']:.2f} s, pool "
+          f"{ta['graphs']['pool_bytes'] / 2**30:.2f} GiB")
+    check(ta["graphs"]["graphs"] == 2 and tb["graphs"]["graphs"] == 2,
+          f"dist (d): the sharded step's graphs {ta['graphs']} / "
+          f"{tb['graphs']}")
     # (e)
     e = tb["compress"]
     print(f"  dist (e) int8 compression of {e['leaves']} gradient leaves: "

@@ -7,7 +7,20 @@ exact resolution for ``module.func`` calls; method/attribute calls
 resolution — an edge to every known function with that bare name.  The
 fallback over-approximates (extra edges, never missing ones), which is the
 right bias for the reachability rules built on top: serve-never-
-decompresses and dtype-discipline must not miss a path.
+decompresses and dtype-discipline must not miss a path.  Three refinements
+follow values a captured closure gets from its builder:
+
+* a method called on a parameter annotated with repo classes
+  (``optimizer: AdamW``), or on a ``self`` attribute annotated in the
+  class body (``inner: AdamW``), resolves to those classes' methods;
+* a name called or referenced that a function or one enclosing it binds
+  from a call (``loss_fn = _loss_with_remat(...)``) resolves to the
+  called function (and so its nested defs); one that is a parameter of
+  a function or one enclosing it (``lr_schedule(count)``) falls back to
+  the functions of that name;
+* a method handed on by reference — a call's argument or a return value
+  (``checkpoint(model.block, ...)``, ``return model.loss``) — resolves by
+  its bare name.
 
 Jit seeds are the captured-entry points: targets of ``torch.compile`` /
 ``torch.jit.script`` / ``torch.jit.trace`` / ``torch.cuda.
@@ -51,6 +64,9 @@ class FuncInfo:
     lineno: int
     calls: list = dataclasses.field(default_factory=list)   # (dotted, bare)
     refs: list = dataclasses.field(default_factory=list)    # dotted refs
+    params: dict = dataclasses.field(default_factory=dict)  # name -> ann
+    bindings: dict = dataclasses.field(default_factory=dict)  # name -> Call
+    methods: list = dataclasses.field(default_factory=list)  # by reference
 
 
 def dotted_name(node: ast.AST, imports: dict[str, str]) -> str | None:
@@ -98,6 +114,7 @@ class CallGraph:
         self.by_module: dict[str, dict[str, str]] = {} # module -> qual -> key
         self.imports: dict[str, dict[str, str]] = {}   # module -> alias map
         self.modules: set[str] = set()
+        self.classes: dict[str, dict] = {}   # "<module>::<qual>" -> ann
         self.jit_seeds: set[str] = set()               # function keys
         self.jit_sites: list = []                      # (module, relpath,
                                                        #  call node, wrapper)
@@ -118,6 +135,11 @@ class CallGraph:
         key = f"{module}::{qual}"
         info = FuncInfo(key=key, module=module, qualname=qual, name=name,
                         relpath=relpath, node=node, lineno=node.lineno)
+        args = getattr(node, "args", None)
+        if isinstance(args, ast.arguments):
+            for a in (args.posonlyargs + args.args + args.kwonlyargs +
+                      [x for x in (args.vararg, args.kwarg) if x]):
+                info.params[a.arg] = a.annotation
         self.functions[key] = info
         self.by_name.setdefault(name, []).append(key)
         self.by_module.setdefault(module, {})[qual] = key
@@ -132,6 +154,10 @@ class CallGraph:
                 self._scan_body(module, relpath, stmt, q, info)
             elif isinstance(stmt, ast.ClassDef):
                 q = f"{qual}.{stmt.name}" if qual else stmt.name
+                self.classes[f"{module}::{q}"] = {
+                    a.target.id: a.annotation for a in stmt.body
+                    if isinstance(a, ast.AnnAssign) and
+                    isinstance(a.target, ast.Name)}
                 self._index_scope(module, relpath, stmt.body, q, owner)
             else:
                 # module/class-level statement: lambdas inside it still
@@ -176,6 +202,18 @@ class CallGraph:
                             if isinstance(node.func, ast.Attribute)
                             else getattr(node.func, "id", None))
                     info.calls.append((dotted, bare, node))
+                    info.methods += self._by_reference(
+                        node.args + [k.value for k in node.keywords],
+                        imports)
+                elif isinstance(node, ast.Return) and node.value:
+                    info.methods += self._by_reference([node.value],
+                                                       imports)
+                elif isinstance(node, ast.Assign) and len(
+                        node.targets) == 1 and isinstance(
+                        node.targets[0], ast.Name) and isinstance(
+                        node.value, ast.Call):
+                    info.bindings.setdefault(node.targets[0].id,
+                                             node.value)
                 elif isinstance(node, ast.Name) and isinstance(
                         node.ctx, ast.Load):
                     info.refs.append(node.id)
@@ -185,6 +223,15 @@ class CallGraph:
                     # a module's function taken by reference
                     # (`dec = X.slstm_decode if ... else X.mlstm_decode`)
                     info.refs.append(f"{imports[node.value.id]}.{node.attr}")
+
+    @staticmethod
+    def _by_reference(exprs: list, imports: dict) -> list:
+        """The bare names of the methods among ``exprs`` taken by
+        reference (``model.block``; not ``module.func``, which resolves
+        exactly)."""
+        return [e.attr for e in exprs if isinstance(e, ast.Attribute)
+                and isinstance(e.ctx, ast.Load) and not (
+                    isinstance(e.value, ast.Name) and e.value.id in imports)]
 
     def _scan_lambda(self, module: str, relpath: str, node: ast.Lambda,
                      info: FuncInfo) -> None:
@@ -345,8 +392,15 @@ class CallGraph:
         out: dict[str, set[str]] = {}
         for key, info in self.functions.items():
             tgt: set[str] = set()
-            for dotted, bare, _node in info.calls:
-                tgt.update(self.resolve(info.module, dotted, bare))
+            for dotted, bare, node in info.calls:
+                found = self._typed_call(info, node.func)
+                if found is None:
+                    found = self.resolve(info.module, dotted, bare)
+                if not found and isinstance(node.func, ast.Name):
+                    found = self._local_callable(info, node.func.id, True)
+                tgt.update(found)
+            for name in info.methods:
+                tgt.update(self.by_name.get(name, ()))
             for ref in info.refs:
                 if ref in self.functions:              # direct key ref
                     tgt.add(ref)
@@ -366,10 +420,109 @@ class CallGraph:
                         if d is not None:
                             tgt.update(self.resolve(info.module, d,
                                                     d.split(".")[-1]))
+                        else:
+                            tgt.update(self._local_callable(info, ref,
+                                                            False))
             tgt.discard(key)
             out[key] = tgt
         self._edges = out
         return out
+
+    # ------------------------------------------------- values of a builder
+    def _scopes(self, info: FuncInfo) -> list:
+        """``info`` and the functions enclosing it, innermost first."""
+        quals = self.by_module.get(info.module, {})
+        out, q = [info], info.qualname
+        while "." in q:
+            q = q.rsplit(".", 1)[0]
+            if q in quals:
+                out.append(self.functions[quals[q]])
+        return out
+
+    def _local_callable(self, info: FuncInfo, name: str,
+                        called: bool) -> list:
+        """What a local ``name`` resolves to: the function whose call
+        bound it in ``info`` or an enclosing function; for a call, the
+        functions named as the parameter it is."""
+        for sc in self._scopes(info):
+            call = sc.bindings.get(name)
+            if call is not None:
+                func = call.func
+                bare = (func.attr if isinstance(func, ast.Attribute)
+                        else getattr(func, "id", None))
+                return self.resolve(sc.module, dotted_name(
+                    func, self.imports[sc.module]), bare)
+            if name in sc.params:
+                return list(self.by_name.get(name, ())) if called else []
+        return []
+
+    def _typed_call(self, info: FuncInfo, func: ast.AST) -> "list | None":
+        """The methods a call ``x.m(...)`` / ``self.a.m(...)`` reaches when
+        ``x`` is an annotated parameter or ``a`` an annotated attribute of
+        ``self``'s class; None when it is not typed."""
+        if not isinstance(func, ast.Attribute):
+            return None
+        recv, ann, module = func.value, None, info.module
+        if isinstance(recv, ast.Name):
+            for sc in self._scopes(info):
+                if recv.id in sc.params:
+                    ann = sc.params[recv.id]
+                    break
+        elif isinstance(recv, ast.Attribute) and isinstance(
+                recv.value, ast.Name) and recv.value.id == "self":
+            q = info.qualname
+            while "." in q and ann is None:
+                q = q.rsplit(".", 1)[0]
+                ann = self.classes.get(f"{module}::{q}", {}).get(recv.attr)
+        if ann is None:
+            return None
+        found = [self.by_module[m][f"{c}.{func.attr}"]
+                 for m, c in self._annotated_classes(module, ann)
+                 if f"{c}.{func.attr}" in self.by_module.get(m, {})]
+        return found or None
+
+    def _annotated_classes(self, module: str, ann: ast.AST) -> list:
+        """(module, class qualname) of each repo class ``ann`` names."""
+        if isinstance(ann, ast.Constant) and isinstance(ann.value, str):
+            try:
+                ann = ast.parse(ann.value, mode="eval").body
+            except SyntaxError:
+                return []
+        if isinstance(ann, ast.BinOp):
+            return (self._annotated_classes(module, ann.left) +
+                    self._annotated_classes(module, ann.right))
+        if isinstance(ann, ast.Subscript):
+            return self._annotated_classes(module, ann.slice)
+        if isinstance(ann, ast.Tuple):
+            return [c for e in ann.elts
+                    for c in self._annotated_classes(module, e)]
+        name = dotted_name(ann, {})
+        if name is None:
+            return []
+        if f"{module}::{name}" in self.classes:
+            return [(module, name)]
+        head = name.split(".")[0]
+        imports = self.imports.get(module, {})
+        if head not in imports:
+            return []
+        dotted = imports[head] + name[len(head):]
+        for _ in range(4):                 # follow a package's re-exports
+            parts = dotted.split(".")
+            for i in range(len(parts) - 1, 0, -1):
+                mod = ".".join(parts[:i])
+                if mod not in self.modules:
+                    continue
+                qual = ".".join(parts[i:])
+                if f"{mod}::{qual}" in self.classes:
+                    return [(mod, qual)]
+                again = self.imports.get(mod, {}).get(parts[i])
+                if again is None:
+                    return []
+                dotted = ".".join([again] + parts[i + 1:])
+                break
+            else:
+                return []
+        return []
 
     def reachable(self, seeds: Iterable[str]) -> dict[str, tuple[str, ...]]:
         """BFS from seed keys → {key: call chain from a seed (inclusive)}."""

@@ -63,6 +63,26 @@ def _mentions_tensor(node: ast.AST, imports: dict) -> bool:
     return False
 
 
+def _tensor_name(node: ast.AST, info, imports: dict) -> bool:
+    """Whether ``node`` names a value that may be a tensor in the captured
+    function ``info``: a parameter not annotated as a Python scalar (an
+    ``lr`` handed to an update), or a local bound from a tensor
+    expression."""
+    if not isinstance(node, ast.Name) or node.id in ("self", "cls"):
+        return False
+    if node.id in info.params:
+        ann = info.params[node.id]
+        return not (isinstance(ann, ast.Name) and
+                    ann.id in ("int", "float", "bool", "str"))
+    for sub in _own_nodes(info.node):
+        if isinstance(sub, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == node.id
+                for t in sub.targets) and _mentions_tensor(sub.value,
+                                                           imports):
+            return True
+    return False
+
+
 def _own_nodes(fn: ast.AST):
     """The nodes of a function's body, not those of the functions and
     lambdas nested in it (the call graph holds those on their own)."""
@@ -129,7 +149,8 @@ class JitPurityRule:
                                    f"({why})")
                             break
                 if msg is None and dotted in _CONCRETIZERS and node.args \
-                        and _mentions_tensor(node.args[0], imports):
+                        and (_mentions_tensor(node.args[0], imports) or
+                             _tensor_name(node.args[0], info, imports)):
                     msg = (f"{dotted}() over a tensor expression syncs the "
                            "host (host-side branching), which a capture "
                            "refuses")

@@ -38,9 +38,11 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import ShapeCell
 from repro_torch.core.schedule import get_path, set_path
 from repro_torch.dist import sharding as D
-from repro_torch.optim import AdamW
+from repro_torch.optim import AdamW, AdamWState
 from repro_torch.optim.schedules import cosine_warmup
-from repro_torch.train.step import _loss_with_remat, value_and_grad
+from repro_torch.train.step import (DONATED, TrainStep, _loss_with_remat,
+                                    advance, value_and_grad)
+from repro_torch.util import graphs
 from repro_torch.util.tree import map_tree
 
 
@@ -236,14 +238,16 @@ class Step:
 # train
 # ==========================================================================
 def make_train_step(model, mesh, cell, *, microbatches: int = 0,
-                    optimizer: AdamW | None = None):
+                    optimizer: "AdamW | None" = None):
     """→ (step, (params, opt, batch) on meta).
 
     step(params, opt, batch) → (params, opt, metrics); batch is the *global*
     batch, split into ``microbatches`` chunks of consecutive rows run in
     sequence with fp32 grad accumulation (1 sequence per DP replica per
     chunk by default), then one AdamW update in place (JAX's
-    ``donate_argnums=(0, 1)``).
+    ``donate_argnums=(0, 1)``).  The step is a ``train.step.TrainStep``:
+    the microbatch loop and the update run from one CUDA graph on the card
+    over the donated params and moments (inline on the CPU).
     """
     cfg = model.cfg
     optimizer = optimizer or AdamW(weight_decay=0.1, clip_norm=1.0,
@@ -255,7 +259,7 @@ def make_train_step(model, mesh, cell, *, microbatches: int = 0,
     n_micro = microbatches or max(1, B // _dp_size(mesh))
     assert B % n_micro == 0
 
-    def step(params, opt_state, batch):
+    def micro_body(params, mu, nu, count, batch):
         rows = B // n_micro
         tot_loss = None
         tot_g = None
@@ -271,8 +275,14 @@ def make_train_step(model, mesh, cell, *, microbatches: int = 0,
                 tot_g = map_tree(torch.add, tot_g, g)
         grads = map_tree(lambda g: g / n_micro, tot_g)
         new_params, new_opt = optimizer.update(
-            grads, opt_state, params, lr(opt_state.step), inplace=True)
-        return new_params, new_opt, {"loss": tot_loss / n_micro}
+            grads, AdamWState(step=count, mu=mu, nu=nu), params, lr(count),
+            inplace=True)
+        return new_params, new_opt.mu, new_opt.nu, {
+            "loss": tot_loss / n_micro}
+
+    body = graphs.graphed(micro_body, donate=DONATED)
+    step = TrainStep(functools.partial(advance, body),
+                     functools.partial(advance, micro_body))
 
     a_params = abstract_params(model)
     a_opt = optimizer.init(a_params)

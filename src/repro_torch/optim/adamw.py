@@ -12,12 +12,16 @@ launches per step on the card), with the JAX package's operation order:
     Δ   = (mu / bc1) / (sqrt(nu / bc2) + eps)  [+ wd·p where p.ndim ≥ 2]
     p'  = p − lr·Δ
 
-``AdamWState.step`` is a 0-d int32 tensor on the host: the schedule and
-the bias corrections are float32 scalars computed there and handed to the
-device operations as exact scalars, so a step never waits on the card.
-``update(..., inplace=True)`` writes the moments and the parameters into
-their own storage (the train step's ``donate=True``); otherwise the
-caller's trees are left as they were.
+``AdamWState.step`` is a 0-d int32 tensor on the host (the checkpoint's
+format and the trainer's arithmetic); inside a train step it is a copy on
+the params' device.  The per-step scalars — the new step ``t``, ``bc1``,
+``bc2`` and ``lr`` — are 0-d float32 tensors on the params' device,
+computed there in JAX's order and never read back to the host, so a step
+replayed from a CUDA graph follows the counter it is given; the constants
+b1, 1 − b1, b2, eps and wd stay Python scalars.  ``update(...,
+inplace=True)`` writes the moments and the parameters into their own
+storage (the train step's ``donate=True``); otherwise the caller's trees
+are left as they were.
 """
 from __future__ import annotations
 
@@ -63,7 +67,9 @@ class AdamW(NamedTuple):
     def update(self, grads, state: AdamWState, params, lr, *,
                inplace: bool = False):
         """→ (new_params, new_state).  ``lr`` is a 0-d float32 tensor (or a
-        number).  ``inplace`` also lets clipping scale ``grads`` in place."""
+        number); ``state.step`` lies on the host or on the params' device,
+        and the new state's step lies beside it.  ``inplace`` also lets
+        clipping scale ``grads`` in place."""
         with torch.no_grad():
             return self._update(grads, state, params, lr, inplace)
 
@@ -75,11 +81,13 @@ class AdamW(NamedTuple):
         mus, nus = leaves(state.mu), leaves(state.nu)
         g32 = [g.float() for g in gs]
         b1, b2, mdt = self.b1, self.b2, self._mdt
+        dev = ps[0].device
         step = state.step + 1
-        t = step.to(torch.float32)
-        bc1 = float(1.0 - b1 ** t)          # exact float32 values
-        bc2 = float(1.0 - b2 ** t)
-        lr = float(torch.as_tensor(lr, dtype=torch.float32))
+        t = step.to(dev, torch.float32)
+        bc1 = 1.0 - b1 ** t                  # 0-d float32 on ``dev``
+        bc2 = 1.0 - b2 ** t
+        lr = (lr.to(dev, torch.float32) if isinstance(lr, torch.Tensor)
+              else torch.full((), lr, dtype=torch.float32, device=dev))
 
         def moment(ms, beta, gterm):
             if inplace and mdt == torch.float32:
@@ -110,17 +118,23 @@ class AdamW(NamedTuple):
         decay = [i for i, p in enumerate(ps) if p.ndim >= 2]
         if self.weight_decay > 0 and decay:
             # decoupled weight decay — skip 1-D params (norms, biases)
-            torch._foreach_add_(
-                [delta[i] for i in decay],
-                torch._foreach_mul([ps[i].float() for i in decay],
-                                   self.weight_decay))
+            wd = [ps[i].to(torch.float32, copy=True) for i in decay]
+            torch._foreach_mul_(wd, self.weight_decay)
+            torch._foreach_add_([delta[i] for i in decay], wd)
+            del wd
         torch._foreach_mul_(delta, lr)
+        if inplace:
+            # p − lr·Δ in fp32 (an fp32 param in its own storage), cast
+            # into the param: two fp32 trees live at once, not three — a
+            # captured step's pool holds its update's peak
+            new32 = [p.float() for p in ps]
+            torch._foreach_sub_(new32, delta)
+            del delta
+            torch._foreach_copy_(ps, new32)
+            return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
         new32 = torch._foreach_sub([p.float() for p in ps], delta)
         del delta
         new = [x.to(p.dtype) for x, p in zip(new32, ps)]
-        if inplace:
-            torch._foreach_copy_(ps, new)
-            return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
         return unflatten_like(params, new), AdamWState(
             step=step, mu=unflatten_like(params, mu),
             nu=unflatten_like(params, nu))

@@ -11,7 +11,9 @@ pass through untouched.
 
 The zeroing is ``masked_fill`` with the boolean masks, not a multiply by a
 float keep-tree: the same values for finite inputs, without a second tree
-as large as the masked kernels.
+as large as the masked kernels.  The masks are moved to the params' device
+once, at the first update — a compiled train step's eager warm-up, before
+its capture, which a host-to-device copy would break.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Any
 import torch
 
 from repro_torch.core.schedule import get_path
+from repro_torch.optim.adamw import AdamW
 
 
 def _mask_tree(params, masks: dict[tuple, Any]):
@@ -57,28 +60,35 @@ def _copy_dicts(tree):
     return tree
 
 
-def sparsity_preserving(optimizer, masks: dict[tuple, Any]):
+class SparsityPreserving:
+    """An AdamW-like ``inner`` optimizer whose pruned coordinates stay 0
+    (``sparsity_preserving``)."""
+
+    inner: AdamW
+
+    def __init__(self, inner, masks: dict[tuple, Any]):
+        self.inner, self.masks = inner, masks
+        self._keep = None
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params, lr, *, inplace: bool = False):
+        if self._keep is None:
+            self._keep = _mask_tree(params, self.masks)
+        with torch.no_grad():
+            grads = _zero(grads, self._keep, inplace)
+            new_params, new_state = self.inner.update(
+                grads, state, params, lr, inplace=inplace)
+            # the inner update returned its own tensors: zero in place
+            new_params = _zero(new_params, self._keep, True)
+        return new_params, new_state
+
+
+def sparsity_preserving(optimizer, masks: dict[tuple, Any]
+                        ) -> SparsityPreserving:
     """Wrap an AdamW-like optimizer to freeze pruned coordinates."""
-
-    class Wrapped:
-        def __init__(self):
-            self._keep = None
-
-        def init(self, params):
-            return optimizer.init(params)
-
-        def update(self, grads, state, params, lr, *, inplace: bool = False):
-            if self._keep is None:
-                self._keep = _mask_tree(params, masks)
-            with torch.no_grad():
-                grads = _zero(grads, self._keep, inplace)
-                new_params, new_state = optimizer.update(
-                    grads, state, params, lr, inplace=inplace)
-                # the inner update returned its own tensors: zero in place
-                new_params = _zero(new_params, self._keep, True)
-            return new_params, new_state
-
-    return Wrapped()
+    return SparsityPreserving(optimizer, masks)
 
 
 def masks_by_path(params, report_masks: dict[tuple, Any]):

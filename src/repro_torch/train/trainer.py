@@ -11,6 +11,11 @@
   (``torch.cuda.synchronize`` before the clock is read).
 * **elastic restore** — restore returns logical CPU tensors, placed on the
   model's device with their dtypes.
+* **compiled steps** — the default step is ``make_train_step``'s: on the
+  card every step after the first replays one CUDA graph over the donated
+  params and moments (a restored tree is new storage: its first step runs
+  eagerly and its second captures again, and the old tree's graph is
+  dropped); ``graph_stats()`` gives the step's counters.
 """
 from __future__ import annotations
 
@@ -93,6 +98,12 @@ class Trainer:
             warmup=cfg.straggler_warmup,
         )
         self.history: list[dict[str, Any]] = []
+
+    def graph_stats(self) -> dict:
+        """The step's CUDA graphs (``TrainStep.stats``: graphs, replays,
+        capture_s, pool_bytes); empty for a step without them."""
+        stats = getattr(self.step_fn, "stats", None)
+        return stats() if stats is not None else {}
 
     def _sync(self) -> None:
         if self.model.device.type == "cuda":

@@ -16,6 +16,21 @@ percdamp escalation gets a graph of its own, as JAX recompiles):
   call returns, so the scope's graphs can share one pool: replays are
   sequential on one stream.
 
+``graphed(fn, donate=(...))`` mirrors ``donate_argnums``: a donated
+argument's tensor leaves are not copied into static buffers.  The graph
+is captured over the caller's own tensors, so their storage is part of the
+key (``data_ptr`` with shape, stride and dtype), and an output that is a
+donated leaf, or a view of one, comes back as the caller's tensor (the
+eager warm-up's too): a train step updates its parameters and moments in
+place, with no copy of the tree in and no clone out.  A key holds its
+donated storage weakly; a key whose donated storage is gone (a tree
+restored from a checkpoint replaced it) is dropped at the next call.
+
+A step that owns its graphs, as a jitted JAX function owns its cache
+(``train/step.TrainStep``), keeps a ``Scope(measure=True)`` and enters it
+around each call with ``scope(own)``: its pool lives as long as the step
+and its ``pool_bytes`` is read around each capture.
+
 A call runs ``fn`` as it is written (inline) on the CPU, outside any
 ``scope()``, and inside another graphed call — its eager warm-up or its
 capture, as a jitted function called under ``jax.jit`` is traced inline —
@@ -43,6 +58,7 @@ import gc
 import inspect
 import threading
 import time
+import weakref
 from typing import Any, Callable, Iterator
 
 import torch
@@ -76,19 +92,20 @@ def _tensors(tree) -> list:
     return [t for t in pytree.tree_leaves(tree) if isinstance(t, Tensor)]
 
 
-def _clone(tree):
-    return pytree.tree_map(
-        lambda t: t.clone() if isinstance(t, Tensor) else t, tree)
+def _storage(t: Tensor) -> int:
+    return t.untyped_storage().data_ptr()
 
 
-def run_on_side(fn: Callable[[], Any], device) -> Any:
+def run_on_side(fn: Callable[[], Any], device, keep: list = ()) -> Any:
     """``fn()`` eagerly on the thread's side stream, ordered after the
     current stream's work and before its later work.  Its tensors are
     returned as clones made on the current stream: a tensor of the side
     stream's would need ``record_stream``, and one that outlives the
     process's CUDA context (a prune's tree handed to another process
     through CUDA IPC is freed at exit) records an event on a dead driver
-    and aborts the exit."""
+    and aborts the exit.  A tensor on the storage of a tensor of ``keep``
+    (the donated leaves: the caller's, written in place) is returned as
+    it is."""
     side = side_stream(device)
     main = torch.cuda.current_stream(device)
     side.wait_stream(main)
@@ -97,7 +114,10 @@ def run_on_side(fn: Callable[[], Any], device) -> Any:
     main.wait_stream(side)
     for t in _tensors(out):
         t.record_stream(main)
-    return _clone(out)
+    kept = {_storage(t) for t in keep}
+    return pytree.tree_map(
+        lambda t: t.clone() if isinstance(t, Tensor) and
+        _storage(t) not in kept else t, out)
 
 
 class Graph:
@@ -149,22 +169,33 @@ class Graph:
 
 @dataclasses.dataclass
 class _Entry:
-    """One key of a scope: its calls, and after the second its static
-    input buffers (the tensor leaves, in order) and graph."""
+    """One key of a scope: its calls, weak references to its donated
+    leaves' storage, and after the second call its inputs (a static buffer
+    for each copied tensor leaf, None for a donated one between calls),
+    graph and output plan (for each output leaf: None, cloned out; i, the
+    call's donated leaf i; or a view of it as (i, offset, shape, stride))."""
 
     calls: int = 0
+    refs: list = dataclasses.field(default_factory=list)
     inputs: "list | None" = None
     graph: "Graph | None" = None
+    plan: "list | None" = None
+
+    def dead(self) -> bool:
+        return any(r() is None for r in self.refs)
 
 
 class Scope:
     """The graphs of one run and the pool they share (JAX: the jit cache
     of a process).  ``stats()`` counts every graph the scope captured,
-    dropped ones included; its ``pool_bytes``, read once at ``close()``,
-    is what the pool and the static buffers returned to the card."""
+    dropped ones included; its ``pool_bytes`` is what the pool and the
+    static buffers returned to the card, read once at ``close()`` — or,
+    with ``measure=True`` (a step that owns its scope), what each capture
+    added to the card's reserve, read around it (a host sync a capture)."""
 
-    def __init__(self):
+    def __init__(self, *, measure: bool = False):
         self.entries: dict = {}
+        self.measure = measure
         self.pool = self.anchor = self.device = None
         self._stats = {"calls": 0, "eager": 0, "graphs": 0, "replays": 0,
                        "capture_s": 0.0, "pool_bytes": 0}
@@ -189,11 +220,17 @@ class Scope:
         for key in [k for k in self.entries if k[0] is fn]:
             del self.entries[key]
 
+    def drop_dead(self) -> None:
+        """Forget the keys whose donated storage is gone."""
+        for key in [k for k, e in self.entries.items() if e.dead()]:
+            del self.entries[key]
+
     def close(self) -> None:
         """Drop every graph and the pool; return their memory to the
         card."""
-        if self.pool is None:
+        if self.pool is None or self.measure:
             self.entries.clear()
+            self.pool = self.anchor = None
             return
         held = settled_reserve(self.device)
         self.entries.clear()
@@ -210,10 +247,19 @@ def settled_reserve(device) -> int:
 
 
 @contextlib.contextmanager
-def scope() -> Iterator[Scope]:
+def scope(own: "Scope | None" = None) -> Iterator[Scope]:
     """Graphs for the calls made inside, released at the exit.  Inside an
-    open scope it is that scope: one pool a run."""
+    open scope it is that scope: one pool a run.  ``scope(own)`` makes
+    ``own`` the thread's scope for the block and leaves it open: its
+    owner releases it."""
     st = _local()
+    if own is not None:
+        prev, st.scope = st.scope, own
+        try:
+            yield own
+        finally:
+            st.scope = prev
+        return
     if st.scope is not None:
         yield st.scope
         return
@@ -255,30 +301,43 @@ def _check_linalg() -> None:
             "selects cuSOLVER)")
 
 
-def graphed(fn: "Callable | None" = None, *, static: tuple = ()):
+def _donated_key(x: Tensor) -> tuple:
+    """A donated leaf's part of the key: the storage the graph binds."""
+    return ("donated", x.data_ptr(), tuple(x.shape), x.stride(), x.dtype,
+            x.device)
+
+
+def graphed(fn: "Callable | None" = None, *, static: tuple = (),
+            donate: tuple = ()):
     """``fn`` run from CUDA graphs inside a ``scope()`` (module docstring).
 
     ``static`` names the arguments that are part of the key by value, as
-    JAX's ``static_argnames``; every other argument is a tree whose tensor
-    leaves are the graph's inputs.  Use as ``@graphed``,
+    JAX's ``static_argnames``; ``donate`` names the arguments whose tensor
+    leaves the graph reads and writes in place, as JAX's
+    ``donate_argnums``; every other argument is a tree whose tensor leaves
+    are copied into the graph's static inputs.  Use as ``@graphed``,
     ``@graphed(static=(...))`` or ``graphed(functools.partial(f, ...))``
     for a closure whose bound arguments the graph reads in place.
     """
     if fn is None:
-        return functools.partial(graphed, static=static)
-    return Graphed(fn, tuple(static))
+        return functools.partial(graphed, static=static, donate=donate)
+    return Graphed(fn, tuple(static), tuple(donate))
 
 
 class Graphed:
     """What ``graphed`` returns: ``fn`` with its graphs' keys."""
 
-    def __init__(self, fn: Callable, static: tuple):
-        self.fn, self.static = fn, static
+    def __init__(self, fn: Callable, static: tuple, donate: tuple = ()):
+        self.fn, self.static, self.donate = fn, static, donate
         self.sig = inspect.signature(fn)
-        missing = set(static) - set(self.sig.parameters)
-        if missing:
-            raise TypeError(f"static arguments {sorted(missing)} are not "
-                            f"parameters of {fn!r}")
+        for what, names in (("static", static), ("donated", donate)):
+            missing = set(names) - set(self.sig.parameters)
+            if missing:
+                raise TypeError(f"{what} arguments {sorted(missing)} are "
+                                f"not parameters of {fn!r}")
+        if set(static) & set(donate):
+            raise TypeError(f"arguments {sorted(set(static) & set(donate))}"
+                            " are both static and donated")
         functools.update_wrapper(self, fn)
 
     def __call__(self, *args, **kwargs):
@@ -294,15 +353,27 @@ class Graphed:
                 torch.cuda.is_current_stream_capturing()):
             return self.fn(*args, **kwargs)
         sc = st.scope
+        gift = [isinstance(x, Tensor) and d for x, d in zip(
+            leaves, pytree.tree_leaves({k: pytree.tree_map(
+                lambda _, d=k in self.donate: d, v) for k, v in
+                dyn.items()}))]
         static = tuple((k, bound.arguments[k]) for k in self.static)
-        key = (self, static, spec, tuple(_leaf_key(x) for x in leaves))
-        entry = sc.entries.setdefault(key, _Entry())
+        key = (self, static, spec, tuple(
+            _donated_key(x) if d else _leaf_key(x)
+            for x, d in zip(leaves, gift)))
+        sc.drop_dead()
+        entry = sc.entries.get(key)
+        if entry is None:
+            entry = sc.entries[key] = _Entry(refs=[
+                weakref.ref(x.untyped_storage())
+                for x, d in zip(leaves, gift) if d])
         entry.calls += 1
         sc._stats["calls"] += 1
 
+        fixed = dict(static)          # a graph's closure holds no tree
+
         def call(xs):
-            args = dict(bound.arguments)
-            args.update(pytree.tree_unflatten(xs, spec))
+            args = dict(fixed, **pytree.tree_unflatten(xs, spec))
             b = inspect.BoundArguments(self.sig, args)
             return self.fn(*b.args, **b.kwargs)
 
@@ -310,28 +381,87 @@ class Graphed:
         try:
             if entry.calls == 1:               # eager: the warm-up
                 sc._stats["eager"] += 1
-                return run_on_side(lambda: call(leaves), device)
+                return run_on_side(lambda: call(leaves), device, [
+                    x for x, d in zip(leaves, gift) if d])
             if entry.graph is None:
-                self._capture(sc, entry, leaves, call, device)
+                entry.inputs = [None if d else torch.empty_like(x)
+                                if isinstance(x, Tensor) else x
+                                for x, d in zip(leaves, gift)]
+            ins = entry.inputs
+            for i, (x, d) in enumerate(zip(leaves, gift)):
+                if d:
+                    ins[i] = x      # what a capture binds: the same storage
+                elif isinstance(x, Tensor):
+                    ins[i].copy_(x)
+            try:
+                if entry.graph is None:
+                    self._capture(sc, entry, leaves, gift, call, device)
+                out = entry.graph.replay()
+            finally:
+                # the graph keeps no donated tensor alive: its key holds
+                # them weakly, and each call binds its own
+                for i, d in enumerate(gift):
+                    if d:
+                        ins[i] = None
         finally:
             st.depth -= 1
-        for buf, x in zip(entry.inputs, leaves):
-            if isinstance(x, Tensor):
-                buf.copy_(x)
-        out = entry.graph.replay()
         sc._stats["replays"] += 1
-        return _clone(out)
+        outs, out_spec = pytree.tree_flatten(out)
+        return pytree.tree_unflatten(
+            [_returned(o, p, leaves) for o, p in zip(outs, entry.plan)],
+            out_spec)
 
-    def _capture(self, sc: Scope, entry: _Entry, leaves: list,
+    def _capture(self, sc: Scope, entry: _Entry, leaves: list, gift: list,
                  call: Callable, device) -> None:
         _check_linalg()
-        entry.inputs = [torch.empty_like(x) if isinstance(x, Tensor) else x
-                        for x in leaves]
         sc.open_pool(device)
+        before = settled_reserve(device) if sc.measure else 0
         inputs = entry.inputs
-        entry.graph = Graph(lambda: call(inputs), device, sc.pool)
+        graph = Graph(lambda: call(inputs), device, sc.pool)
+        if sc.measure:
+            sc._stats["pool_bytes"] += settled_reserve(device) - before
+        outs, out_spec = pytree.tree_flatten(graph.out)
+        entry.plan = _alias_plan(outs, leaves, gift)
+        graph.out = pytree.tree_unflatten(
+            [o if p is None else None for o, p in zip(outs, entry.plan)],
+            out_spec)
+        entry.graph = graph
         sc._stats["graphs"] += 1
-        sc._stats["capture_s"] += entry.graph.capture_s
+        sc._stats["capture_s"] += graph.capture_s
+
+
+def _alias_plan(outs: list, leaves: list, gift: list) -> list:
+    """For each output leaf of a capture: None (not on donated storage),
+    i (donated leaf i itself) or (i, offset, shape, stride) (a view of
+    donated leaf i's storage)."""
+    same = {id(x): i for i, (x, d) in enumerate(zip(leaves, gift)) if d}
+    store = {_storage(x): i for i, (x, d) in enumerate(zip(leaves, gift))
+             if d}
+    plan: list = []
+    for o in outs:
+        if not isinstance(o, Tensor):
+            plan.append(None)
+        elif id(o) in same:
+            plan.append(same[id(o)])
+        elif _storage(o) in store:
+            plan.append((store[_storage(o)], o.storage_offset(),
+                         tuple(o.shape), o.stride()))
+        else:
+            plan.append(None)
+    return plan
+
+
+def _returned(o, p, leaves: list):
+    """A replay's output leaf ``o`` as the caller gets it (``_alias_plan``):
+    a clone out of the pool, or the call's donated tensor or a view of
+    it."""
+    if p is None:
+        return o.clone() if isinstance(o, Tensor) else o
+    if isinstance(p, int):
+        return leaves[p]
+    i, offset, shape, stride = p
+    x = leaves[i]
+    return x.new_empty(0).set_(x.untyped_storage(), offset, shape, stride)
 
 
 def release(fn: Graphed) -> None:

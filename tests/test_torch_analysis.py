@@ -520,3 +520,129 @@ class TestContracts:
         fs = contracts.run_contracts(archs=("tinyllama-1.1b",),
                                      reduced=True)
         assert any(f.rule == "contract-cache-geometry" for f in fs)
+
+
+# ============================================ the compiled train steps
+_GRAPHED_HELPER = """\
+    class graphed:
+        def __init__(self, fn=None, *, static=(), donate=()):
+            self.fn = fn
+"""
+
+
+def test_the_train_steps_are_capture_roots():
+    """``graphed(step_body, donate=...)`` and the sharded step's and the
+    tooling's bodies seed the captured set; through the builders' values
+    (the annotated optimizer, the bound loss, the schedule parameter,
+    ``checkpoint(model.block, ...)``) it reaches the update, the masked
+    update, the schedules, the loss and the model blocks — and not the
+    Hessian accumulator's ``update``."""
+    reach = RepoIndex.build(REPO_ROOT / "src").graph.jit_reachable()
+    for key in ("repro_torch.train.step::make_train_step.step_body",
+                "repro_torch.train.step::make_sharded_train_step."
+                "local_grads",
+                "repro_torch.train.step::make_sharded_train_step."
+                "sharded_update",
+                "repro_torch.launch.steps::make_train_step.micro_body",
+                "repro_torch.train.step::value_and_grad",
+                "repro_torch.train.step::_loss_with_remat.loss",
+                "repro_torch.optim.adamw::AdamW.update",
+                "repro_torch.optim.adamw::AdamW._update",
+                "repro_torch.optim.adamw::clip_by_global_norm",
+                "repro_torch.optim.adamw::global_norm",
+                "repro_torch.optim.masked::SparsityPreserving.update",
+                "repro_torch.optim.masked::_zero",
+                "repro_torch.optim.schedules::constant.lr_schedule",
+                "repro_torch.optim.schedules::cosine_warmup.lr_schedule",
+                "repro_torch.optim.schedules::linear_warmup.lr_schedule",
+                "repro_torch.models.transformer::TransformerLM.block",
+                "repro_torch.models.transformer::TransformerLM.embed_batch",
+                "repro_torch.models.transformer::TransformerLM."
+                "loss_from_carry"):
+        assert key in reach, key
+    assert "repro_torch.core.hessian::HessianAccumulator.update" \
+        not in reach
+
+
+def test_jit_purity_flags_a_host_lr_in_the_captured_update(tmp_path):
+    """The port's own sources with ``float(lr)`` planted in AdamW's update:
+    one finding, reached from the train step's body."""
+    import shutil
+
+    src = tmp_path / "src"
+    shutil.copytree(REPO_ROOT / "src/repro_torch", src / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = src / "repro_torch/optim/adamw.py"
+    text = path.read_text()
+    planted = text.replace("        dev = ps[0].device\n",
+                           "        dev = ps[0].device\n"
+                           "        lr = float(lr)\n")
+    assert planted != text
+    path.write_text(planted)
+    found = rule_findings(RepoIndex.build(src), "jit-purity")
+    assert [(f.symbol, f.path.endswith("optim/adamw.py")) for f in found] \
+        == [("AdamW._update", True)]
+    assert "float() over a tensor expression" in found[0].message
+    assert "make_train_step." in found[0].message
+
+
+def test_recompile_flags_a_scalar_handed_to_a_donated_graph(tmp_path):
+    """A per-call Python scalar in a donated step's signature: every lr
+    would key a graph of its own (or be baked into one)."""
+    idx = make_repo(tmp_path, {"util/graphs.py": _GRAPHED_HELPER,
+                               "mod.py": """\
+        from repro_torch.util import graphs
+
+        def step(params, batch, lr: float):
+            return params
+
+        def build():
+            return graphs.graphed(step, donate=("params",))
+    """})
+    found = rule_findings(idx, "recompile-hazards")
+    assert len(found) == 1 and "`lr`" in found[0].message
+
+
+def test_builder_values_resolve_to_their_functions(tmp_path):
+    """The call graph's three refinements on a fixture: a method of an
+    annotated parameter reaches only that class's method; a name bound
+    from a call reaches the called function and its nested defs; a
+    parameter called as a function reaches the functions of its name."""
+    idx = make_repo(tmp_path, {"util/graphs.py": _GRAPHED_HELPER,
+                               "opt.py": """\
+        class Opt:
+            def update(self, g):
+                return g
+
+        class Acc:
+            def update(self, x):
+                return x
+
+        def make_sched():
+            def sched(step):
+                return step
+            return sched
+
+        def make_loss():
+            def loss(p):
+                return p
+            return loss
+    """, "step.py": """\
+        from repro_torch.opt import Opt, make_loss
+        from repro_torch.util import graphs
+
+        def build(opt: Opt, sched):
+            loss_fn = make_loss()
+
+            def body(p, count):
+                lr = sched(count)
+                return opt.update(loss_fn(p) * lr)
+
+            return graphs.graphed(body, donate=("p",))
+    """})
+    reach = idx.graph.jit_reachable()
+    for key in ("repro_torch.step::build.body", "repro_torch.opt::Opt.update",
+                "repro_torch.opt::make_loss.loss",
+                "repro_torch.opt::make_sched.sched"):
+        assert key in reach, key
+    assert "repro_torch.opt::Acc.update" not in reach

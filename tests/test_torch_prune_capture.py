@@ -128,7 +128,7 @@ def _fake(monkeypatch) -> None:
 
     monkeypatch.setattr(graphs, "_graph_device", device)
     monkeypatch.setattr(graphs, "Graph", FakeGraph)
-    monkeypatch.setattr(graphs, "run_on_side", lambda fn, dev: fn())
+    monkeypatch.setattr(graphs, "run_on_side", lambda fn, dev, keep=(): fn())
     monkeypatch.setattr(graphs, "_check_linalg", lambda: None)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: object())
     monkeypatch.setattr(graphs, "settled_reserve", lambda device: 0)
