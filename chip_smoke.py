@@ -14,19 +14,31 @@ tooling. tooling — right after the build, on the empty card and in a
              abstract sweep of all 40 (arch, cell) pairs on the 16 × 16
              mesh (meta device: fits, bottleneck, roofline step on the
              H100's peaks); (b) ``--measure``: every supported decode cell
-             whose arguments fit one card at full depth runs on the card
-             (median of 5 steps, temporaries); (c) the three perf ladders
-             (mistral-large-123b, xlstm-1.3b, whisper-medium decode_32k) at
-             full width, B = 128 and the cell's cache depth, each cut in
-             depth only (perf.LADDER_DEPTH; whisper's cache448 rungs also
-             at full depth): per rung ms, peak bytes and measured/bound;
-             nm rungs' first-step logits against the decompressed tree at
-             rel ≤ 5e-2 (xlstm's on the rung's first block, as phase
-             families holds it), int8 rungs' against a bf16 cache filled
-             with the same random k/v at max |Δ| < 1.0 and < 0.1 × the
-             filled cache's own effect; then K2 checked and timed at the nm
+             whose arguments fit one card at full depth runs on the card;
+             (c) the three perf ladders (mistral-large-123b, xlstm-1.3b,
+             whisper-medium decode_32k) at full width, B = 128 and the
+             cell's cache depth, each cut in depth only (perf.LADDER_DEPTH;
+             whisper's cache448 rungs also at full depth); (d) the prefill
+             step at tinyllama-1.1b's full width and depth, prefill_32k cut
+             to B = 1 and PREFILL_SEQ tokens.  Each of (b)–(d) is a
+             compiled step (``dryrun.timed_runs``): 5 direct calls after a
+             warm-up, then its CUDA graph — warm-up, capture, 5 replays —
+             and one more replay from the fresh cache, bitwise the direct
+             call's logits; per cell and rung the eager, capture and
+             replayed ms, pool bytes, peak bytes and replayed / eager over
+             the bound.  nm rungs' replayed first-step logits against the
+             decompressed tree at rel ≤ 5e-2 (xlstm's on the rung's first
+             block, its own step replayed, as phase families holds it),
+             int8 rungs' replayed logits against a bf16 cache filled with
+             the same random k/v at max |Δ| < 1.0 and < 0.1 × the filled
+             cache's own effect; then K2 checked and timed at the nm
              rungs' B = 128 shapes beside torch.matmul and the bound (rows
              added to phase 5's).
+draws. draws — right after tooling: gemma3-1b's held-out slice (vocabulary
+             262 144) and tinyllama-1.1b's calibration batches drawn on
+             the card by the float64 chain from numpy's uniforms, token
+             for token numpy's host draw (made in a spawned process a
+             batch once the tooling phase is done); both seconds printed.
 2. kernels — hold each kernel against its plain PyTorch version on the card:
              K1 (Hessian update) fp32/bf16 at b ∈ {2048, 5632}, a masked-rows
              batch and a NaN batch that must be skipped; K2 (n:m matmul) at
@@ -63,7 +75,10 @@ prune-graphs. right after phase 3, outside the path's counts: (a) the twelve
              every pruned linear); then hold the kernel path's first-step
              logits against the same params decompressed and served dense;
              then serve the same requests with the int8 KV cache
-             (QuantGqaCache) and hold its logits against the bf16 cache's.
+             (QuantGqaCache) and hold its logits against the bf16 cache's;
+             then ``heldout_loss``'s 4-batch loss at full width, graphed
+             (capture included) against eager, in turns, losses bitwise
+             equal.
 graphs. graphs — every ServingEngine on the card serves from CUDA graphs
              of its model step (B = 1 admissions, B = 4 decode; a wave
              engine one B = 4 graph), and every serve prints the graphs
@@ -98,7 +113,9 @@ train. train — right after phase 4, on phase 3's pruned tree and masks:
              set served (K2 launches counted), the first-step logits
              against the decompressed tree at rel ≤ 5e-2; the eager,
              capture and replayed step ms, tokens/s, the graph's capture
-             s and pool bytes, peak memory, the stream's draw time, and
+             s and pool bytes, peak memory, the stream's draw (batch 1
+             eager, batch 2 the capture, then replays of its sampler's
+             graph, every draw bitwise the eager ``sample_torch``), and
              eager / replayed ms of the loss, loss + grads without and
              with remat, and the update alone (its own graph: a capture
              holds no timing event) printed; (c′) REPLAY_STEPS steps of
@@ -222,8 +239,9 @@ dist. dist — right after robust, on phase 3's tree, over two spawned
              ``combine`` and within rtol 1e-6 of one accumulator over both;
              (d) DIST_STEPS steps of ``make_sharded_train_step`` on the
              train phase's batch against ``make_train_step`` (losses within
-             DIST_LOSS_TOL, params within 6·lr + 3·2⁻⁷·|p|), step ms and
-             one gradient all-reduce's share; (e) int8 compression of a
+             DIST_LOSS_TOL, params within 6·lr + 3·2⁻⁷·|p|), the eager,
+             capture and median replayed step ms and one gradient
+             all-reduce's share of the replayed step; (e) int8 compression of a
              full gradient tree: a quarter of the fp32 bytes, residual ≤ 4
              scales, the card's payload bitwise the host's.
    Then the redesigned kernels at odd shapes: K1 at ragged tokens and b
@@ -246,8 +264,9 @@ dist. dist — right after robust, on phase 3's tree, over two spawned
 
 Kernel launch counts are zeroed just before each path (phases 3,
 train's serve, robust, dist (in each rank), baselines, plan, 4m, mla and
-each part of paged, of families and of dense2; the tooling ladders) and
-read just after its serve (the mla path: after both serves; gemma3: after its paged serve;
+each part of paged, of families and of dense2; the tooling ladders,
+whose nm rungs count every step ``timed_runs`` ran, direct and replayed)
+and read just after its serve (the mla path: after both serves; gemma3: after its paged serve;
 baselines and plan also per method and per step); the comparison and
 timing launches are not counted, nor are the contiguous serves the paged
 ones are held against (``uncounted``).  The tinyllama rows of phase 5
@@ -264,6 +283,7 @@ import itertools
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -378,11 +398,11 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_RESTART_LAYERS, FINETUNE_STEPS = 8, 256, 2, 16
 # graphed call (the update alone, the loss / grad split)
 REPLAY_STEPS, TIMED_REPLAYS = 6, 5
 # the dist phase: two ranks on the one card; (d) takes DIST_STEPS sharded
-# train steps at lr DIST_LR on the train phase's batch, its losses held to
-# DIST_LOSS_TOL of make_train_step's on the whole batch; a rank's
-# collectives give up after DIST_PG_TIMEOUT s, the ranks after
-# DIST_JOIN_TIMEOUT s
-DIST_STEPS, DIST_LR, DIST_LOSS_TOL = 3, 1e-4, 1e-2
+# train steps at lr DIST_LR on the train phase's batch (step 1 eager, step
+# 2 the capture, the rest replays), its losses held to DIST_LOSS_TOL of
+# make_train_step's on the whole batch; a rank's collectives give up after
+# DIST_PG_TIMEOUT s, the ranks after DIST_JOIN_TIMEOUT s
+DIST_STEPS, DIST_LR, DIST_LOSS_TOL = 4, 1e-4, 1e-2
 # prune-graphs: tinyllama's four linear shapes (c, b) — q/o, k/v, gate/up,
 # down — and the blocks of phase 3's prune held against the eager loop
 PG_SHAPES = [(2048, 2048), (256, 2048), (5632, 2048), (2048, 5632)]
@@ -424,6 +444,18 @@ NM_REL, NM_GATE_BLOCKS = 5e-2, {"xlstm-1.3b/decode_32k": 1}
 INT8_TOL, INT8_SHARE = 1.0, 0.1
 TOOLING_K2 = {"mistral-large-123b": DENSE2_K2["mistral-large-123b"],
               "xlstm-1.3b": XLSTM_K2}
+# tooling (d): the prefill step at tinyllama-1.1b's full width and depth on
+# prefill_32k cut to B = 1 and PREFILL_SEQ tokens: the port's attention
+# holds (B, H, S, S) scores in fp32 (137 GB at 32 768; 8.6 GB at 8 192)
+PREFILL_SEQ, PREFILL_RUNS = 8192, 3
+# the draws check: the slices drawn on the card against numpy's host draw
+# (name → arch, seed, batches, batch, seq_len): heldout_loss's slice of
+# gemma3-1b (vocabulary 262 144) and phase 3's calibration batches; the
+# host draws run in spawned processes, one a batch, after the tooling
+# phase, and the card's draws once they are done
+DRAWS = {"gemma3-1b held-out": ("gemma3-1b", 9999, 4, 8, 256),
+         "tinyllama-1.1b calibration": ("tinyllama-1.1b", 1234, 2, 8, 128)}
+DRAWS_TIMEOUT = 300          # s: the host draws, from their start
 ZERO_K3 = [(128, 8, 768, 2048, 2, 4), (6, 3, 37, 128, 2, 4),
            (6, 17, 300, 128, 5, 8), (5, 17, 37, 96, 2, 4),
            (4, 3, 33, 104, 5, 8), (4, 17, 200, 512, 2, 4)]
@@ -3674,7 +3706,8 @@ def finetune_part(cfg, model, pruned, report, prompts, dev,
 
     from repro_torch.core.schedule import get_path
     from repro_torch.data.pipeline import (SyntheticCorpus, TrainStream,
-                                           heldout_loss)
+                                           _stream_seed, heldout_loss,
+                                           sample_torch)
     from repro_torch.optim import (AdamW, AdamWState, cosine_warmup,
                                    sparsity_preserving)
     from repro_torch.serve.compressed import compress_params, compressed_bytes
@@ -3697,7 +3730,7 @@ def finetune_part(cfg, model, pruned, report, prompts, dev,
                          global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                          device=dev)
     state = opt.init(ft)
-    step_ms, draw_ms, losses = [], [], []
+    step_ms, draw_ms, losses, drawn = [], [], [], []
     for i in range(FINETUNE_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3710,11 +3743,30 @@ def finetune_part(cfg, model, pruned, report, prompts, dev,
         draw_ms.append(1e3 * (t1 - t0))
         step_ms.append(1e3 * (t2 - t1))
         losses.append(float(m["loss"]))
+        drawn.append(batch["tokens"])
     peak = torch.cuda.max_memory_allocated()
-    gst = step.stats()
+    gst, dst = step.stats(), stream.stats()
     check(gst["graphs"] == 1 and gst["replays"] == FINETUNE_STEPS - 1,
           f"finetune: the step's graphs {gst}")
+    check(dst["graphs"] == 1 and dst["replays"] == FINETUNE_STEPS - 1,
+          f"finetune: the stream's sampler graphs {dst}")
     step.release()
+    stream.release()
+    # the stream's replayed draws against the eager chain on the same
+    # seeds, outside any scope (one call each, timed alone)
+    eager_draw, same = [], True
+    for i, toks in enumerate(drawn):
+        gen = torch.Generator(device=dev).manual_seed(_stream_seed(
+            stream.seed, stream.host_id, 1000 + i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = sample_torch(stream.corpus, gen, TRAIN_BATCH, TRAIN_SEQ)
+        torch.cuda.synchronize()
+        eager_draw.append(1e3 * (time.perf_counter() - t0))
+        same = same and torch.equal(toks, want)
+    check(same, "finetune: the stream's replayed draws differ from the "
+          "eager sample_torch draws")
+    del drawn
     del m
     torch.cuda.empty_cache()
     check(all(math.isfinite(x) for x in losses),
@@ -3781,9 +3833,18 @@ def finetune_part(cfg, model, pruned, report, prompts, dev,
           f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} training tokens/s; "
           f"{gst['graphs']} graph, {gst['replays']} replays, capture "
           f"{gst['capture_s']:.2f} s, pool {gst['pool_bytes'] / 2**30:.2f} "
-          f"GiB; stream draw {statistics.median(draw_ms):.1f} ms a batch; "
-          f"peak memory {peak / 2**30:.2f} GiB (held before "
+          f"GiB; peak memory {peak / 2**30:.2f} GiB (held before "
           f"{base_mem / 2**30:.2f} GiB)")
+    print(f"      stream draw a batch of {TRAIN_BATCH} × {TRAIN_SEQ}: batch 1 "
+          f"(eager warm-up) {draw_ms[0]:.1f} ms, batch 2 (capture) "
+          f"{draw_ms[1]:.1f} ms, replayed median "
+          f"{statistics.median(draw_ms[2:]):.1f} ms over batches 3–"
+          f"{FINETUNE_STEPS}; eager sample_torch median "
+          f"{statistics.median(eager_draw):.1f} ms (PR 25's eager draw: "
+          f"54.1 ms); all {FINETUNE_STEPS} replayed draws bitwise the "
+          f"eager ones; the sampler's graph: capture "
+          f"{dst['capture_s']:.2f} s, pool {dst['pool_bytes'] / 2**20:.1f} "
+          f"MiB")
     print(f"      one batch, eager / replayed ms: loss alone "
           f"{split['forward']:.1f} / {split_replay['forward']:.1f}, loss + "
           f"grads {split['grad']:.1f} / {split_replay['grad']:.1f}, with "
@@ -3803,7 +3864,8 @@ def finetune_part(cfg, model, pruned, report, prompts, dev,
             "graphs": gst, "update_ms": {"eager": upd_eager,
                                          "replayed": upd_replay},
             "update_share": share, "update_pool_bytes": ust["pool_bytes"],
-            "draw_ms": draw_ms, "peak_bytes": peak, "held_bytes": base_mem,
+            "draw_ms": draw_ms, "eager_draw_ms": eager_draw,
+            "draw_graphs": dst, "peak_bytes": peak, "held_bytes": base_mem,
             "split_ms": split, "split_replayed_ms": split_replay,
             "pruned_loss": pruned_loss, "finetuned_loss": ft_loss,
             "ratio": cb / db, "k2_launches": k2, "serve_seconds": t_serve,
@@ -4484,22 +4546,28 @@ def dist_phase(cfg, pruned, report, comp, dev, setup=None) -> dict:
     check(max(dl) <= DIST_LOSS_TOL and ta["params_over"] == 0,
           f"dist (d): loss |Δ| {dl} (limit {DIST_LOSS_TOL}), "
           f"{ta['params_over']} params beyond 6·lr + 3·2⁻⁷·|p|")
-    step_s = sorted(ta["step_s"])[len(ta["step_s"]) // 2]
+    # by role, as train (c): step 1 the eager warm-up, step 2 the capture,
+    # the rest replays
+    eager_s, capture_s = ta["step_s"][0], ta["step_s"][1]
+    step_s = statistics.median(ta["step_s"][2:])
     share = ta["collective_s"] / step_s
     print(f"  dist (d) sharded train step, {TRAIN_BATCH} × {TRAIN_SEQ} "
           f"tokens over 2 ranks, lr {DIST_LR}: losses {ta['losses']} vs "
           f"make_train_step {ta['ref_losses']} (max |Δ| {max(dl):.3g}, "
           f"limit {DIST_LOSS_TOL}); params max |Δ| "
           f"{ta['params_max_abs']:.3g}, {ta['params_differ']:.4f} of them "
-          f"differ, none beyond the bound; step {1e3 * step_s:.1f} ms "
-          f"median ({', '.join(f'{1e3 * s:.1f}' for s in ta['step_s'])}); "
-          f"one gradient all_reduce ({ta['grad_bytes'] / 1e9:.2f} GB bf16, "
-          f"gloo) {1e3 * ta['collective_s']:.1f} ms = {share:.2f} of a step; "
-          f"rank 0's two graphed segments: {ta['graphs']['graphs']} graphs, "
-          f"{ta['graphs']['replays']} replays, capture "
-          f"{ta['graphs']['capture_s']:.2f} s, pool "
+          f"differ, none beyond the bound; step 1 (eager warm-up) "
+          f"{1e3 * eager_s:.1f} ms, step 2 (capture) {1e3 * capture_s:.1f} "
+          f"ms, replayed median {1e3 * step_s:.1f} ms over steps 3–"
+          f"{DIST_STEPS} ({', '.join(f'{1e3 * s:.1f}' for s in ta['step_s'][2:])}"
+          f"); one gradient all_reduce ({ta['grad_bytes'] / 1e9:.2f} GB "
+          f"bf16, gloo) {1e3 * ta['collective_s']:.1f} ms = {share:.2f} of "
+          f"a replayed step; rank 0's two graphed segments: "
+          f"{ta['graphs']['graphs']} graphs, {ta['graphs']['replays']} "
+          f"replays, capture {ta['graphs']['capture_s']:.2f} s, pool "
           f"{ta['graphs']['pool_bytes'] / 2**30:.2f} GiB")
-    check(ta["graphs"]["graphs"] == 2 and tb["graphs"]["graphs"] == 2,
+    check(all(t["graphs"]["graphs"] == 2 and t["graphs"]["replays"] ==
+              2 * (DIST_STEPS - 1) for t in (ta, tb)),
           f"dist (d): the sharded step's graphs {ta['graphs']} / "
           f"{tb['graphs']}")
     # (e)
@@ -4516,7 +4584,8 @@ def dist_phase(cfg, pruned, report, comp, dev, setup=None) -> dict:
                       weights_bf16_max_abs=a["weights_bf16_max_abs"],
                       loss_rel=loss_rel, k1=k1, solves=a["solves"],
                       first_step=a["first_step"]),
-               c=c, d=dict(ta, step_ms=1e3 * step_s, share=share,
+               c=c, d=dict(ta, step_ms=1e3 * step_s, eager_ms=1e3 * eager_s,
+                           capture_ms=1e3 * capture_s, share=share,
                            rank1_losses=tb["losses"]), e=e,
                ranks_seconds=t_ranks)
     out["counts"] = {}
@@ -4569,10 +4638,27 @@ def tooling_sweep() -> list:
     return out
 
 
+def graph_fields(label: str, r: dict, ms: float, bound_ms: float) -> str:
+    """A measured step's eager, capture and replayed ms, pool bytes and
+    replayed / eager over the bound (``dryrun.run_fields``), checked: one
+    graph, replayed, bitwise the direct call from the same state."""
+    check(r["graphs"] == 1 and r["replays"] >= 1 and r["replay_bitwise"],
+          f"{label}: graphs {r['graphs']}, replays {r['replays']}, replay "
+          f"bitwise the direct call {r['replay_bitwise']}")
+    return (f"eager {r['eager_ms']:.3f} ms, capture {r['capture_ms']:.1f} "
+            f"ms, replayed {ms:.3f} ms (bound {bound_ms:.3f} ms; "
+            f"measured/bound replayed {ms / bound_ms:.2f}, eager "
+            f"{r['eager_ms'] / bound_ms:.2f}), pool "
+            f"{r['pool_bytes'] / 1e9:.2f} GB, replay bitwise the direct "
+            f"call")
+
+
 def tooling_measure(sweep: list) -> list:
     """Tooling (b): ``dryrun --measure`` on every supported decode cell
     whose arguments fit one card at full depth: its step on random-init
-    weights, median of 5 after a warm-up, peak bytes above the arguments."""
+    weights, 5 direct calls after a warm-up, then the step's graph (warm-up,
+    capture, 5 replays; ``dryrun.timed_runs``), peak bytes above the
+    arguments."""
     import torch
 
     from repro_torch.configs.base import SHAPES
@@ -4586,14 +4672,14 @@ def tooling_measure(sweep: list) -> list:
         m = dryrun.measure_cell(rec["arch"], SHAPES[rec["cell"]],
                                 device="cuda")
         torch.cuda.empty_cache()
+        label = f"measure {rec['arch']} {rec['cell']}"
         check(m["finite"] and m["logits_shape"][0] ==
               SHAPES[rec["cell"]].global_batch,
-              f"measured {rec['arch']} {rec['cell']}: {m['logits_shape']}, "
-              f"finite {m['finite']}")
+              f"{label}: {m['logits_shape']}, finite {m['finite']}")
         print(f"  measure {rec['arch']:19s} {rec['cell']:12s} full depth: "
-              f"{m['step_ms']:.3f} ms a step (one-card bound "
-              f"{m['roofline_step_s'] * 1e3:.3f} ms, {m['bottleneck']}; "
-              f"×{m['measured_over_bound']:.2f}), arguments "
+              + graph_fields(label, m, m["step_ms"],
+                             m["roofline_step_s"] * 1e3)
+              + f"; {m['bottleneck']}, arguments "
               f"{m['argument_bytes'] / 1e9:.2f} GB, temporaries "
               f"{m['temp_bytes'] / 1e9:.2f} GB")
         out.append(m)
@@ -4612,9 +4698,14 @@ def tooling_ladders() -> dict:
     against the same model's over a bf16 cache, both filled with the same
     random k/v (perf.int8_cache_check), at max |Δ| < INT8_TOL and below
     INT8_SHARE of what the filled cache itself moves them."""
+    import dataclasses
+
     import torch
 
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.dist.sharding import MeshShape
     from repro_torch.launch import perf
+    from repro_torch.launch import steps as S
     from repro_torch.models.model_builder import build_model
     from repro_torch.serve.compressed import decompress_params
 
@@ -4630,21 +4721,28 @@ def tooling_ladders() -> dict:
             if opts.nm:
                 d = NM_GATE_BLOCKS.get(key)
                 if d is None:
-                    # the rung's first step ran on a fresh cache: the
-                    # decompressed tree on a fresh one again
+                    # the rung's replayed step ran from a fresh cache: the
+                    # decompressed tree from a fresh one again
                     model, comp, kern = step.model, args[0], first
-                    args[1].clear()
-                    args[1].update(model.init_cache(B, depth))
+                    step.reset_cache(args[1])
                     cache = args[1]
                 else:
+                    # the rung's leaves cut to d blocks, their own step
+                    # replayed from a fresh cache
                     model = build_model(step.model.cfg.replace(num_layers=d),
                                         device=args[2].device)
                     comp = dict(args[0], blocks={i: args[0]["blocks"][i]
                                                  for i in range(d)})
-                    with uncounted(), torch.no_grad():
-                        kern = model.decode_step(comp, model.init_cache(
-                            B, depth), *args[2:])[0].float().cpu()
+                    sub, _ = S.make_decode_step(
+                        model, MeshShape(("data", "model"), (1, 1)),
+                        ShapeCell(step.cell.name, depth, B, "decode"),
+                        dataclasses.replace(opts, cache_len=depth))
                     cache = model.init_cache(B, depth)
+                    with uncounted():
+                        kern = sub.replay(comp, cache, *args[2:],
+                                          fresh=True)[0].float().cpu()
+                    sub.release()
+                    sub.reset_cache(cache)
                 dense = decompress_params(comp)
                 with uncounted(), torch.no_grad():
                     ref = model.decode_step(dense, cache, *args[2:])[0]
@@ -4680,15 +4778,16 @@ def tooling_ladders() -> dict:
                   f"rung, ×{r['measured_speedup_vs_baseline']:.2f} vs "
                   f"baseline (bound: ×{r['speedup_vs_prev']:.2f}, "
                   f"×{r['speedup_vs_baseline']:.2f})")
-            print(f"  ladder {key} [{r['tag']}] depth {r['depth']}"
+            label = f"ladder {key} [{r['tag']}]"
+            print(f"  {label} depth {r['depth']}"
                   f"{' (' + ', '.join(r['cuts']) + ')' if r['cuts'] else ''}"
                   f", B {r['batch']}, cache {r['cache_len']}: "
-                  f"{r['measured_ms']:.3f} ms a step, peak "
-                  f"{r['peak_bytes'] / 1e9:.2f} GB; bound "
-                  f"{r['step_s'] * 1e3:.3f} ms ({r['bottleneck']}: memory_s "
+                  + graph_fields(label, r, r["measured_ms"],
+                                 r["step_s"] * 1e3)
+                  + f", peak {r['peak_bytes'] / 1e9:.2f} GB; bound "
+                  f"{r['bottleneck']} (memory_s "
                   f"{r['terms']['memory_s'] * 1e3:.3f}, compute_s "
-                  f"{r['terms']['compute_s'] * 1e3:.3f}), measured/bound "
-                  f"{r['measured_over_bound']:.2f}{sp}; predicted "
+                  f"{r['terms']['compute_s'] * 1e3:.3f}){sp}; predicted "
                   f"{r['prediction']}"
                   f"{'; ' + r['note'] if r['note'] else ''}")
         out[key] = {"records": recs, "seconds": time.perf_counter() - t0}
@@ -4714,6 +4813,9 @@ def tooling_phase(gen, dev) -> dict:
     t_meas = time.perf_counter() - t0 - t_sweep
     ladders = tooling_ladders()
     by_shape = ladders.pop("by_shape")
+    t_prefill = time.perf_counter()
+    prefill = tooling_prefill()
+    t_prefill = time.perf_counter() - t_prefill
     rows, chk = [], {}
     for arch, shapes in TOOLING_K2.items():
         want = [(TOOLING_B, c, b, str(torch.bfloat16), 4) for c, b in shapes]
@@ -4737,9 +4839,192 @@ def tooling_phase(gen, dev) -> dict:
           f"{t_meas:.1f} s, ladders "
           + ", ".join(f"{k.split('/')[0]} {v['seconds']:.1f} s"
                       for k, v in ladders.items() if k != "gates")
-          + ")")
+          + f", prefill {t_prefill:.1f} s)")
     return {"sweep": sweep, "measured": measured, "ladders": ladders,
-            "rows": rows, "seconds": secs}
+            "prefill": prefill, "rows": rows, "seconds": secs}
+
+
+def tooling_prefill() -> dict:
+    """Tooling (d): ``make_prefill_step`` (JAX's jitted prefill) at
+    tinyllama-1.1b's full width and depth on prefill_32k cut to B = 1 and
+    PREFILL_SEQ tokens (``dryrun.timed_runs``): direct calls, then the
+    step's graph (warm-up, capture, replays), the replay's last-token
+    logits bitwise the direct call's."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPES, ShapeCell
+    from repro_torch.dist.sharding import MeshShape
+    from repro_torch.launch import costmodel as CM
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as S
+    from repro_torch.models.model_builder import build_model
+
+    cfg = registry.get_config("tinyllama-1.1b")
+    full = SHAPES["prefill_32k"]
+    cell = ShapeCell(full.name, PREFILL_SEQ, 1, "prefill")
+    model = build_model(cfg, device="cuda")
+    step, a_args = S.make_prefill_step(
+        model, MeshShape(("data", "model"), (1, 1)), cell)
+    run = dryrun.timed_runs(step, 0, PREFILL_RUNS)
+    ac = CM.step_cost(cfg, cell, a_args[0])
+    line = dryrun.roofline(ac.flops, ac.hbm_bytes, dryrun.model_flops(
+        cfg, a_args[0], cell)["model_flops"], 1)
+    rec = dict(dryrun.run_fields(run), **line,
+               step_ms=statistics.median(run["times"]),
+               step_ms_all=run["times"], peak_bytes=run["peak"],
+               logits_shape=list(run["first"].shape),
+               finite=bool(torch.isfinite(run["first"].float()).all()))
+    label = f"prefill tinyllama-1.1b {full.name} cut to B 1, {cell.seq_len}"
+    check(rec["finite"] and rec["logits_shape"] == [1, 1, cfg.vocab_size],
+          f"{label}: logits {rec['logits_shape']}, finite {rec['finite']}")
+    print(f"  {label} tokens (of {full.global_batch} × {full.seq_len}), "
+          f"full width and depth: "
+          + graph_fields(label, rec, rec["step_ms"],
+                         line["roofline_step_s"] * 1e3)
+          + f"; {line['bottleneck']}, peak {run['peak'] / 1e9:.2f} GB")
+    del run
+    torch.cuda.empty_cache()
+    return rec
+
+
+def host_draw(tag: str, vocab: int, seed: int, index: int, batch: int,
+              seq: int, tmp: str) -> None:
+    """Batch ``index`` of the stream ``seed`` by numpy on the host
+    (``SyntheticCorpus.sample``, the law's definition), saved with its
+    seconds to ``tmp`` under ``tag``."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.data.pipeline import SyntheticCorpus
+
+    t0 = time.perf_counter()
+    toks = SyntheticCorpus(vocab_size=vocab).sample(
+        np.random.default_rng([seed, index]), batch, seq)
+    np.save(f"{tmp}/{tag}_{index}.npy", toks)
+    Path(f"{tmp}/{tag}_{index}.s").write_text(
+        repr(time.perf_counter() - t0))
+
+
+def start_host_draws(tmp: str) -> list:
+    """One spawned process a batch of DRAWS, each on one host thread."""
+    import os
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import registry
+
+    ctx = mp.get_context("spawn")
+    saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS",
+                                            "OPENBLAS_NUM_THREADS",
+                                            "MKL_NUM_THREADS")}
+    os.environ.update({k: "1" for k in saved})
+    try:
+        procs = [ctx.Process(target=host_draw, args=(
+            name.replace(" ", "_"), registry.get_config(arch).vocab_size,
+            seed, i, batch, seq, tmp), daemon=True)
+                 for name, (arch, seed, n, batch, seq) in DRAWS.items()
+                 for i in range(n)]
+        for p in procs:
+            p.start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    return procs
+
+
+def draws_check(procs: list, tmp: str, t_start: float, dev) -> dict:
+    """The draws check: each of DRAWS drawn on the card through the float64
+    chain (``calibration_batches``: its draws stay in the process's cache,
+    so the later phases draw them no more) against numpy's host draw from
+    ``start_host_draws``, token for token; the seconds of both."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import calibration_batches
+
+    join_ranks(procs, max(1.0, DRAWS_TIMEOUT - (time.monotonic() - t_start)),
+               "host draws")
+    out = {}
+    for name, (arch, seed, n, batch, seq) in DRAWS.items():
+        cfg = registry.get_config(arch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = calibration_batches(cfg, num_samples=n * batch, seq_len=seq,
+                                  batch=batch, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        tag = name.replace(" ", "_")
+        host_s = [float(Path(f"{tmp}/{tag}_{i}.s").read_text())
+                  for i in range(n)]
+        differ = sum(int((b["tokens"].cpu().numpy() != np.load(
+            f"{tmp}/{tag}_{i}.npy")).sum()) for i, b in enumerate(got))
+        check(differ == 0, f"draws {name}: {differ} tokens of the card's "
+              f"draw differ from numpy's host draw")
+        print(f"  draws {name} (vocab {cfg.vocab_size}, {n} × {batch} × "
+              f"{seq} tokens): drawn on the card in {card_s:.3f} s (float64 "
+              f"chain), numpy on the host {sum(host_s):.2f} s in all "
+              f"({', '.join(f'{x:.2f}' for x in host_s)} s a batch, each in "
+              f"a process of its own, nothing timed beside them); token for "
+              f"token equal")
+        out[name] = {"card_s": card_s, "host_s": host_s, "differ": differ}
+    return out
+
+
+def heldout_timing(model, params, cfg) -> dict:
+    """JAX's ``jax.jit(model.loss)`` in ``heldout_loss``, measured: one
+    4-batch call of the loss graphed in a scope of its own (capture
+    included, as JAX compiles once a call) against the eager loss, in turns
+    (eager, graphed, graphed, eager), on the slice ``heldout_loss`` scores;
+    the losses bitwise equal.  ``heldout_loss`` runs the eager one: the
+    graphed call was the slower (PERF.md, PR 26)."""
+    import torch
+
+    from repro_torch.data.pipeline import calibration_batches
+    from repro_torch.util import graphs
+
+    batches = calibration_batches(cfg, num_samples=32, seq_len=256, batch=8,
+                                  seed=9999, device=model.device)
+
+    def eager():
+        return [float(model.loss(params, b)) for b in batches]
+
+    def graphed():
+        loss = graphs.graphed(model.loss, donate=("params",))
+        with graphs.scope() as sc:
+            got = [float(loss(params, b)) for b in batches]
+            stats.append(sc.stats())
+        return got
+
+    stats: list = []
+    times = {"eager": [], "graphed": []}
+    losses = {}
+    with torch.no_grad():
+        for kind in ("eager", "graphed", "graphed", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses[kind] = eager() if kind == "eager" else graphed()
+            torch.cuda.synchronize()
+            times[kind].append(1e3 * (time.perf_counter() - t0))
+    check(losses["eager"] == losses["graphed"] and
+          all(st["graphs"] == 1 and st["replays"] == len(batches) - 1
+              for st in stats),
+          f"held-out loss: graphed {losses['graphed']} vs eager "
+          f"{losses['eager']}, graphs {stats}")
+    e, g = (statistics.mean(times[k]) for k in ("eager", "graphed"))
+    print(f"  held-out loss, {len(batches)} batches of 8 × 256 on "
+          f"tinyllama-1.1b at full width: eager "
+          f"{', '.join(f'{x:.1f}' for x in times['eager'])} ms, graphed "
+          f"(capture included) "
+          f"{', '.join(f'{x:.1f}' for x in times['graphed'])} ms — mean "
+          f"{e:.1f} / {g:.1f} ms; capture {stats[0]['capture_s']:.3f} s; "
+          f"losses bitwise equal")
+    return {"eager_ms": times["eager"], "graphed_ms": times["graphed"],
+            "graphs": stats[0]}
 
 
 def tooling_child(tmp: str) -> None:
@@ -5009,6 +5294,15 @@ def main() -> None:
     results["tooling"] = {k: v for k, v in tooling.items() if k != "rows"}
     torch.cuda.empty_cache()
 
+    # ---- draws: the held-out and calibration slices drawn on the card ----
+    # numpy's host draws, after the tooling phase: its B = 1 cells are
+    # launch-bound, and host processes beside them would slow them
+    draws_tmp = tempfile.mkdtemp(prefix="draws-", dir=ROOT / "build")
+    t_draws = time.monotonic()
+    draw_procs = start_host_draws(draws_tmp)
+    results["draws"] = draws_check(draw_procs, draws_tmp, t_draws, dev)
+    shutil.rmtree(draws_tmp, ignore_errors=True)
+
     # ---- 2. kernels vs plain ---------------------------------------------
     k1_err: dict = {}
     n1, worst1 = 0, (0.0, 0.0)
@@ -5183,6 +5477,7 @@ def main() -> None:
 
     e = first_step_line(model, comp, prompts)
     agree = e[2]
+    results["heldout_loss"] = heldout_timing(model, pruned, cfg)
     model8 = build_model(cfg.replace(kv_cache_dtype="int8"), device="cuda")
     done8, t_serve8, engine8 = serve_requests(model8, comp, prompts)
     # 22 random-init layers amplify the int8 rounding as they amplify the

@@ -8,11 +8,22 @@ with threefry; this one draws with numpy's PCG64 from the same seeds, so the
 two streams have the same law but different tokens (the tests hand the JAX
 tokens to both packages where they compare them).
 
-The training stream (``TrainStream``) draws on its own device instead: the
-same language matrices and the same inverse-CDF categorical, driven by a
-``torch.Generator`` seeded from (seed, host_id, step), so a full-width
-batch costs milliseconds on the card rather than seconds of host loop.
-Its tokens differ from numpy's and from JAX's; the law is the same.
+Every stream draws on its device as JAX's jitted samplers do, through one
+inverse-CDF chain (``chain``): uniform draws u (batch, seq_len) in, the
+first token from the unigram law, each next one from mix·softmax(e[prev]·
+dᵀ) + (1−mix)·uni, each the first index whose running sum reaches
+u·total.  The chain is ``graphed``: one CUDA graph a shape inside an open
+``graphs.scope()``, inline on the CPU and outside a scope.  No random
+number is drawn inside it.
+
+* The training stream (``TrainStream``) draws u with a ``torch.Generator``
+  seeded from (seed, host_id, step) and runs the chain in float32 from a
+  scope of its own: from its second batch on a batch is one replay.  Its
+  tokens differ from numpy's and from JAX's; the law is the same.
+* The calibration set and the held-out slice take u from numpy's stream
+  ``[seed, i]`` in the order ``SyntheticCorpus.sample`` reads it and run
+  the chain in float64, so their tokens are numpy's host draw: only a tie
+  at a running sum's last bit could part them.
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.util import graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,40 +71,55 @@ class SyntheticCorpus:
 
 
 @functools.lru_cache(maxsize=8)
-def _language(corpus: SyntheticCorpus, device: torch.device):
-    """(uni, e, dᵀ) of ``corpus`` as float32 tensors on ``device``: the
+def _language(corpus: SyntheticCorpus, device: torch.device,
+              dtype: torch.dtype = torch.float32):
+    """(uni, e, dᵀ) of ``corpus`` as ``dtype`` tensors on ``device``: the
     unigram law and the bigram encoder/decoder from ``default_rng([seed,
     7])``, as ``SyntheticCorpus.sample`` draws them."""
     lang = np.random.default_rng([corpus.seed, 7])
     e = lang.normal(size=(corpus.vocab_size, corpus.mix_rank)) * 1.5
     d = e[lang.permutation(corpus.vocab_size)]
-    as_t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    as_t = lambda a: torch.tensor(a, dtype=dtype, device=device)
     return as_t(corpus._unigram_probs()), as_t(e), as_t(d.T.copy())
+
+
+def _chain(u: torch.Tensor, uni: torch.Tensor, e: torch.Tensor,
+           dt: torch.Tensor, mix: float) -> torch.Tensor:
+    """(batch, seq_len) int64 tokens by the law of ``SyntheticCorpus.
+    sample`` from uniform draws ``u`` (batch, seq_len) in their dtype: the
+    first token from the unigram law ``uni``, each next one from
+    mix·softmax(e[prev]·dᵀ) + (1−mix)·uni, each the first index whose
+    running sum reaches u·total — ``(cdf < u·total).sum()``, numpy's
+    rule."""
+    batch, seq_len = u.shape
+    out = torch.empty((batch, seq_len), dtype=torch.int64, device=u.device)
+    last = uni.shape[0] - 1
+    cdf = torch.cumsum(uni, 0).expand(batch, -1).contiguous()
+    out[:, 0] = torch.searchsorted(cdf, u[:, :1] * cdf[:, -1:])[:, 0] \
+        .clamp_(max=last)
+    rest = (1.0 - mix) * uni
+    for t in range(1, seq_len):
+        big = e[out[:, t - 1]] @ dt                        # (batch, V)
+        big = torch.exp(big - big.amax(dim=-1, keepdim=True))
+        big *= mix / big.sum(dim=-1, keepdim=True)
+        cdf = torch.cumsum(big + rest, dim=-1)
+        out[:, t] = torch.searchsorted(cdf, u[:, t:t + 1] * cdf[:, -1:]
+                                       )[:, 0].clamp_(max=last)
+    return out
+
+
+# JAX's jitted samplers: the language bound in place, u copied in
+chain = graphs.graphed(_chain, static=("mix",), donate=("uni", "e", "dt"))
 
 
 def sample_torch(corpus: SyntheticCorpus, gen: torch.Generator, batch: int,
                  seq_len: int) -> torch.Tensor:
     """(batch, seq_len) int64 tokens on ``gen``'s device, by the law of
-    ``SyntheticCorpus.sample``: the first token from the unigram law, each
-    next one from mix·softmax(e[prev]·dᵀ) + (1−mix)·uni, each draw the
-    first index whose running sum reaches u·total (the same inverse CDF)."""
+    ``SyntheticCorpus.sample``: u from ``gen`` (one ``torch.rand``), then
+    the float32 ``chain``."""
     dev = gen.device
-    uni, e, dt = _language(corpus, dev)
     u = torch.rand((batch, seq_len), generator=gen, device=dev)
-    out = torch.empty((batch, seq_len), dtype=torch.int64, device=dev)
-    last = corpus.vocab_size - 1
-    cdf = torch.cumsum(uni, 0).expand(batch, -1).contiguous()
-    out[:, 0] = torch.searchsorted(cdf, u[:, :1] * cdf[:, -1:])[:, 0] \
-        .clamp_(max=last)
-    rest = (1.0 - corpus.mix_weight) * uni
-    for t in range(1, seq_len):
-        big = e[out[:, t - 1]] @ dt                        # (batch, V)
-        big = torch.exp(big - big.amax(dim=-1, keepdim=True))
-        big *= corpus.mix_weight / big.sum(dim=-1, keepdim=True)
-        cdf = torch.cumsum(big + rest, dim=-1)
-        out[:, t] = torch.searchsorted(cdf, u[:, t:t + 1] * cdf[:, -1:]
-                                       )[:, 0].clamp_(max=last)
-    return out
+    return chain(u, *_language(corpus, dev), corpus.mix_weight)
 
 
 def _categorical(rng: np.random.Generator, probs: np.ndarray) -> np.ndarray:
@@ -102,23 +129,35 @@ def _categorical(rng: np.random.Generator, probs: np.ndarray) -> np.ndarray:
     return np.minimum((cdf < u).sum(axis=-1), probs.shape[-1] - 1)
 
 
+def numpy_uniforms(rng: np.random.Generator, batch: int,
+                   seq_len: int) -> np.ndarray:
+    """The (batch, seq_len) doubles ``SyntheticCorpus.sample`` reads from
+    ``rng``, position by position: ``rng.random((batch, 1))`` a position is
+    the same stream, in the same order, as ``rng.random((seq_len,
+    batch)).T``."""
+    return np.ascontiguousarray(rng.random((seq_len, batch)).T)
+
+
 @functools.lru_cache(maxsize=64)
 def _sample(corpus: SyntheticCorpus, seed: int, index: int, batch: int,
-            seq_len: int) -> np.ndarray:
-    """Batch ``index`` of the stream ``seed``: drawn once per process and
-    kept (the draw is deterministic, and at a vocabulary of 262 144 it
-    takes tens of seconds on the host), so a held-out slice taken before
-    and after pruning is sampled once."""
-    return corpus.sample(np.random.default_rng([seed, index]), batch,
-                         seq_len)
+            seq_len: int, device: torch.device) -> torch.Tensor:
+    """Batch ``index`` of the stream ``seed`` on ``device``: numpy's
+    uniforms through the float64 ``chain`` — ``corpus.sample(np.random.
+    default_rng([seed, index]), batch, seq_len)``'s tokens — drawn once a
+    process and kept, so a held-out slice taken before and after pruning
+    is sampled once."""
+    u = torch.from_numpy(numpy_uniforms(np.random.default_rng(
+        [seed, index]), batch, seq_len)).to(device)
+    return chain(u, *_language(corpus, device, torch.float64),
+                 corpus.mix_weight)
 
 
 @dataclasses.dataclass
 class CalibrationStream:
     """The paper's calibration set: ``num_samples`` fixed sequences (§5.1),
-    ``num_samples // batch`` batches of {"tokens": (batch, seq_len)} on
-    ``device`` (CUDA unless the caller passes ``device="cpu"``), batch i
-    drawn from numpy's stream ``[seed, i]``."""
+    ``num_samples // batch`` batches of {"tokens": (batch, seq_len)} drawn
+    on ``device`` (CUDA unless the caller passes ``device="cpu"``), batch i
+    numpy's draw from the stream ``[seed, i]``."""
 
     corpus: SyntheticCorpus
     num_samples: int = 128
@@ -132,9 +171,9 @@ class CalibrationStream:
             raise ValueError(f"num_samples={self.num_samples} must be a "
                              f"multiple of batch={self.batch}")
         device = resolve_device(self.device)
-        return [{"tokens": torch.from_numpy(_sample(
-            self.corpus, self.seed, i, self.batch, self.seq_len).copy()
-        ).to(device)} for i in range(self.num_samples // self.batch)]
+        return [{"tokens": _sample(self.corpus, self.seed, i, self.batch,
+                                   self.seq_len, device).clone()}
+                for i in range(self.num_samples // self.batch)]
 
 
 def calibration_batches(cfg, *, num_samples: int = 32, seq_len: int = 256,
@@ -179,7 +218,11 @@ def heldout_loss(model, params, cfg, *, num_batches: int = 4,
                  seq_len: int = 256, batch: int = 8, seed: int = 9999,
                  corpus_seed: int = 0) -> float:
     """Mean next-token CE on a held-out synthetic slice (perplexity proxy):
-    the same language as calibration, fresh sequences."""
+    the same language as calibration, fresh sequences, drawn on the
+    model's device.  JAX jits the loss once a call; here it runs eagerly:
+    a graph captured for four batches costs more than its three replays
+    save (tinyllama-1.1b on an H100, ``chip_smoke.heldout_timing``: 213.5
+    ms graphed against 152.3 ms eager, the mean of two calls each)."""
     batches = calibration_batches(
         cfg, num_samples=num_batches * batch, seq_len=seq_len, batch=batch,
         seed=seed, corpus_seed=corpus_seed, device=model.device)
@@ -219,13 +262,23 @@ class TrainStream:
             raise ValueError(f"global_batch={self.global_batch} must be a "
                              f"multiple of num_hosts={self.num_hosts}")
         self.device = resolve_device(self.device)
+        # JAX jits the sampler once a stream: the chain's graph and pool
+        self._sample = graphs.Compiled(sample_torch, sample_torch)
 
     def batch_at(self, step: int) -> dict[str, torch.Tensor]:
         gen = torch.Generator(device=self.device).manual_seed(
             _stream_seed(self.seed, self.host_id, int(step)))
-        return {"tokens": sample_torch(
+        return {"tokens": self._sample(
             self.corpus, gen, self.global_batch // self.num_hosts,
             self.seq_len)}
+
+    def stats(self) -> dict:
+        """The sampler's graphs (``graphs.Scope.stats``)."""
+        return self._sample.stats()
+
+    def release(self) -> None:
+        """Drop the sampler's graph and return its pool to the card."""
+        self._sample.release()
 
     def __iter__(self):
         step = 0

@@ -20,10 +20,12 @@ whether those fit one card.
 **--measure** (``--device cuda`` by default): every decode cell whose
 unsharded arguments fit one card at full depth is built by
 ``steps.make_step``, run on random-init weights from a seeded generator,
-and timed — the median of ``MEASURE_RUNS`` steps after a warm-up, the
-peak allocation above the argument bytes (the analogue of XLA's
-``temp_size_in_bytes``) and the measured time over the one-card
-``memory_s``.
+and timed (``timed_runs``) — the median of ``MEASURE_RUNS`` replays of the
+step's CUDA graph beside the median of as many direct (eager) calls, the
+capture's ms and pool bytes, the peak allocation above the argument bytes
+(the analogue of XLA's ``temp_size_in_bytes``, the pool included) and
+the measured time over the one-card ``memory_s``; the replay's logits are
+held bitwise against the direct call's from the same cache state.
 
 **--prune-parity**: JAX's row-parallel prune parity check
 (``dist.prune.prune_layer_sharded`` against ``prune_layer``, c 512, b 64,
@@ -201,12 +203,33 @@ def run_cell(arch: str, cell, mesh, mesh_name: str, chips: int) -> dict:
     }
 
 
+def _logits(out):
+    """A step's logits: a decode step returns (logits, cache)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 def timed_runs(step, seed: int, runs: int) -> dict:
-    """Draw ``step``'s concrete arguments from ``seed`` and run it: a
-    warm-up, then ``runs`` timed steps (CUDA events on the card, the host
-    clock on the CPU).  → {"args", "first" (the warm-up's logits), "last",
-    "times" (ms), "peak" (bytes allocated above what was allocated before
-    the arguments; None on the CPU)}."""
+    """Draw ``step``'s concrete arguments from ``seed`` and time it (CUDA
+    events on the card, the host clock on the CPU), direct and replayed:
+
+    * the direct call (``step.__wrapped__``, no graph): a warm-up from the
+      fresh arguments, then ``runs`` timed calls;
+    * the compiled step: its first call (the eager warm-up), its second
+      (the capture, timed on its own), then ``runs`` timed replays;
+    * one more replay from the fresh state (``Step.reset_cache``: a
+      recurrent state has moved on), held bitwise against the direct
+      warm-up's logits.
+
+    The allocator's free blocks go back to the card between the direct
+    calls and the capture, and the step's graphs are released at the end.
+    The kernels' launch counts hold every step that ran, direct and
+    replayed (a replay adds its graph's launches back; the capture
+    launches nothing).  → {"args", "first" (the replay's logits
+    from the fresh state), "direct" (the direct warm-up's), "bitwise",
+    "last" (the last timed replay's logits), "times" (replayed ms),
+    "eager_times" (direct ms), "capture_ms", "peak" (bytes allocated above
+    what was allocated before the arguments, the capture's pool included;
+    None on the CPU), "pool_bytes", "graphs", "replays"}."""
     dev = step.model.device
     cuda = dev.type == "cuda"
     if cuda:
@@ -215,33 +238,62 @@ def timed_runs(step, seed: int, runs: int) -> dict:
         torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated() if cuda else 0
     args = step.concrete_args(torch.Generator(device=dev).manual_seed(seed))
-    first, _ = step(*args)
-    logits, times = first, []
-    for _ in range(runs):
-        if cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            logits, _ = step(*args)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        else:
+
+    def timed(fn):
+        if not cuda:
             t0 = time.perf_counter()
-            logits, _ = step(*args)
-            times.append(1e3 * (time.perf_counter() - t0))
+            out = _logits(fn(*args))
+            return out, 1e3 * (time.perf_counter() - t0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = _logits(fn(*args))
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    direct = _logits(step.__wrapped__(*args))
+    eager = [timed(step.__wrapped__)[1] for _ in range(runs)]
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()     # the capture's pool: no cached blocks
+    _logits(step(*args))
+    _, capture_ms = timed(step)
+    logits, times = direct, []
+    for _ in range(runs):
+        logits, ms = timed(step)
+        times.append(ms)
+    if step.kind == "decode":
+        step.reset_cache(args[1])
+    first = _logits(step(*args))
     peak = (torch.cuda.max_memory_allocated() - base) if cuda else None
-    return {"args": args, "first": first, "last": logits, "times": times,
-            "peak": peak}
+    stats = step.stats()
+    step.release()
+    return {"args": args, "first": first, "direct": direct,
+            "bitwise": bool(torch.equal(first, direct)), "last": logits,
+            "times": times, "eager_times": eager, "capture_ms": capture_ms,
+            "peak": peak, "pool_bytes": stats["pool_bytes"],
+            "graphs": stats["graphs"], "replays": stats["replays"]}
+
+
+def run_fields(run: dict) -> dict:
+    """A ``timed_runs`` record's direct and graph fields, by the keys the
+    dry run's and the perf ladders' records share."""
+    return {"eager_ms": statistics.median(run["eager_times"]),
+            "eager_ms_all": run["eager_times"],
+            "capture_ms": run["capture_ms"], "pool_bytes": run["pool_bytes"],
+            "graphs": run["graphs"], "replays": run["replays"],
+            "replay_bitwise": run["bitwise"]}
 
 
 def measure_cell(arch: str, cell, *, device: str = "cuda",
                  reduced: bool = False, seed: int = 0,
                  runs: int = MEASURE_RUNS) -> dict:
     """Run a decode cell's step (default options) on ``device`` on
-    random-init weights from ``seed``: median step ms over ``runs`` after a
-    warm-up, peak bytes above the arguments, measured over the one-card
-    roofline."""
+    random-init weights from ``seed`` (``timed_runs``): median replayed
+    step ms over ``runs`` beside the direct (eager) median, the capture's
+    ms and pool bytes, peak bytes above the arguments, measured over the
+    one-card roofline, and the replay bitwise the direct call."""
     from repro_torch.launch import costmodel as CM
 
     cfg = registry.get_config(arch, reduced=reduced)
@@ -254,19 +306,22 @@ def measure_cell(arch: str, cell, *, device: str = "cuda",
     mf = model_flops(cfg, a_args[0], cell)
     line = roofline(ac.flops, ac.hbm_bytes, mf["model_flops"], 1)
     ms = statistics.median(run["times"])
+    fields = run_fields(run)
     peak = run["peak"]
     return {"arch": arch, "cell": cell.name, "device": str(model.device),
             "card": (torch.cuda.get_device_name(0)
                      if model.device.type == "cuda" else "cpu"),
-            "step_ms": ms, "step_ms_all": run["times"],
+            "step_ms": ms, "step_ms_all": run["times"], **fields,
             "argument_bytes": arg_bytes,
             "temp_bytes": None if peak is None else peak - arg_bytes,
             "peak_bytes": peak,
-            "logits_shape": list(run["last"].shape),
-            "finite": bool(torch.isfinite(run["last"].float()).all()),
+            "logits_shape": list(run["first"].shape),
+            "finite": bool(torch.isfinite(run["first"].float()).all()),
             **line,
             "measured_over_memory_s": ms / 1e3 / line["roofline"]["memory_s"],
-            "measured_over_bound": ms / 1e3 / line["roofline_step_s"]}
+            "measured_over_bound": ms / 1e3 / line["roofline_step_s"],
+            "eager_over_bound": (fields["eager_ms"] / 1e3
+                                 / line["roofline_step_s"])}
 
 
 # ------------------------------------------------------------- prune parity
@@ -408,10 +463,15 @@ def main(argv: list[str] | None = None) -> int:
                     rec = measure_cell(arch, cell, device=args.device)
                     atomic_write_json(os.path.join(args.out, tag + ".json"),
                                       rec)
-                    print(f"RUN  {tag}: {rec['step_ms']:.3f} ms "
-                          f"(bound {rec['roofline_step_s'] * 1e3:.3f} ms, "
-                          f"×{rec['measured_over_bound']:.2f}) "
-                          f"on {rec['card']}")
+                    print(f"RUN  {tag}: replayed {rec['step_ms']:.3f} ms"
+                          f", eager {rec['eager_ms']:.3f} ms (bound "
+                          f"{rec['roofline_step_s'] * 1e3:.3f} ms, "
+                          f"×{rec['measured_over_bound']:.2f} / "
+                          f"×{rec['eager_over_bound']:.2f}), capture "
+                          f"{rec['capture_ms']:.1f} ms, pool "
+                          f"{rec['pool_bytes'] / 1e9:.2f} GB, replay "
+                          f"bitwise {rec['replay_bitwise']} on "
+                          f"{rec['card']}")
                 except Exception as e:  # noqa: BLE001
                     failures.append((tag, repr(e)))
                     print(f"FAIL {tag}: {e!r}")

@@ -11,9 +11,12 @@ model is cut in depth only, one depth per ladder so its rungs compare
 depth.  A record holds JAX's keys minus the compiler's (``collectives``,
 ``memory``, ``compile_s``): the roofline terms at chips = 1 on the card's
 peaks (at the run's depth), the bottleneck, ``step_s`` (the bound) and
-``mfu``; beside them the measured step (median of ``RUNS`` after a
-warm-up), the peak bytes, measured over bound, and the speedups against
-the previous rung and the baseline, measured and predicted by the bound.
+``mfu``; beside them the measured step — the median of ``RUNS`` replays
+of the step's CUDA graph, with the median of as many direct (eager)
+calls, the capture's ms and pool bytes beside it (``dryrun.timed_runs``)
+— the peak bytes (the pool included), measured over bound, and the
+speedups against the previous rung and the baseline, measured and
+predicted by the bound.
 
 ``tp`` rungs lay every weight whole on one card, as ``fsdp`` does: on one
 card they change nothing, and are run all the same.  ``nm`` rungs pack
@@ -38,7 +41,8 @@ from repro_torch.configs.base import SHAPES
 from repro_torch.dist.sharding import MeshShape
 from repro_torch.launch import costmodel as CM
 from repro_torch.launch import steps as S
-from repro_torch.launch.dryrun import model_flops, roofline, timed_runs
+from repro_torch.launch.dryrun import (model_flops, roofline, run_fields,
+                                      timed_runs)
 from repro_torch.launch.steps import DecodeOptions
 from repro_torch.models import attention as A
 from repro_torch.models.model_builder import build_model
@@ -149,13 +153,14 @@ def measure(arch: str, cell_name: str, opts: DecodeOptions, *,
             reduced: bool = False, seed: int = 0, runs: int = RUNS,
             cell=None, keep: dict | None = None) -> dict:
     """One rung on one card (chips = 1): build the step, run it on
-    random-init weights from ``seed``, and return JAX's record keys (minus
-    the compiler's) beside the measurement.  ``keep``, when given, receives
-    the step, its concrete arguments and the first step's logits, taken
-    from the fresh cache (the caller's correctness gates: a recurrent
-    state has moved on since, so a comparison starts from
-    ``step.model.init_cache`` again).  ``cell`` replaces the named cell's
-    shape (small CPU runs)."""
+    random-init weights from ``seed`` (``dryrun.timed_runs``: direct, then
+    captured and replayed), and return JAX's record keys (minus the
+    compiler's) beside the measurement.  ``keep``, when given, receives
+    the step, its concrete arguments and the replayed step's logits from
+    the fresh cache (the caller's correctness gates: a recurrent state has
+    moved on since, so a comparison starts from ``Step.reset_cache``
+    again); the step's graphs are released by then.  ``cell`` replaces the
+    named cell's shape (small CPU runs)."""
     cell = cell or SHAPES[cell_name]
     full = registry.get_config(arch, reduced=reduced)
     cfg = cut_depth(full, depth)
@@ -171,6 +176,7 @@ def measure(arch: str, cell_name: str, opts: DecodeOptions, *,
     mf = model_flops(cfg, S.abstract_params(model), cell)
     line = roofline(ac.flops, ac.hbm_bytes, mf["model_flops"], 1)
     ms = statistics.median(run["times"])
+    fields = run_fields(run)
     cuts = [] if depth is None or depth == _depth_of(full) else [
         f"{'decoder layers' if cfg.family == 'encdec' else 'layers'} "
         f"{_depth_of(full)} → {depth}"]
@@ -188,10 +194,12 @@ def measure(arch: str, cell_name: str, opts: DecodeOptions, *,
         "card": (torch.cuda.get_device_name(0)
                  if model.device.type == "cuda" else "cpu"),
         "measured_ms": ms, "measured_ms_all": run["times"],
+        **fields,
         "argument_bytes": CM._tree_bytes(run["args"]),
         "peak_bytes": run["peak"],
         "measured_over_bound": ms / 1e3 / line["roofline_step_s"],
-        "finite": bool(torch.isfinite(run["last"].float()).all()),
+        "eager_over_bound": fields["eager_ms"] / 1e3 / line["roofline_step_s"],
+        "finite": bool(torch.isfinite(run["first"].float()).all()),
         "note": ("weight_sharding 'tp' and 'fsdp' both hold every weight "
                  "whole on one card" if opts.weight_sharding == "tp"
                  else ""),
@@ -222,7 +230,9 @@ def int8_cache_check(step, args, *, rows: int = INT8_GATE_ROWS,
     both filled with the same random k/v: row r of the first ``rows`` rows
     of ``args`` holds lanes 0 … p_r − 1 valid, p_r log-spaced from 1 to the
     cache's last lane, and decodes at p_r, so the step reads every lane it
-    dequantizes (a fresh cache holds one).  → {"max_abs": max |Δ| of the
+    dequantizes (a fresh cache holds one).  The int8 logits are the
+    replayed step's (``Step.replay``: its graphs at ``rows`` rows, released
+    after), the bf16 ones direct calls.  → {"max_abs": max |Δ| of the
     logits, "content": max |Δ| of the bf16 logits from the filled cache
     against a fresh one — what a cache that reads back nothing would
     cost}."""
@@ -240,8 +250,9 @@ def int8_cache_check(step, args, *, rows: int = INT8_GATE_ROWS,
             {j: {k: v[:rows] for k, v in kv.items()} for j, kv in a.items()}
             for a in rest]
     pos = fill.to(device=m8.device, dtype=registry.TOKEN_DTYPE)
+    l8, _ = step.replay(params, c8, tokens[:rows], pos, *rest)
+    step.release()
     with torch.no_grad():
-        l8, _ = m8.decode_step(params, c8, tokens[:rows], pos, *rest)
         l16, _ = m16.decode_step(params, c16, tokens[:rows], pos, *rest)
         l0, _ = m16.decode_step(params, m16.init_cache(rows, depth),
                                 tokens[:rows], pos, *rest)
@@ -304,10 +315,13 @@ def main(argv: list[str] | None = None) -> int:
     for key in keys:
         records = run_ladder(key, device=args.device)
         for rec in records:
-            print(f"{key} [{rec['tag']}] depth {rec['depth']}: measured "
-                  f"{rec['measured_ms']:.3f} ms, bound "
-                  f"{rec['step_s'] * 1e3:.3f} ms ({rec['bottleneck']}, "
-                  f"×{rec['measured_over_bound']:.2f}), peak "
+            print(f"{key} [{rec['tag']}] depth {rec['depth']}: replayed "
+                  f"{rec['measured_ms']:.3f} ms, eager {rec['eager_ms']:.3f}"
+                  f" ms, bound {rec['step_s'] * 1e3:.3f} ms "
+                  f"({rec['bottleneck']}, ×{rec['measured_over_bound']:.2f}"
+                  f" / ×{rec['eager_over_bound']:.2f}), capture "
+                  f"{rec['capture_ms']:.1f} ms, pool "
+                  f"{rec['pool_bytes'] / 1e9:.2f} GB, peak "
                   f"{(rec['peak_bytes'] or 0) / 1e9:.2f} GB on {rec['card']}")
         path = os.path.join(args.out, key.replace("/", "_") + ".json")
         atomic_write_json(path, records)

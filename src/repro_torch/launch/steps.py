@@ -21,6 +21,18 @@ of the abstract ones' shapes (``concrete_args``).  What JAX gets from
 abstract arguments give every byte count, the concrete ones the card's
 time.  Under one rank the specs change no result.
 
+Each step is compiled as JAX's is jitted: a ``util.graphs.Compiled`` that
+owns its CUDA graphs (``Step.stats``, ``Step.release``), one a key of
+shapes (the first call with a key runs eagerly, the second captures,
+later ones replay; inline on the CPU); ``Step.__wrapped__`` runs the same
+body with no graph.  The params are bound in place, never copied into the
+graph (a copy of mistral's two full-width layers would add ~7 GB).  The
+decode step's cache is donated, as JAX's ``donate_argnums=(1,)``: the
+graph writes the caller's cache in place, and a decode that rebinds a
+cache tensor raises.  An enc-dec's encoder output (or its precomputed
+cross k/v) is read in place as the params are; the batch, tokens and
+positions are copied into the graph's static buffers.
+
 JAX's block runner scans the periodic segments of ``plan_segments``; the
 port keeps ``plan_segments`` (the same plan) and runs every block in order,
 which is what a scan over a segment computes.
@@ -43,7 +55,7 @@ from repro_torch.optim.schedules import cosine_warmup
 from repro_torch.train.step import (DONATED, TrainStep, _loss_with_remat,
                                     advance, value_and_grad)
 from repro_torch.util import graphs
-from repro_torch.util.tree import map_tree
+from repro_torch.util.tree import fill_, flatten, map_tree, rebuild
 
 
 # --------------------------------------------------------------------------
@@ -184,8 +196,10 @@ def make_block_runner(model, *, block_fn):
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
 class Step:
-    """A built step: ``step(*args)`` runs it; ``in_specs`` are the
-    PartitionSpecs of its arguments on the mesh it was built for;
+    """A built step: ``step(*args)`` runs it (``fn``, a
+    ``graphs.Compiled``: from its CUDA graphs on the card);
+    ``step.__wrapped__(*args)`` runs the same body directly; ``in_specs``
+    are the PartitionSpecs of its arguments on the mesh it was built for;
     ``concrete_args(gen)`` draws real arguments of the abstract ones'
     shapes on the model's device (random-init weights from ``gen``; with
     ``DecodeOptions.nm``, magnitude n:m masks packed by
@@ -201,6 +215,48 @@ class Step:
 
     def __call__(self, *args):
         return self.fn(*args)
+
+    @property
+    def __wrapped__(self) -> Callable:
+        return self.fn.__wrapped__
+
+    def stats(self) -> dict:
+        """The step's graphs: calls, eager, graphs, replays, capture_s,
+        pool_bytes (``graphs.Scope.stats``)."""
+        return self.fn.stats()
+
+    def release(self) -> None:
+        """Drop the step's graphs and return their pool to the card."""
+        self.fn.release()
+
+    def reset_cache(self, cache) -> None:
+        """Write ``model.init_cache``'s values into a decode cache in
+        place, leaf by leaf, from a one-row cache (no second cache of the
+        step's size: xLSTM's ladder state is ~61 GB): the state
+        ``concrete_args`` drew, which a recurrent decode moves on at every
+        call."""
+        fill_(cache, self.model.init_cache(1, self.opts.cache_len or
+                                           self.cell.seq_len))
+
+    def replay(self, *args, fresh: bool = False):
+        """The step's result once it replays its graph: on the card the
+        first call with a key runs eagerly and the second captures, so the
+        call is repeated until the step replays (run once where it runs
+        inline: on the CPU).  Each call reads what the last one wrote: a
+        decode at fixed positions writes the same cache lanes with the
+        same values, and with ``fresh`` each call starts from
+        ``reset_cache`` (a recurrent state)."""
+        before = self.stats()
+        for _ in range(3):
+            if fresh:
+                self.reset_cache(args[1])
+            out = self(*args)
+            now = self.stats()
+            if now["replays"] > before["replays"] or \
+                    now["calls"] == before["calls"]:
+                return out
+        raise RuntimeError(f"the {self.kind} step did not replay: "
+                           f"{self.stats()}")
 
     def concrete_args(self, generator: torch.Generator) -> tuple:
         model, cfg, cell = self.model, self.model.cfg, self.cell
@@ -305,6 +361,7 @@ def make_prefill_step(model, mesh, cell):
     run = make_block_runner(
         model, block_fn=lambda p, c, i: model.block(p, i, c))
 
+    # the params bound in place, the batch copied in (JAX: no donation)
     @torch.no_grad()
     def prefill(params, batch):
         carry = model.embed_batch(params, batch)
@@ -321,8 +378,9 @@ def make_prefill_step(model, mesh, cell):
     a_batch = registry.input_specs(cfg, cell)
     in_specs = (D.fsdp_pspecs(a_params, mesh),
                 D.batch_pspecs(a_batch, mesh))
-    return Step(prefill, "prefill", model, cell, in_specs), (a_params,
-                                                             a_batch)
+    step = graphs.Compiled(graphs.graphed(prefill, donate=("params",)),
+                           prefill)
+    return Step(step, "prefill", model, cell, in_specs), (a_params, a_batch)
 
 
 # ==========================================================================
@@ -513,19 +571,34 @@ def make_decode_step(model, mesh, cell,
             enc_spec = D.cache_pspecs(enc, mesh, B)
         else:
             enc_spec = D.batch_spec(mesh, enc.shape[0], rank=3)
-
-        @torch.no_grad()
-        def serve_step(params, cache, tokens, pos, enc_out):
-            return model.decode_step(params, cache, tokens, pos, enc_out)
-
         in_specs += (enc_spec,)
         args += (enc,)
-    else:
-        @torch.no_grad()
-        def serve_step(params, cache, tokens, pos):
-            return model.decode_step(params, cache, tokens, pos)
 
-    return Step(serve_step, "decode", model, cell, in_specs, opts=opts), args
+    @torch.no_grad()
+    def serve_step(skel, params, cache, tokens, pos, enc_out=None):
+        """One decode over the trees ``flatten`` took apart (``skel``: the
+        params' and the cache's skeletons, static) → the logits; the cache
+        is written in place."""
+        p_skel, c_skel = skel
+        extra = () if enc_out is None else (enc_out,)
+        logits, out = model.decode_step(rebuild(p_skel, params),
+                                        rebuild(c_skel, cache), tokens, pos,
+                                        *extra)
+        graphs.check_in_place([t.data_ptr() for t in cache], out, model)
+        return logits
+
+    def run(body, params, cache, tokens, pos, enc_out=None):
+        (p, p_skel), (c, c_skel) = flatten(params), flatten(cache)
+        return body((p_skel, c_skel), p, c, tokens, pos, enc_out), cache
+
+    # the encoder source is read in place, as the params are (JAX reads
+    # it from its buffer too): a copy of whisper's cross k/v into static
+    # buffers would cost every replay a second pass over them
+    body = graphs.graphed(serve_step, static=("skel",),
+                          donate=("params", "cache", "enc_out"))
+    step = graphs.Compiled(functools.partial(run, body),
+                           functools.partial(run, serve_step))
+    return Step(step, "decode", model, cell, in_specs, opts=opts), args
 
 
 def make_step(model, mesh, cell):

@@ -102,6 +102,7 @@ from repro_torch.serve.faults import (DeviceOom, FaultPlan, NonFiniteLogits,
                                       QueueFull)
 from repro_torch.serve.pager import SCRATCH, Pager, PoolExhausted
 from repro_torch.util import graphs
+from repro_torch.util.tree import data_ptrs, fill_, flatten, rebuild
 
 
 @dataclasses.dataclass
@@ -230,38 +231,8 @@ def _copy_tree(tree, device):
     """Deep copy of a cache tree (dicts of cache dataclasses) with every
     tensor copied to ``device`` — never an alias, also where the tensor is
     already there."""
-    if isinstance(tree, dict):
-        return {k: _copy_tree(v, device) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().to(device, copy=True)
-    if dataclasses.is_dataclass(tree):
-        return dataclasses.replace(tree, **{
-            f.name: _copy_tree(getattr(tree, f.name), device)
-            for f in dataclasses.fields(tree)})
-    return tree
-
-
-def _fill_tree(dst, src) -> None:
-    """Copy cache tree ``src`` into ``dst`` in place, tensor by tensor (any
-    device to any): a B = 1 source fills every row, so a template made by
-    ``init_cache(1, …)`` resets a cache of any batch."""
-    if isinstance(dst, dict):
-        for k, layer in dst.items():
-            _fill_tree(layer, src[k])
-        return
-    for f in dataclasses.fields(dst):
-        t = getattr(dst, f.name)
-        if isinstance(t, torch.Tensor):
-            t.copy_(getattr(src, f.name).expand_as(t))
-
-
-def _leaf_ptrs(tree) -> list:
-    """The data pointers of every tensor of a cache tree, in order."""
-    if isinstance(tree, dict):
-        return [p for k in tree for p in _leaf_ptrs(tree[k])]
-    return [getattr(tree, f.name).data_ptr()
-            for f in dataclasses.fields(tree)
-            if isinstance(getattr(tree, f.name), torch.Tensor)]
+    leaves, skel = flatten(tree)
+    return rebuild(skel, [t.detach().to(device, copy=True) for t in leaves])
 
 
 def _decode_fn(model, params, cache, tokens, pos) -> torch.Tensor:
@@ -312,12 +283,9 @@ class _Step:
         if dev.type != "cuda":
             return self._captured_step()
         t0 = time.perf_counter()
-        ptrs = _leaf_ptrs(self.cache)
+        ptrs = data_ptrs(self.cache)
         logits = graphs.run_on_side(self._captured_step, dev)
-        if _leaf_ptrs(self.cache) != ptrs:
-            raise RuntimeError(
-                f"{type(self.model).__name__}.decode_step rebinds a cache "
-                f"tensor: a captured step would replay into stale buffers")
+        graphs.check_in_place(ptrs, self.cache, self.model)
         reserved = graphs.settled_reserve(dev)
         self.graph = graphs.Graph(self._captured_step, dev, self.pool)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
@@ -411,7 +379,7 @@ class ServingEngine:
         if step is None:
             return self._step(kind, self.model.init_cache(
                 batch, self.cfg.max_len), batch)
-        _fill_tree(step.cache, self._tmpl)
+        fill_(step.cache, self._tmpl)
         return step
 
     def graph_stats(self) -> dict:
@@ -952,7 +920,7 @@ class ServingEngine:
             # the compiled decode step holds the live buffers: write the
             # snapshot (or, from a snapshot taken before any admission, a
             # fresh cache) into them
-            _fill_tree(self._cache, self._new_cache() if dev["cache"] is None
+            fill_(self._cache, self._new_cache() if dev["cache"] is None
                        else dev["cache"])
         elif dev["cache"] is not None:
             self._cache = _copy_tree(dev["cache"], self.model.device)

@@ -106,7 +106,7 @@ def value_and_grad(loss_fn, params, batch):
         torch.zeros_like(x) if g is None else g for x, g in zip(live, grads)])
 
 
-class TrainStep:
+class TrainStep(graphs.Compiled):
     """A compiled train step (JAX: a jitted function and its cache):
     ``step(params, opt_state, batch) → (params, opt_state, metrics)`` runs
     ``run`` — whose graphed bodies key their graphs — inside the step's
@@ -115,21 +115,6 @@ class TrainStep:
     scope's counters (graphs, replays, capture_s, pool_bytes);
     ``release()`` drops the graphs and returns their pool to the card, as
     dropping the step does."""
-
-    def __init__(self, run: Callable, direct: Callable):
-        self._scope = graphs.Scope(measure=True)
-        self._run = run
-        self.__wrapped__ = direct
-
-    def __call__(self, params, opt_state: AdamWState, batch):
-        with graphs.scope(self._scope):
-            return self._run(params, opt_state, batch)
-
-    def stats(self) -> dict:
-        return self._scope.stats()
-
-    def release(self) -> None:
-        self._scope.close()
 
 
 def advance(body: Callable, params, opt_state: AdamWState, batch):

@@ -26,10 +26,11 @@ place, with no copy of the tree in and no clone out.  A key holds its
 donated storage weakly; a key whose donated storage is gone (a tree
 restored from a checkpoint replaced it) is dropped at the next call.
 
-A step that owns its graphs, as a jitted JAX function owns its cache
-(``train/step.TrainStep``), keeps a ``Scope(measure=True)`` and enters it
-around each call with ``scope(own)``: its pool lives as long as the step
-and its ``pool_bytes`` is read around each capture.
+A step that owns its graphs, as a jitted JAX function owns its cache, is
+a ``Compiled`` (``train/step.TrainStep``, the tooling's prefill and decode
+steps, the training stream's sampler): it keeps a ``Scope(measure=True)``
+and enters it around each call with ``scope(own)``, so its pool lives as
+long as the step and its ``pool_bytes`` is read around each capture.
 
 A call runs ``fn`` as it is written (inline) on the CPU, outside any
 ``scope()``, and inside another graphed call — its eager warm-up or its
@@ -63,6 +64,8 @@ from typing import Any, Callable, Iterator
 
 import torch
 from torch.utils import _pytree as pytree
+
+from repro_torch.util.tree import data_ptrs
 
 Tensor = torch.Tensor
 
@@ -236,6 +239,41 @@ class Scope:
         self.entries.clear()
         self.pool = self.anchor = None
         self._stats["pool_bytes"] = held - settled_reserve(self.device)
+
+
+class Compiled:
+    """A compiled callable (JAX: a jitted function and its cache):
+    ``c(*args)`` runs ``run`` — whose graphed bodies key their graphs —
+    inside the object's own ``Scope(measure=True)``; ``__wrapped__`` runs
+    ``direct``, the same code with the bodies called directly (no graph).
+    ``stats()`` gives the scope's counters (graphs, replays, capture_s,
+    pool_bytes); ``release()`` drops the graphs and returns their pool to
+    the card, as dropping the object does (a later call captures again)."""
+
+    def __init__(self, run: Callable, direct: Callable):
+        self._scope = Scope(measure=True)
+        self._run = run
+        self.__wrapped__ = direct
+
+    def __call__(self, *args, **kwargs):
+        with scope(self._scope):
+            return self._run(*args, **kwargs)
+
+    def stats(self) -> dict:
+        return self._scope.stats()
+
+    def release(self) -> None:
+        self._scope.close()
+
+
+def check_in_place(ptrs: list, cache, model) -> None:
+    """Raise unless ``cache``'s tensors lie at ``ptrs`` (``tree.data_ptrs``
+    of the cache before ``model``'s step): a step that rebinds a cache
+    tensor would leave a captured graph writing stale buffers."""
+    if data_ptrs(cache) != ptrs:
+        raise RuntimeError(
+            f"{type(model).__name__}.decode_step rebinds a cache tensor: a "
+            f"captured step would replay into stale buffers")
 
 
 def settled_reserve(device) -> int:
