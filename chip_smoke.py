@@ -51,9 +51,9 @@ draws. draws — right after tooling: gemma3-1b's held-out slice (vocabulary
              MLA_K2), at gemma3-1b's (GEMMA_K1, GEMMA_K2) and at the
              families' (ZAMBA_*, XLSTM_*, WHISPER_*; K2 also at (4, 4096)
              and at whisper's encoder rows, B = 6000) and at dense2's
-             (DENSE2_K1, DENSE2_K2: K2's cluster split at b = 28 672, CS 2
-             at B = 1 and CS 4 at B = 4), each K2 launch's plan printed and
-             two launches bitwise equal.
+             (DENSE2_K1, DENSE2_K2: b = 28 672, too wide for K2's 8-row
+             blocks, on the many-row kernel at B = 1 and 4), each K2
+             launch's plan printed and two launches bitwise equal.
 3. prune   — the dense path: Thanos 2:4 prunes tinyllama-1.1b at full width
              and depth from a seeded random init (K1 carries the Hessians).
              Every prune of every phase runs its solves and block passes
@@ -250,15 +250,22 @@ dist. dist — right after robust, on phase 3's tree, over two spawned
              outputs bitwise +0); K2's tensor-core path at every path shape
              and ragged c for B ∈ K2_BATCHES (its plan checked, two
              launches bitwise equal), its cluster split, a NaN weight (NaN
-             out, no skip) and strided / offset x.
+             out, no skip) and strided / offset x; K2's many-row kernel
+             (plan mode 3: from B = 64 and for rows too wide for 8-row
+             blocks) at ragged shapes from B = 64 to 6 000, every tile and
+             split, every 2:4 position pair in every metadata slot, a NaN
+             weight, strided x, and an x off alignment on the 8-row plan,
+             each also against the fp32 product (the dense bf16 product's
+             error + 2⁻⁸).
 5. times   — each kernel at each main-path shape: kernel, plain version and
              one library call (K1 also the bf16 tensor-core addmm), beside
              the bound the card's peaks give; K3 also at the serving path's
              decode occupancy (x from moe_ffn's own dispatch of 1 and 4
              tokens), its bound counting only the weights of active row
-             groups.  K2's rows also print the plan and the warp-per-row
-             kernel (K2's design before the tensor-core path) timed in this
-             run beside its time recorded in PERF.md; then K2's device
+             groups.  K2's rows also print the plan and its kernel, the
+             warp-per-row kernel (K2's design before the tensor-core path)
+             timed in this run beside its time recorded in PERF.md and, on
+             many-row rows, the 8-row kernel likewise; then K2's device
              time per model step of each path and its launch-weighted
              total, each beside the library's.
 
@@ -372,8 +379,8 @@ WHISPER_B = (4, 4 * WHISPER_FRAMES)
 DENSE2_LAYERS = {"h2o-danube-1.8b": 8, "mistral-large-123b": 1,
                  "internvl2-76b": 1}
 # K1 at x (1024, b): the inputs of wq/wk/wv/wo/gate/up, down; K2, (c, b):
-# wq/wo, wk/wv, gate/up, down — down at b = 28 672 runs K2's cluster split
-# (CS 2 at B = 1, CS 4 at B = 4: one block's rows do not fit 227 KB)
+# wq/wo, wk/wv, gate/up, down — down at b = 28 672 runs K2's many-row kernel
+# at B = 1 and 4 (one 8-row block's rows do not fit 227 KB)
 DENSE2_K1 = {"h2o-danube-1.8b": [2560, 6912],
              "mistral-large-123b": [12288, 28672],
              "internvl2-76b": [8192, 28672]}
@@ -423,12 +430,37 @@ WARP_ROW_K2_MS = {"B=1 W (2048, 2048)": 0.0065, "B=4 W (2048, 2048)": 0.0126,
               "B=1 W (2048, 4096)": 0.0103, "B=4 W (2048, 4096)": 0.0225}
 # K2, (c, b): tinyllama's q/o, k/v, gate/up and down linears
 SERVE_K2 = [(2048, 2048), (256, 2048), (5632, 2048), (2048, 5632)]
+# K2's __global__ by plan mode, as the kernels line names it
+K2_KERNELS = {0: "nm_kernel", 1: "nm_kernel", 2: "nm_tc_kernel",
+              3: "nm_sp_rows_kernel"}
+# K2's time per launch with the 8-row tensor-core kernel at the rows that
+# now take the many-row kernel, as PERF.md records it (the wide rows PRs
+# 17–19, whisper PR 18, the ladders PR 22; NVIDIA H100 80GB HBM3, 700 W),
+# printed beside this run's
+TC8_K2_MS = {"B=4 W (7168, 16384)": 0.1220, "B=4 W (7168, 18432)": 0.1359,
+             "B=4 W (3584, 14336)": 0.0584, "B=1 W (12288, 28672)": 0.2594,
+             "B=4 W (12288, 28672)": 0.3977, "B=1 W (8192, 28672)": 0.1743,
+             "B=4 W (8192, 28672)": 0.2674,
+             "B=6000 W (1024, 1024)": 0.5728, "B=6000 W (4096, 1024)": 2.2744,
+             "B=6000 W (1024, 4096)": 1.9966,
+             "B=128 W (12288, 12288)": 2.9515, "B=128 W (1024, 12288)": 0.2459,
+             "B=128 W (28672, 12288)": 6.7912,
+             "B=128 W (12288, 28672)": 7.2141, "B=128 W (8192, 2048)": 0.1702,
+             "B=128 W (4096, 4096)": 0.1828, "B=128 W (4, 4096)": 0.0051,
+             "B=128 W (2048, 4096)": 0.0956, "B=128 W (2048, 2048)": 0.0454}
 # the tensor-core K2's checks: ragged c (the cluster split), its batch
 # sizes, and (c, b, B) of the NaN-weight and x-view checks
 K2_RAGGED = [(37, 128), (129, 256), (300, 512)]
 K2_BATCHES = (1, 2, 3, 4, 5, 8, 9, 17)
 K2_CLUSTER = [(256, 2048), (512, 2048), (37, 1024), (300, 512)]
 K2_EDGE = [(2048, 2048, 4), (256, 2048, 1), (37, 128, 9)]
+# the many-row path (plan mode 3): (c, b) ragged against its tiles and its
+# stages of 64 columns (b = 96 and 1 056: 3 and 33 steps of 32), its rows
+# from the threshold (K2._ROWS_MIN_B, added at run time) to whisper's
+# encoder, and the shape every tile and split is held at
+K2_ROWS_RAGGED = [(200, 1056), (100, 96), (1000, 512)]
+K2_ROWS_BATCHES = (127, 129, 6000)
+K2_ROWS_TILES = (300, 1056, 129)
 # the redesign checks: K1 at ragged (tokens, b); K3 (E, C, c, b, n, m)
 # with all-zero row groups, from a full-width leaf to ragged shapes
 ODD_K1 = [(37, 100), (37, 770), (80, 100), (80, 770)]
@@ -794,10 +826,12 @@ def k2_tc_checks(gen, dev) -> None:
             w[nan_row, int((mask[nan_row] < 0.5).nonzero()[0])] = torch.nan
         return pack_nm(w, mask, 2, 4, idx_bits=bits)
 
-    def run(x, pk, b, bits, what):
+    def run(x, pk, b, bits, what, mode=None):
         plan = K2._k2_operands(x, pk.values, pk.indices, 2, 4, b, bits)[3]
-        check(plan[0] == 2, f"K2 {what}: plan {plan} is not the tensor-core "
-              "path")
+        if mode is None:
+            mode = tc_mode(pk.values.shape[0], b, x.shape[0], bits)
+        check(plan[0] == mode, f"K2 {what}: plan {plan} is not mode {mode} "
+              "(3: many rows, 2: 8 rows on the tensor cores)")
         y_k = K2.nm_matmul_cuda(x, pk.values, pk.indices, n=2, m=4, b=b,
                                 idx_bits=bits)
         y_2 = K2.nm_matmul_cuda(x, pk.values, pk.indices, n=2, m=4, b=b,
@@ -833,7 +867,7 @@ def k2_tc_checks(gen, dev) -> None:
         pk = pack(c, b, 4)
         x = torch.randn((B, b), generator=gen, device=dev).to(torch.bfloat16)
         plan = (2, CS, K2._k2_smem(b, pk.values.shape[1], pk.indices.shape[1],
-                                   B, CS))
+                                   B, CS), 8, 8)
         y_k = K2._launch_k2(x, pk.values, pk.indices, 2, 4, b, 4, plan)
         y_2 = K2._launch_k2(x, pk.values, pk.indices, 2, 4, b, 4, plan)
         y_p = K2.nm_matmul_plain(x, pk.values, pk.indices, 2, 4, b, 4)
@@ -844,16 +878,22 @@ def k2_tc_checks(gen, dev) -> None:
               f"K2 cluster CS={CS} ({c}, {b}) B={B}: max abs err {e[0]:.3g}")
         worst = max(worst, e)
         n_cs += 1
+    # rows too wide for one 8-row block (b = 16384 at B = 8): the 8-row
+    # plan splits them over 2 CTAs (what an unaligned x runs), the wrapper's
+    # own plan hands them to the many-row path
     for B in (1, 8):
         pk = pack(64, 16384, 4)
         x = torch.randn((B, 16384), generator=gen, device=dev).to(
             torch.bfloat16)
         y_k, y_p, plan = run(x, pk, 16384, 4, f"wide rows B={B}")
-        check(plan[1] == (2 if B == 8 else 1) and torch.allclose(
-            y_k.float(), y_p.float(), **tol),
-            f"K2 wide rows (64, 16384) B={B}: plan {plan}, max abs err "
-            f"{errs(y_k, y_p)[0]:.3g}")
-        plans.add(plan[1])
+        tc8 = K2._k2_plan(64, 16384, 8192, 4096, B, 2, True, 2, 4, False)
+        y_8 = K2._launch_k2(x, pk.values, pk.indices, 2, 4, 16384, 4, tc8)
+        torch.cuda.synchronize()
+        check(tc8[:2] == (2, 2 if B == 8 else 1) and all(torch.allclose(
+            y.float(), y_p.float(), **tol) for y in (y_k, y_8)),
+            f"K2 wide rows (64, 16384) B={B}: plans {plan} / {tc8}, max abs "
+            f"err {errs(y_k, y_p)[0]:.3g} / {errs(y_8, y_p)[0]:.3g}")
+        plans.add(tc8[1])
         n_cs += 1
     n_nan = 0
     for (c, b, B), bits in itertools.product(K2_EDGE, (4, 8)):
@@ -878,13 +918,122 @@ def k2_tc_checks(gen, dev) -> None:
                   f"K2 {name} x ({c}, {b}) B={B}: max abs err "
                   f"{errs(y_k, y_p)[0]:.3g}")
             n_view += 1
-    print(f"kernels: nm_matmul tensor-core path vs plain: {n_ok} checks ok "
+    print(f"kernels: nm_matmul tensor-core paths vs plain: {n_ok} checks ok "
           f"(B ∈ {K2_BATCHES}, idx 4/8, path and ragged shapes), max abs/"
           f"rel err {worst[0]:.3g}/{worst[1]:.3g} (rtol 2e-2 / atol 1e-2), "
           f"two launches bitwise equal; cluster splits {sorted(plans)}; "
           f"cluster checks {n_cs} ok (CS 2/4/8 at c ≤ 512, wide rows); NaN "
           f"weight {n_nan} ok (NaN column, no skip); strided / offset x "
           f"{n_view} ok")
+    k2_rows_checks(gen, dev, pack, run)
+
+
+def k2_rows_checks(gen, dev, pack, run) -> None:
+    """Phase 2 for K2's many-row path (plan mode 3, nm_sp_rows_kernel):
+    ragged (c, b) at B from the threshold to whisper's 6 000 rows, 4- and
+    8-bit indices, through the wrapper (plan checked, two launches bitwise
+    equal); every tile and split under an explicit plan; every 2:4 position
+    pair in every slot of a metadata word; a NaN kept weight; x strided
+    (copied: mode 3) and one element off alignment (mode 2).  Each against
+    the plain version at rtol 2e-2 / atol 1e-2 and the fp32 product: max
+    rel err at most the dense bf16 product's + 2⁻⁸."""
+    import torch
+
+    from repro_torch.core.sparsity import pack_nm
+    from repro_torch.kernels import nm_spmm as K2
+    from repro_torch.kernels.ref import nm_expand
+
+    T = K2._ROWS_MIN_B
+    tol = {"rtol": 2e-2, "atol": 1e-2}
+    worst, n_ok, tiles = (0.0, 0.0), 0, set()
+
+    def hold(y_k, y_p, x, pk, b, bits, what):
+        nonlocal worst, n_ok
+        w = nm_expand(pk.values, pk.indices, 2, 4, b, bits)
+        y32 = x.float() @ w.float().T
+        dense = errs(x @ w.T, y32)[1]
+        e = errs(y_k, y_p)
+        rel = errs(y_k, y32)[1]
+        check(y_k.shape == (x.shape[0], w.shape[0])
+              and torch.allclose(y_k.float(), y_p.float(), **tol)
+              and rel <= dense + 2 ** -8,
+              f"K2 many rows {what}: max abs err {e[0]:.3g}, rel err vs "
+              f"fp32 {rel:.3g} (dense bf16 {dense:.3g})")
+        worst = max(worst, e)
+        n_ok += 1
+
+    def counted(x, pk, b, bits, what, mode=3):
+        rows = K2.nm_sp_rows.launches
+        y_k, y_p, plan = run(x, pk, b, bits, what, mode)
+        check(K2.nm_sp_rows.launches == rows + 2 * (mode == 3),
+              f"K2 many rows {what}: nm_sp_rows counted "
+              f"{K2.nm_sp_rows.launches - rows} of 2 launches")
+        hold(y_k, y_p, x, pk, b, bits, what)
+        return plan
+
+    for (c, b), bits in itertools.product(K2_ROWS_RAGGED, (4, 8)):
+        pk = pack(c, b, bits)
+        for B in (T, T + 1, *K2_ROWS_BATCHES):
+            x = torch.randn((B, b), generator=gen, device=dev).to(
+                torch.bfloat16)
+            plan = counted(x, pk, b, bits, f"({c}, {b}) B={B} idx{bits}")
+            tiles.add((plan[3], plan[4], plan[1]))
+    c, b, B = K2_ROWS_TILES
+    pk = pack(c, b, 4)
+    x = torch.randn((B, b), generator=gen, device=dev).to(torch.bfloat16)
+    y_p = K2.nm_matmul_plain(x, pk.values, pk.indices, 2, 4, b, 4)
+    n_plans = 0
+    for BM, BN, CS in [(128, bn, cs) for bn in (128, 64)
+                       for cs in (1, 2, 4, 8)] + [(256, 128, 1), (256, 64, 1)]:
+        plan = (3, CS, K2._k2_rows_smem(BM, BN, 4), BM, BN)
+        y_k = K2._launch_k2(x, pk.values, pk.indices, 2, 4, b, 4, plan)
+        y_2 = K2._launch_k2(x, pk.values, pk.indices, 2, 4, b, 4, plan)
+        torch.cuda.synchronize()
+        check(torch.equal(y_k, y_2), f"K2 many rows {BM}×{BN} CS {CS}: two "
+              "launches differ")
+        hold(y_k, y_p, x, pk, b, 4, f"{BM}×{BN} CS {CS} ({c}, {b}) B={B}")
+        n_plans += 1
+    # every pair of kept positions in every row and group slot of the
+    # metadata words: row r's group j keeps pair (r // 16 + j // 8) % 6
+    pairs = list(itertools.combinations(range(4), 2))
+    c, b = 96, 192
+    idx = torch.tensor([[pairs[(r // 16 + j // 8) % 6] for j in range(b // 4)]
+                        for r in range(c)], device=dev)       # (c, g, 2)
+    keep = torch.zeros((c, b // 4, 4), device=dev)
+    keep.scatter_(2, idx, 1.0)
+    mask = 1.0 - keep.reshape(c, b)
+    mag = torch.rand((c, b), generator=gen, device=dev) + 0.5
+    sign = torch.randint(0, 2, (c, b), generator=gen, device=dev) * 2 - 1
+    w = (mag * sign * (mask < 0.5)).to(torch.bfloat16)
+    for bits, B in itertools.product((4, 8), (T, 129)):
+        pk = pack_nm(w, mask, 2, 4, idx_bits=bits)
+        x = torch.randn((B, b), generator=gen, device=dev).to(torch.bfloat16)
+        counted(x, pk, b, bits, f"six pairs B={B} idx{bits}")
+    n_nan = 0
+    for bits in (4, 8):
+        c, b, B = 200, 1056, T
+        pk = pack(c, b, bits, nan_row=c // 2)
+        x = torch.randn((B, b), generator=gen, device=dev).to(torch.bfloat16)
+        y_k, y_p, _ = run(x, pk, b, bits, f"NaN weight B={B}")
+        check(bool(torch.isnan(y_k[:, c // 2]).all()) and torch.allclose(
+            y_k.float(), y_p.float(), equal_nan=True, **tol),
+            f"K2 many rows NaN weight idx{bits}: NaN column "
+            f"{bool(torch.isnan(y_k[:, c // 2]).all())}")
+        n_nan += 1
+    c, b, B = 300, 512, 129
+    pk = pack(c, b, 4)
+    strided = torch.randn((B, b + 8), generator=gen, device=dev).to(
+        torch.bfloat16)[:, 3:3 + b]
+    offset = torch.randn((B * b + 1,), generator=gen, device=dev).to(
+        torch.bfloat16)[1:].view(B, b)
+    counted(strided, pk, b, 4, "strided x")
+    counted(offset, pk, b, 4, "x one element off 16 bytes", mode=2)
+    print(f"kernels: nm_matmul many-row path vs plain and fp32: {n_ok} checks "
+          f"ok (B ∈ {(T, T + 1, *K2_ROWS_BATCHES)} at {K2_ROWS_RAGGED}, "
+          f"{n_plans} tiles × splits at {K2_ROWS_TILES}, the six position "
+          f"pairs in every slot, strided x; an x off alignment on mode 2), "
+          f"max abs/rel err {worst[0]:.3g}/{worst[1]:.3g}; the plan's "
+          f"(BM, BN, CS) {sorted(tiles)}; NaN weight {n_nan} ok")
 
 
 def moe_phase(dev) -> dict:
@@ -1141,7 +1290,10 @@ def k2_times(gen, dev, packs: dict, err: dict, main: dict,
                 reps, dreps = min(reps, 8), min(dreps, 8)
             x = torch.randn((B, b), generator=gen, device=dev).to(bf16)
             plan = K2._k2_operands(x, pk.values, pk.indices, 2, 4, b, 4)[3]
-            old = (1, 1, 0)                  # warp-per-row, 16-byte loads
+            old = (1, 1, 0, 8, 8)            # warp-per-row, 16-byte loads
+            # the 8-row tensor-core plan (what an unaligned x takes)
+            tc8 = K2._k2_plan(c, b, pk.values.shape[1], pk.indices.shape[1],
+                              B, 2, True, 2, 4, False)
             ring = itertools.cycle(range(copies))
             dring = itertools.cycle(range(len(dens)))
 
@@ -1153,6 +1305,10 @@ def k2_times(gen, dev, packs: dict, err: dict, main: dict,
             def kern_old():
                 i = next(ring)
                 K2._launch_k2(x, vals[i], idxs[i], 2, 4, b, 4, old)
+
+            def kern_tc8():
+                i = next(ring)
+                K2._launch_k2(x, vals[i], idxs[i], 2, 4, b, 4, tc8)
 
             def plain():
                 i = next(ring)
@@ -1167,6 +1323,7 @@ def k2_times(gen, dev, packs: dict, err: dict, main: dict,
             key = (B, c, b, str(bf16), 4)
             rows.append({
                 "name": "nm_matmul", "shape": f"B={B} W ({c}, {b}) 2:4 bf16",
+                "kernel": K2_KERNELS[plan[0]],
                 "path": path, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/nm_spmm.cu",
                 "replaces": "src/repro/kernels/nm_spmm.py:135",
@@ -1178,13 +1335,35 @@ def k2_times(gen, dev, packs: dict, err: dict, main: dict,
                 "library_ms": device_ms(lib, dreps),
                 "library_bf16_ms": None,
                 "plan": {"mode": plan[0], "cluster": plan[1],
-                         "smem": plan[2], "ctas": K2._k2_ctas(c, B, plan)},
-                "warp_row_ms": device_ms(kern_old, reps)})
+                         "smem": plan[2], "tile": [plan[3], plan[4]],
+                         "ctas": K2._k2_ctas(c, B, plan)},
+                "warp_row_ms": device_ms(kern_old, reps),
+                "tc8_ms": (device_ms(kern_tc8, reps) if plan[0] == 3
+                           else None)})
             if others:
                 rows[-1]["path_launches"] = {
                     name: by.get(key, 0) for name, by in others.items()}
         del vals, idxs, dens
     return rows
+
+
+def tc_mode(c: int, b: int, B: int, bits: int = 4) -> int:
+    """The tensor-core plan mode K2 should take for bf16 2:4 with aligned
+    operands: 3 (many rows) where c ≥ K2._ROWS_MIN_C and either B ≥
+    K2._ROWS_MIN_B or the 8-row plan (what an unaligned x takes) would split
+    the rows over a cluster or cannot hold them; else 2."""
+    from repro_torch.kernels import nm_spmm as K2
+
+    L = b // 2
+    tc8 = K2._k2_plan(c, b, L, L * bits // 8, B, 2, True, 2, 4, False)
+    wide = tc8[0] != 2 or tc8[1] > 1
+    return 3 if c >= K2._ROWS_MIN_C and (B >= K2._ROWS_MIN_B or wide) else 2
+
+
+def k2_mode(row: dict) -> int:
+    """The tensor-core plan mode a phase-5 K2 row calls for (tc_mode)."""
+    B, c, b = map(int, re.findall(r"\d+", row["shape"])[:3])
+    return tc_mode(c, b, B)
 
 
 def k2_step_line(rows: list, stats: dict, path: str) -> dict:
@@ -1544,8 +1723,9 @@ def path_kernel_checks(gen, dev, label: str, k1_bs: list,
                 f"K2 {label} ({c}, {b}) B={B} idx{bits}: plan {plan}, max abs "
                 f"err {e[0]:.3g}, two launches equal {torch.equal(y_k, y_2)}")
             print(f"  K2 ({c}, {b}) B={B} idx{bits}: plan mode {plan[0]} CS "
-                  f"{plan[1]} smem {plan[2]} B, {K2._k2_ctas(c, B, plan)} "
-                  f"CTAs; max abs/rel err {e[0]:.3g}/{e[1]:.3g}")
+                  f"{plan[1]} tile {plan[3]}×{plan[4]} smem {plan[2]} B, "
+                  f"{K2._k2_ctas(c, B, plan)} CTAs; max abs/rel err "
+                  f"{e[0]:.3g}/{e[1]:.3g}")
             out["k2"][(B, c, b, str(bf16), bits)] = e
             if bits == 4:
                 out["packs2"][(c, b)] = (pk, w.masked_fill(mask > 0.5, 0))
@@ -2441,8 +2621,15 @@ def depth_profile(cfg, comp, prompts, depths, fault_block: int) -> dict:
 
 
 def family_counts(label: str, expect: dict) -> dict:
-    """Read the path's launches now and hold them against ``expect``."""
+    """Read the path's launches now and hold them against ``expect``; the
+    many-row kernel's, unless given, are every bf16 K2 launch whose shape
+    calls for it (``tc_mode``)."""
     counts = path_counts()
+    rows = sum(n for (B, c, b, dt, bits), n in
+               counts["nm_matmul_cuda"][1].items()
+               if dt == "torch.bfloat16" and tc_mode(c, b, B, bits) == 3)
+    if rows and "nm_sp_rows_kernel" not in expect:
+        expect = dict(expect, nm_sp_rows_kernel=rows)
     launches = {name: n for name, (n, _) in counts.items() if n}
     check(launches == expect, f"{label} launches {launches}, expected "
           f"{expect}")
@@ -2707,12 +2894,14 @@ def whisper_part(dev, gen) -> dict:
     per_step = 8 * D
     by_shape = family_counts("whisper", {
         "hessian_update_cuda": out["batches"] * (6 * E + 10 * D),
-        "nm_matmul_cuda": 6 * E + 2 * D + per_step * WHISPER_NEW})
+        "nm_matmul_cuda": 6 * E + 2 * D + per_step * WHISPER_NEW,
+        "nm_sp_rows_kernel": 6 * E + 2 * D})
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "whisper: tokens out of the vocabulary")
-    print(f"  encode 4 × {WHISPER_FRAMES} frames (K2 at x ({rows}, b)), "
-          f"cross k/v once, {WHISPER_NEW} greedy tokens at B = 4 in "
-          f"{t_dec:.2f} s ({per_step} K2 launches a step)")
+    print(f"  encode 4 × {WHISPER_FRAMES} frames (K2 at x ({rows}, b): "
+          f"{6 * E + 2 * D} launches of the many-row kernel), cross k/v "
+          f"once, {WHISPER_NEW} greedy tokens at B = 4 in {t_dec:.2f} s "
+          f"({per_step} K2 launches a step)")
     print(f"  req 0: {toks[0].tolist()}")
     with uncounted():
         toks_u, first_u = whisper_decode(model, comp, frames, starts, False)
@@ -2763,7 +2952,7 @@ def zero_counts() -> None:
     from repro_torch.kernels import hessian_accum as K1, nm_spmm as K2
 
     for fn in (K1.hessian_update_cuda, K2.nm_matmul_cuda,
-               K2.nm_matmul_stacked_cuda):
+               K2.nm_matmul_stacked_cuda, K2.nm_sp_rows):
         fn.launches = 0
         fn.by_shape.clear()
 
@@ -2775,7 +2964,7 @@ def uncounted():
     from repro_torch.kernels import hessian_accum as K1, nm_spmm as K2
 
     fns = (K1.hessian_update_cuda, K2.nm_matmul_cuda,
-           K2.nm_matmul_stacked_cuda)
+           K2.nm_matmul_stacked_cuda, K2.nm_sp_rows)
     saved = [(fn.launches, dict(fn.by_shape)) for fn in fns]
     try:
         yield
@@ -2792,7 +2981,7 @@ def path_counts() -> dict:
 
     return {fn.__name__: (fn.launches, dict(fn.by_shape))
             for fn in (K1.hessian_update_cuda, K2.nm_matmul_cuda,
-                       K2.nm_matmul_stacked_cuda)}
+                       K2.nm_matmul_stacked_cuda, K2.nm_sp_rows)}
 
 
 def add_counts(total: dict, counts: dict) -> None:
@@ -4791,7 +4980,9 @@ def tooling_ladders() -> dict:
                   f"{r['prediction']}"
                   f"{'; ' + r['note'] if r['note'] else ''}")
         out[key] = {"records": recs, "seconds": time.perf_counter() - t0}
-    out["by_shape"] = path_counts()["nm_matmul_cuda"][1]
+    counts = path_counts()
+    out["by_shape"] = counts["nm_matmul_cuda"][1]
+    out["rows_by_shape"] = counts["nm_sp_rows_kernel"][1]
     out["gates"] = gates
     for key, tag, what, val, lim in gates:
         print(f"  gate {key} [{tag}]: {what} {val:.4g} (limit {lim:g})")
@@ -4813,6 +5004,7 @@ def tooling_phase(gen, dev) -> dict:
     t_meas = time.perf_counter() - t0 - t_sweep
     ladders = tooling_ladders()
     by_shape = ladders.pop("by_shape")
+    rows_by_shape = ladders.pop("rows_by_shape")
     t_prefill = time.perf_counter()
     prefill = tooling_prefill()
     t_prefill = time.perf_counter() - t_prefill
@@ -4822,6 +5014,13 @@ def tooling_phase(gen, dev) -> dict:
         check(all(by_shape.get(k, 0) > 0 for k in want),
               f"tooling: K2 not launched at {arch}'s B = {TOOLING_B} shapes: "
               f"{ {k: by_shape.get(k, 0) for k in want} }")
+        # every one of those launches whose shape calls for the many-row
+        # kernel ran it, and no other one did
+        ran = [(k, rows_by_shape.get(k, 0), by_shape[k]) for k in want]
+        check(all(n == (m if tc_mode(k[1], k[2], k[0]) == 3 else 0)
+                  for k, n, m in ran),
+              f"tooling: {arch}'s B = {TOOLING_B} K2 launches not on their "
+              f"kernel (shape, many-row launches, launches): {ran}")
         chk[arch] = path_kernel_checks(gen, dev, f"{arch} B={TOOLING_B}", [],
                                        shapes, (TOOLING_B,))
     for arch in TOOLING_K2:
@@ -4830,10 +5029,20 @@ def tooling_phase(gen, dev) -> dict:
         del chk[arch]["packs2"]
         torch.cuda.empty_cache()
     for r in rows:
-        print(f"  K2 {r['path']} {r['shape']}: launches {r['launches']}, "
-              f"kernel {r['ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} "
-              f"ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
-              f"ms ({r['bound_by']}), err {r['max_abs_err']:.3g}")
+        key = (TOOLING_B, *map(int, re.findall(r"\d+", r["shape"])[1:3]),
+               "torch.bfloat16", 4)
+        p = r["plan"]
+        print(f"  K2 {r['path']} {r['shape']}: launches {r['launches']} "
+              f"({rows_by_shape.get(key, 0)} on nm_sp_rows_kernel; plan mode "
+              f"{p['mode']} ({r['kernel']}), tile {p['tile'][0]}×"
+              f"{p['tile'][1]}, CS {p['cluster']}, {p['ctas']} CTAs), kernel "
+              f"{r['ms']:.4f} ms, "
+              + ("" if r["tc8_ms"] is None else
+                 f"8-row kernel {r['tc8_ms']:.4f} ms, ")
+              + f"torch.matmul "
+              f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), err "
+              f"{r['max_abs_err']:.3g}")
     secs = time.perf_counter() - t0
     print(f"phase tooling: {secs:.1f} s (sweep {t_sweep:.1f} s, measure "
           f"{t_meas:.1f} s, ladders "
@@ -5268,6 +5477,8 @@ def main() -> None:
                   f"spill loads and stores")
         for kern, info in ptxas_entries(log, "nm_tc_kernel"):
             print(f"  ptxas K2 tensor-core {kern}: {info}")
+        for kern, info in ptxas_entries(log, "nm_sp_rows_kernel"):
+            print(f"  ptxas K2 many-row <idx_bits, BM, BN> {kern}: {info}")
     print(f"phase build: {len(_build.SOURCES)} kernels in {secs:.2f} s")
     results["build_seconds"] = secs
 
@@ -5665,12 +5876,18 @@ def main() -> None:
               f"{e['max_abs_err']:.3g}")
         if e["name"] == "nm_matmul":
             p = e["plan"]
-            before = WARP_ROW_K2_MS.get(re.sub(r" 2:4 bf16$", "",
-                                               e["shape"]))
+            shape = re.sub(r" 2:4 bf16$", "", e["shape"])
+            before = WARP_ROW_K2_MS.get(shape)
             before = "none" if before is None else f"{before:.4f}"
-            print(f"      plan mode {p['mode']} CS {p['cluster']} smem "
+            tc8 = ""
+            if e["tc8_ms"] is not None:
+                rec = TC8_K2_MS.get(shape)
+                tc8 = (f"; 8-row kernel now {e['tc8_ms']:.4f} ms (recorded "
+                       f"{'none' if rec is None else f'{rec:.4f}'})")
+            print(f"      plan mode {p['mode']} ({e['kernel']}) CS "
+                  f"{p['cluster']} tile {p['tile'][0]}×{p['tile'][1]} smem "
                   f"{p['smem']} B, {p['ctas']} CTAs; warp-per-row kernel "
-                  f"now {e['warp_row_ms']:.4f} ms (recorded {before})")
+                  f"now {e['warp_row_ms']:.4f} ms (recorded {before}){tc8}")
     steps = {}
     for path, st in (("tinyllama-1.1b", results["serve"]["stats"]),
                      (MOE_ARCH, moe["stats"]),
@@ -5691,10 +5908,13 @@ def main() -> None:
           f"bound {sum(e['launches'] * e['bound_ms'] for e in k2):.2f} ms, "
           f"warp-per-row kernel "
           f"{sum(e['launches'] * e['warp_row_ms'] for e in k2):.2f}"
-          f" ms; every path launch on plan mode 2: "
-          f"{all(e['plan']['mode'] == 2 for e in k2)}")
-    check(all(e["plan"]["mode"] == 2 for e in k2),
-          "a K2 path shape is not planned on the tensor-core path")
+          f" ms; every path launch on its tensor-core plan (mode 3 from B = "
+          f"{K2._ROWS_MIN_B} and for rows too wide for 8-row blocks, else "
+          f"2): {all(e['plan']['mode'] == k2_mode(e) for e in k2)}")
+    check(all(e["plan"]["mode"] == k2_mode(e) for e in k2),
+          "a K2 path shape is not planned on its tensor-core path: "
+          + str([(e["shape"], e["plan"]) for e in k2
+                 if e["plan"]["mode"] != k2_mode(e)]))
     results["kernels"] = entries
     results["prune_graphs"]["prunes"] = GRAPH_LINES
     print("  prune seconds with graphs: " + ", ".join(

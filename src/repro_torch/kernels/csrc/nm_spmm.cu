@@ -29,6 +29,17 @@
 //     wide for one block's shared memory are split over a cluster of CTAs
 //     that sums its partial tiles through distributed shared memory in a
 //     fixed order (one launch, the same y every run).
+// From B = _ROWS_MIN_B activation rows on (nm_spmm.py), bf16 2:4 takes the
+// many-row kernel instead (nm_sp_rows_kernel, mode 3; see its note).  There
+// the 8-row blocks would stream every weight byte ⌈B/8⌉ times — 16 times at
+// decode's B = 128, 750 times at whisper's encoder (B = 6 000) — where the
+// work is bound by the weight bytes read once (B = 128: 0.625 of the dense
+// bytes) and, by B = 6 000, by the tensor-core rate.  Its blocks hold 128
+// or 256 output rows × 64 or 128 activation rows, so each weight tile is
+// read once for all of them; the products run on Hopper's 2:4 sparse
+// tensor cores (wgmma.mma_async.sp, x read from shared memory), fed by TMA,
+// with the hardware's metadata built in registers from the stored
+// positions.
 // The cluster split and shared memory come from the host's plan
 // (kernels/nm_spmm.py::_k2_plan).  fp32, n:m other than 2:4 and rows that
 // are not 16-byte aligned (on no served path) keep nm_kernel:
@@ -91,6 +102,7 @@
 // the same blocks, skip and x staging, each lane loading one kept value at
 // a time straight from global memory.  Ragged c and C are masked here.
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1058,26 +1070,600 @@ int launch_k2_tc_checked(const void* x, const void* vals, const void* idx,
              : launch_k2_tc<8, 2>(x, vals, idx, y, B, c, b, L, idx_stride, CS, smem, s);
 }
 
+// ---- K2 for many activation rows: bf16 2:4 on the sparse tensor cores -------
+// mode 3, nm_sp_rows_kernel.  The transposed tile yᵀ = W · xᵀ, so that W is
+// the sparse A operand of wgmma.mma_async.sp m64nNk32 (M = output rows,
+// K = b, 2:4 along K as the hardware takes it) and x (B, b) row-major is
+// the K-major B operand as it lies in memory (N = activation rows).  A
+// block of two warpgroups owns BM = 128 or 256 output rows (one or two
+// 64-row slices a warpgroup) × BN = 64 or 128 activation rows and reads its
+// weight tile once for all of them (the mode-2 block re-streams it for
+// every 8 rows).  256-row blocks serve each x tile to twice the weight
+// rows: at B = 6 000 the x tiles, read from L2 by every block, are what the
+// 128-row blocks waited on.
+//
+// Its K range walks a ring of 3–4 shared-memory stages of SP_KS · 32
+// columns: the value tile and the two x sub-tiles come by TMA (2-D tensor
+// maps, 128-byte swizzle, zero fill past c, B and b) and the index bytes by
+// cp.async (their rows need not be 16-byte strided), all completing on one
+// mbarrier a stage (cp.async.mbarrier.arrive).  x stays in shared memory, where the tensor cores read it
+// through a matrix descriptor; each warp takes its 16 rows of values from
+// the swizzled tile into registers with ldmatrix (conflict-free), the A
+// fragment of the instruction.  The wgmmas of a stage stay in flight while
+// the next stage's fragments are read (two register sets, one wait_group
+// behind), and the stage refilled is the one two stages back; the ring is
+// filled whole at the start, so a short K range (a split CTA) waits on one
+// latency.
+//
+// Metadata is built in registers from the stored positions, not stored: a
+// group's nibble is p0 | p1 << 2 (the two kept positions, ascending, as
+// _pack writes them).  The metadata of a warp's 16 × 32 slice is 16 rows ×
+// 32 bits, given by two threads of each quad (selector 0: lanes 4g, 4g + 1;
+// selector 1: 4g + 2, 4g + 3): the thread of half h holds groups 4h … 4h + 3
+// of row g in bits 0–15 and of row g + 8 in bits 16–31 (the layout of
+// mma.sp m16n8k32, checked on the card).  So a thread builds one word per
+// two 32-column steps: the even step with selector 0, the odd one with 1.
+// Rows past c get positions (0, 1) with zero values.
+//
+// Where the blocks do not fill the card, the host's plan splits K over a
+// cluster of CS CTAs; each stages its fp32 tile in shared memory, sends the
+// other CTAs their rows of it by bulk copies into their shared memory, and
+// sums the CS partial tiles of its own rows in rank order — no atomics,
+// the same y every run.  Unsplit, the tile is staged in bf16.  The epilogue
+// writes y row-major from the staged tile, 16-byte stores where c % 8 == 0.
+//
+// Bound: at B = 128 the weight bytes (0.625 of the dense bytes, read once)
+// over 3.35 TB/s; by B = 6 000 the tensor-core rate.  In practice both
+// meet the rate at which the SMs fill their shared memory from L2 (each
+// block reads the x tiles again): wgmma reads x once a warpgroup from
+// shared memory with no register copy, TMA spends no thread on the copies,
+// and 256-row blocks halve the x reads where the grid is large.
+constexpr int SP_THREADS = 256;              // two warpgroups
+constexpr int SP_MAXST = 4;                  // ring stages at most
+constexpr int SP_KS = 4;                     // 32-column steps a stage
+constexpr int SP_VROW = SP_KS * 32;          // bytes of a staged value row
+__host__ __device__ constexpr int sp_irow(int idx_bits) {
+  return SP_KS * (idx_bits == 4 ? 8 : 16);   // bytes of a staged index row
+}
+// x (two sub-tiles of BN rows × 128 bytes), values, index bytes
+__host__ __device__ constexpr int sp_stage(int BM, int BN, int idx_bits) {
+  return 2 * BN * 128 + BM * SP_VROW + BM * sp_irow(idx_bits);
+}
+// Stages of the ring: as many as fit beside 1 024 bytes of alignment and
+// the mbarriers, at most SP_MAXST; the pipeline needs 3.
+__host__ __device__ constexpr int sp_nst(int BM, int BN, int idx_bits) {
+  return (SMEM_MAX - 1024 - 64) / sp_stage(BM, BN, idx_bits) < SP_MAXST
+             ? (SMEM_MAX - 1024 - 64) / sp_stage(BM, BN, idx_bits)
+             : SP_MAXST;
+}
+// Dynamic shared memory: the ring and 1 024 bytes to align it for the
+// swizzle (the fp32 tile of the epilogue, BN rows of BM + 4 floats, reuses
+// it); as _k2_rows_smem.
+size_t sp_smem(int BM, int BN, int idx_bits) {
+  return static_cast<size_t>(sp_nst(BM, BN, idx_bits)) *
+             sp_stage(BM, BN, idx_bits) + 1024;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+// One TMA load of a 2-D box at (c0 = column, c1 = row), completing on bar.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+// Matrix descriptor of a K-major operand in 128-byte-swizzled rows of 128
+// bytes, 8-row groups 1 024 bytes apart (the leading offset is unused).
+__device__ __forceinline__ uint64_t gmma_desc_sw128(const void* p) {
+  return ((smem_u32(p) & 0x3FFFFu) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// d (64 × N fp32, the warpgroup's fragment) += A · B: A the warp's 16 rows
+// of compressed weights in registers with their metadata, B from shared
+// memory through desc_b; SEL picks the threads that give the metadata.
+template <int SEL>
+__device__ __forceinline__ void wgmma_sp_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc_b, uint32_t meta) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %71, 0;\n"
+      "wgmma.mma_async.sp.sync.aligned.m64n128k32.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "{%64,%65,%66,%67}, %68, %69, %70, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(meta),
+        "n"(SEL), "r"(1));
+}
+template <int SEL>
+__device__ __forceinline__ void wgmma_sp_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc_b, uint32_t meta) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %39, 0;\n"
+      "wgmma.mma_async.sp.sync.aligned.m64n64k32.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "{%32,%33,%34,%35}, %36, %37, %38, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(meta),
+        "n"(SEL), "r"(1));
+}
+template <int BN, int SEL>
+__device__ __forceinline__ void wgmma_sp(float (&d)[BN / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b, uint32_t meta) {
+  if constexpr (BN == 128)
+    wgmma_sp_n128<SEL>(d, a, desc_b, meta);
+  else
+    wgmma_sp_n64<SEL>(d, a, desc_b, meta);
+}
+
+// The 16 metadata bits of 4 consecutive 2:4 groups of one row (group j in
+// bits 4j … 4j + 3: p0 | p1 << 2) from their stored positions.
+template <int IDX_BITS>
+__device__ __forceinline__ uint32_t meta16(const unsigned char* p) {
+  if constexpr (IDX_BITS == 4) {
+    uint32_t w = *reinterpret_cast<const uint32_t*>(p);  // byte j: p0 | p1 << 4
+    w = (w & 0x03030303u) | ((w >> 2) & 0x0C0C0C0Cu);
+    w = (w | (w >> 4)) & 0x00FF00FFu;
+    return (w | (w >> 8)) & 0x0000FFFFu;
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);  // p0, p1, p0, p1, …
+    auto two = [](uint32_t u) {
+      u = (u & 0x00030003u) | ((u >> 6) & 0x000C000Cu);
+      return (u & 0xFu) | ((u >> 12) & 0xF0u);
+    };
+    return two(v.x) | (two(v.y) << 8);
+  }
+}
+
+// Operand fence: the registers stay as they are up to here (a wgmma still
+// in flight reads them; the compiler must not reuse them).
+__device__ __forceinline__ void keep(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+__device__ __forceinline__ void keep(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// MW 64-row slices a warpgroup: BM = 128 · MW output rows a block.
+template <int IDX_BITS, int MW, int BN>
+__global__ void __launch_bounds__(SP_THREADS, 1)
+nm_sp_rows_kernel(const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_x,
+                  const uint8_t* __restrict__ idx, __nv_bfloat16* __restrict__ y,
+                  int B, int c, int b, int idx_stride, int CS, int vec_y) {
+  constexpr int BM = 128 * MW;
+  constexpr int KS = SP_KS, VROW = SP_VROW;
+  constexpr int IROW = sp_irow(IDX_BITS), IK = IROW / KS;
+  constexpr int STAGE = sp_stage(BM, BN, IDX_BITS);
+  constexpr int NST = sp_nst(BM, BN, IDX_BITS);
+  constexpr int TS = BM + 4;     // floats of a staged output row
+  constexpr int XS = BN * 128;   // bytes of an x sub-tile (two a stage)
+  static_assert(NST >= 3, "the pipeline keeps a stage in flight");
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[NST], red;
+  // the ring on a 1 024-byte boundary, as the 128-byte swizzle needs
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = (warp >> 2) * 64 + (warp & 3) * 16;  // the warp's 16 rows
+  const int rank = blockIdx.x % CS;  // == the CTA's rank in its cluster
+  const int o0 = blockIdx.x / CS * BM;
+  const int n0 = blockIdx.y * BN;
+  const int nk = b / 32;
+  const int ks0 = rank * nk / CS, ks1 = (rank + 1) * nk / CS;
+  const int ns = (ks1 - ks0 + KS - 1) / KS;
+
+  // a stage lands when thread 0's TMA bytes have and every thread's
+  // cp.async of index bytes has (one arrival each)
+  // a K split's reduction: the other CTAs' slices of this one's rows
+  // land on `red` (bulk copies into shared memory, see the epilogue)
+  const int slice = BN / CS * TS * 4;  // bytes of a CTA's share of a tile
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) mbar_init(&full[s], 1 + SP_THREADS);
+    mbar_init(&red, 1);
+    if (CS > 1) mbar_expect_tx(&red, static_cast<uint32_t>((CS - 1) * slice));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // stage layout: x sub-tiles [2][BN][128 B], values [BM][128 B] (both
+  // swizzled), index bytes [BM][IROW]
+  auto load = [&](int slot, int s) {
+    unsigned char* st = smem + slot * STAGE;
+    const int kb = ks0 + s * KS;  // first 32-column step of the stage
+    if (tid == 0) {
+      mbar_expect_tx(&full[slot], KS / 2 * XS + BM * VROW);
+      tma_load_2d(st + KS / 2 * XS, &tm_v, kb * 16, o0, &full[slot]);
+#pragma unroll
+      for (int h = 0; h < KS / 2; ++h)
+        tma_load_2d(st + h * XS, &tm_x, kb * 32 + 64 * h, n0, &full[slot]);
+    }
+    unsigned char* si = st + KS / 2 * XS + BM * VROW;
+    for (int l = tid; l < BM * KS; l += SP_THREADS) {
+      const int r = l / KS, j = l % KS;
+      const int k = kb + j;
+      const bool ok = o0 + r < c && k < ks1;
+      const uint8_t* src =
+          ok ? idx + static_cast<int64_t>(o0 + r) * idx_stride + k * IK : idx;
+      if constexpr (IDX_BITS == 4)
+        cp_async8(si + r * IROW + j * IK, src, ok);
+      else
+        cp_async16(si + r * IROW + j * IK, src, ok);
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                     smem_u32(&full[slot]))
+                 : "memory");
+  };
+
+  // slice ms of this warp: rows ms·128 + wrow …; this thread's metadata
+  // rows (g and g + 8) and whether they exist, its ldmatrix row
+  uint32_t mfix[MW];
+#pragma unroll
+  for (int ms = 0; ms < MW; ++ms) {
+    const int r = o0 + ms * 128 + wrow + g;
+    mfix[ms] = (r < c ? 0u : 0x0000FFFFu) | (r + 8 < c ? 0u : 0xFFFF0000u);
+  }
+  const int arow = wrow + (lane & 15);
+  float acc[MW][BN / 2];
+#pragma unroll
+  for (int ms = 0; ms < MW; ++ms)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[ms][i] = 0.0f;
+
+  // One stage: its fragments into (a, meta), its wgmmas issued; then wait
+  // for the previous stage's, whose fragments (pa, pmeta) are free after.
+  auto step = [&](int s, uint32_t (&a)[MW][KS][4], uint32_t (&meta)[MW][KS / 2],
+                  uint32_t (&pa)[MW][KS][4], uint32_t (&pmeta)[MW][KS / 2]) {
+    const int slot = s % NST;
+    mbar_wait(&full[slot], static_cast<uint32_t>((s / NST) & 1));
+    // stage s landed; every warp issued stage s − 1 and finished s − 2:
+    // its slot takes stage s − 2 + NST
+    __syncthreads();
+    if (s >= 2 && s - 2 + NST < ns) {
+      if (tid == 0) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      load((s - 2) % NST, s - 2 + NST);
+    }
+    const unsigned char* xs = smem + slot * STAGE;
+    const unsigned char* vs = xs + KS / 2 * XS;
+    const unsigned char* si = vs + BM * VROW;
+    const int nkk = min(KS, ks1 - ks0 - s * KS);
+#pragma unroll
+    for (int ms = 0; ms < MW; ++ms) {
+      const int ar = ms * 128 + arow;
+      // the swizzled 16-byte chunk of row ar: chunk XOR row & 7
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(a[ms][kk], vs + ar * VROW + (((kk * 2 + (lane >> 4)) ^ (ar & 7)) << 4));
+#pragma unroll
+      for (int p = 0; p < KS / 2; ++p) {
+        const unsigned char* ip = si + (ms * 128 + wrow + g) * IROW +
+                                  (2 * p + (t >> 1)) * IK + (t & 1) * (IK / 2);
+        const uint32_t w =
+            meta16<IDX_BITS>(ip) | (meta16<IDX_BITS>(ip + 8 * IROW) << 16);
+        meta[ms][p] = (w & ~mfix[ms]) | (0x44444444u & mfix[ms]);
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (kk < nkk) {
+        const uint64_t desc = gmma_desc_sw128(xs + (kk >> 1) * XS + (kk & 1) * 64);
+#pragma unroll
+        for (int ms = 0; ms < MW; ++ms) {
+          if (kk & 1)
+            wgmma_sp<BN, 1>(acc[ms], a[ms][kk], desc, meta[ms][kk >> 1]);
+          else
+            wgmma_sp<BN, 0>(acc[ms], a[ms][kk], desc, meta[ms][kk >> 1]);
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+#pragma unroll
+    for (int ms = 0; ms < MW; ++ms) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) keep(pa[ms][kk][q]);
+#pragma unroll
+      for (int p = 0; p < KS / 2; ++p) keep(pmeta[ms][p]);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) keep(acc[ms][i]);
+    }
+  };
+
+  // the whole ring at once: a short K range is in flight from the start
+#pragma unroll
+  for (int s = 0; s < NST; ++s)
+    if (s < ns) load(s, s);
+  uint32_t a0[MW][KS][4], a1[MW][KS][4], m0[MW][KS / 2], m1[MW][KS / 2];
+  for (int s = 0; s < ns; s += 2) {
+    step(s, a0, m0, a1, m1);
+    if (s + 1 < ns) step(s + 1, a1, m1, a0, m0);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int ms = 0; ms < MW; ++ms) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        keep(a0[ms][kk][q]);
+        keep(a1[ms][kk][q]);
+      }
+#pragma unroll
+    for (int p = 0; p < KS / 2; ++p) {
+      keep(m0[ms][p]);
+      keep(m1[ms][p]);
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) keep(acc[ms][i]);
+  }
+  __syncthreads();  // the ring is free: stage the output tile in it
+
+  constexpr int CH = BM / 8;  // 8-output chunks of an activation row
+  if (CS == 1) {
+    // bf16 tile [BN][TB], then 16-byte rows of 8 outputs to y
+    constexpr int TB = BM + 8;
+    __nv_bfloat16* tb = reinterpret_cast<__nv_bfloat16*>(smem);
+#pragma unroll
+    for (int ms = 0; ms < MW; ++ms)
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int o = ms * 128 + wrow + g, a = 8 * j + 2 * t;
+        store(tb + a * TB + o, acc[ms][4 * j]);
+        store(tb + (a + 1) * TB + o, acc[ms][4 * j + 1]);
+        store(tb + a * TB + o + 8, acc[ms][4 * j + 2]);
+        store(tb + (a + 1) * TB + o + 8, acc[ms][4 * j + 3]);
+      }
+    __syncthreads();
+    for (int l = tid; l < BN * CH; l += SP_THREADS) {
+      const int a = l / CH, j = l % CH;
+      const int n = n0 + a, o = o0 + 8 * j;
+      if (n >= B || o >= c) continue;
+      const uint4 v = *reinterpret_cast<const uint4*>(tb + a * TB + 8 * j);
+      __nv_bfloat16* yo = y + static_cast<int64_t>(n) * c + o;
+      if (vec_y && o + 8 <= c) {
+        *reinterpret_cast<uint4*>(yo) = v;
+      } else {
+        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
+        for (int e = 0; e < 8 && o + e < c; ++e) yo[e] = h[e];
+      }
+    }
+    return;
+  }
+
+  // a K split: the fp32 tile [BN][TS]; CTA q owns activation rows
+  // [q·BN/CS, (q+1)·BN/CS) and receives the other CTAs' slices of them by
+  // bulk copies (into recv, after the tile, slot = the sender's rank), then
+  // sums all CS slices in rank order
+  float* tile = reinterpret_cast<float*>(smem);
+  unsigned char* recv = smem + BN * TS * 4;
+#pragma unroll
+  for (int ms = 0; ms < MW; ++ms)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int o = ms * 128 + wrow + g, a = 8 * j + 2 * t;
+      tile[a * TS + o] = acc[ms][4 * j];
+      tile[(a + 1) * TS + o] = acc[ms][4 * j + 1];
+      tile[a * TS + o + 8] = acc[ms][4 * j + 2];
+      tile[(a + 1) * TS + o + 8] = acc[ms][4 * j + 3];
+    }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // for the copies
+  namespace cg = cooperative_groups;
+  cg::this_cluster().sync();  // every tile staged, every recv free
+  if (tid == 0) {
+    for (int q = 0; q < CS; ++q) {
+      if (q == rank) continue;
+      uint32_t dst, bar;
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                   : "=r"(dst)
+                   : "r"(smem_u32(recv + rank * slice)), "r"(q));
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                   : "=r"(bar)
+                   : "r"(smem_u32(&red)), "r"(q));
+      asm volatile(
+          "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];" ::"r"(dst),
+          "r"(smem_u32(reinterpret_cast<unsigned char*>(tile) + q * slice)),
+          "r"(slice), "r"(bar)
+          : "memory");
+    }
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  }
+  mbar_wait(&red, 0u);
+  const int rows = BN / CS;
+  for (int l = tid; l < rows * CH; l += SP_THREADS) {
+    const int ar = l / CH, j = l % CH;  // row ar of this CTA's share
+    const int a = rank * rows + ar;
+    const int n = n0 + a, o = o0 + 8 * j;
+    if (n >= B || o >= c) continue;
+    float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 1
+    for (int q = 0; q < CS; ++q) {
+      const float* rs = q == rank
+          ? tile + a * TS + 8 * j
+          : reinterpret_cast<const float*>(recv + q * slice) + ar * TS + 8 * j;
+      const float4 lo = *reinterpret_cast<const float4*>(rs);
+      const float4 hi = *reinterpret_cast<const float4*>(rs + 4);
+      v[0] += lo.x; v[1] += lo.y; v[2] += lo.z; v[3] += lo.w;
+      v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
+    }
+    __nv_bfloat16* yo = y + static_cast<int64_t>(n) * c + o;
+    if (vec_y && o + 8 <= c) {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        __nv_bfloat16 h[2];
+        store(&h[0], v[2 * e]);
+        store(&h[1], v[2 * e + 1]);
+        w[e] = static_cast<uint32_t>(__bfloat16_as_ushort(h[0])) |
+               (static_cast<uint32_t>(__bfloat16_as_ushort(h[1])) << 16);
+      }
+      *reinterpret_cast<uint4*>(yo) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (o + e < c) store(yo + e, v[e]);
+    }
+  }
+  // this CTA's copies have read its tile before it leaves (every copy into
+  // it has landed: red completed)
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time (the library
+// links only the runtime).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 matrix (rows × cols, row-major) as boxes of box_rows × 64 columns
+// (128 bytes, swizzled), zero past its edges.
+bool tmap_bf16(CUtensorMap* map, const void* base, int rows, int cols,
+               int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int IDX_BITS, int MW, int BN>
+int launch_k2_sp(const void* x, const void* vals, const void* idx, void* y,
+                 int B, int c, int b, int L, int idx_stride, int CS,
+                 size_t smem, cudaStream_t s) {
+  constexpr int BM = 128 * MW;
+  auto kern = nm_sp_rows_kernel<IDX_BITS, MW, BN>;
+  static size_t smem_set = 48 * 1024;  // the variant's limit so far
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = smem;
+  }
+  CUtensorMap tm_v, tm_x;
+  if (!tmap_bf16(&tm_v, vals, c, L, BM) || !tmap_bf16(&tm_x, x, B, b, BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec_y = c % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((c + BM - 1) / BM * CS),
+                     static_cast<unsigned>((B + BN - 1) / BN));
+  cfg.blockDim = dim3(SP_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = static_cast<unsigned>(CS);
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = CS > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, kern, tm_v, tm_x, static_cast<const uint8_t*>(idx),
+      static_cast<__nv_bfloat16*>(y), B, c, b, idx_stride, CS, vec_y));
+}
+
+// The checks of _k2_plan's many-row path: bf16 2:4, b % 32 == 0, index
+// rows of exactly L·idx_bits/8 bytes, 16-byte aligned x, values and
+// indices, at least one 32-column step a CTA, blocks of 128 or 256 output
+// rows and 64 or 128 activation rows whose ring holds 3 stages, the plan's
+// shared memory.
+int launch_k2_sp_checked(const void* x, const void* vals, const void* idx,
+                         void* y, int idx_bits, int B, int c, int b, int m,
+                         int keep, int L, int idx_stride, int CS, int smem,
+                         int BM, int BN, cudaStream_t s) {
+  const bool cs_ok = CS == 1 || CS == 2 || CS == 4 || CS == 8;
+  const bool al = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(vals) |
+                   reinterpret_cast<uintptr_t>(idx)) % 16 == 0;
+  if (m != 4 || keep != 2 || L * 2 != b || b % 32 != 0 || !cs_ok ||
+      b / 32 < CS || idx_stride != L * idx_bits / 8 || !al ||
+      (B + BN - 1) / BN > 65535 || (BM != 128 && BM != 256) ||
+      (BM == 256 && CS != 1) || (BN / CS) * CS != BN ||
+      (BN != 64 && BN != 128) || sp_nst(BM, BN, idx_bits) < 3 ||
+      static_cast<size_t>(smem) != sp_smem(BM, BN, idx_bits))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define SP_ARGS x, vals, idx, y, B, c, b, L, idx_stride, CS, smem, s
+  if (idx_bits == 4) {
+    if (BM == 256)
+      return BN == 128 ? launch_k2_sp<4, 2, 128>(SP_ARGS) : launch_k2_sp<4, 2, 64>(SP_ARGS);
+    return BN == 128 ? launch_k2_sp<4, 1, 128>(SP_ARGS) : launch_k2_sp<4, 1, 64>(SP_ARGS);
+  }
+  if (BM == 256) return BN == 64 ? launch_k2_sp<8, 2, 64>(SP_ARGS)
+                                 : static_cast<int>(cudaErrorInvalidValue);
+  return BN == 128 ? launch_k2_sp<8, 1, 128>(SP_ARGS) : launch_k2_sp<8, 1, 64>(SP_ARGS);
+#undef SP_ARGS
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, values and y share it).  mode (the
-// caller's plan, kernels/nm_spmm.py::_k2_plan): 2 = the tensor-core path
-// (bf16 2:4, 16-byte row slices: see launch_k2_tc_checked) with CS CTAs a
-// cluster and smem bytes of dynamic shared memory; 1 = the 16-byte vector
-// path of nm_kernel (L % 8 == 0 and 16-byte aligned bases); 0 = its scalar
-// path.  CS and smem are ignored below mode 2.  Returns the launch's error,
-// else cudaGetLastError().
+// caller's plan, kernels/nm_spmm.py::_k2_plan): 3 = the many-row path on
+// the sparse tensor cores (bf16 2:4: see launch_k2_sp_checked) with BM × BN
+// tiles, CS CTAs a cluster and smem bytes of dynamic shared memory; 2 = the
+// tensor-core path (bf16 2:4, 16-byte row slices: see launch_k2_tc_checked)
+// with CS CTAs a cluster and smem bytes; 1 = the 16-byte vector path of
+// nm_kernel (L % 8 == 0 and 16-byte aligned bases); 0 = its scalar path.
+// CS and smem are ignored below mode 2, BM and BN below mode 3.  Returns
+// the launch's error, else cudaGetLastError().
 extern "C" int nm_matmul(const void* x, const void* vals, const void* idx,
                          void* y, int dtype, int idx_bits, int mode, int B,
                          int c, int b, int m, int keep, int L, int idx_stride,
-                         int CS, int smem, void* stream) {
+                         int CS, int smem, int BM, int BN, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || c <= 0) return static_cast<int>(cudaGetLastError());
-  if (mode == 2) {
+  if (mode < 0 || mode > 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode >= 2) {
     if (dtype != 1 || (idx_bits != 4 && idx_bits != 8))
       return static_cast<int>(cudaErrorInvalidValue);
-    const int err = launch_k2_tc_checked(x, vals, idx, y, idx_bits, B, c, b,
-                                         m, keep, L, idx_stride, CS, smem, s);
+    const int err =
+        mode == 3 ? launch_k2_sp_checked(x, vals, idx, y, idx_bits, B, c, b, m,
+                                         keep, L, idx_stride, CS, smem, BM, BN, s)
+                  : launch_k2_tc_checked(x, vals, idx, y, idx_bits, B, c, b, m,
+                                         keep, L, idx_stride, CS, smem, s);
     if (err != 0) return err;
     return static_cast<int>(cudaGetLastError());
   }

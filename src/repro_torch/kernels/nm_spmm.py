@@ -3,15 +3,25 @@
 expert leaf, y[e] = x[e]·W_eᵀ (port of ``repro/kernels/ops.py::
 nm_matmul_stacked``), as one launch per leaf.
 
-``nm_matmul_cuda`` launches the hand-written kernel in ``csrc/nm_spmm.cu``
-(see the note there: what it replaces, what bounds it on the H100 and what
-its design does about it): bf16 2:4 on the tensor cores, other formats on
-the warp-per-row kernel, as ``_k2_plan`` chooses.  The plain version
-is ``ref.nm_matmul_ref``, re-exported here as ``nm_matmul_plain``: it
-expands W and multiplies in x's dtype, where the kernel sums in fp32 — so
-the two agree within a tolerance, not bitwise.  The Pallas wrapper's tile
-chooser and pad/slice do not carry over: the kernel masks its own ragged
-edges.
+``nm_matmul_cuda`` launches the hand-written kernels in ``csrc/nm_spmm.cu``
+(see the notes there: what they replace, what bounds them on the H100 and
+what their design does about it), as ``_k2_plan`` chooses: bf16 2:4 at
+B ≥ ``_ROWS_MIN_B`` activation rows, and rows too wide for one 8-row block,
+on the many-row kernel (mode 3, ``nm_sp_rows_kernel``), the rest on the
+8-row tensor-core kernel (mode 2), other formats on the warp-per-row
+kernel (modes 0 and 1).  The many-row
+regime is bound by the weight bytes at B = 128 (decode at production
+batch: the compressed weight read once is 0.625 of the dense bytes) and by
+the tensor-core rate by B = 6 000 (whisper's encoder); the 8-row kernel
+streamed the weight once per 8 rows, so its time grew with B.  Mode 3
+reads each weight tile once for 64–128 rows on Hopper's 2:4 sparse tensor
+cores (``wgmma.mma_async.sp``), the served format being exactly what they
+take, with the metadata built in registers from the stored positions.  The plain
+version is ``ref.nm_matmul_ref``, re-exported here as ``nm_matmul_plain``:
+it expands W and multiplies in x's dtype, where the kernels sum in fp32 —
+so the two agree within a tolerance, not bitwise.  The Pallas wrapper's
+tile chooser and pad/slice do not carry over: the kernels mask their own
+ragged edges.
 
 Layout (g = b/m groups, keep = m − n; K3 adds a leading expert axis E):
     values  (c, g·keep)      x's dtype
@@ -40,9 +50,9 @@ from repro_torch.kernels.ref import \
 
 Tensor = torch.Tensor
 
-__all__ = ["active_row_groups", "nm_matmul_cuda", "nm_matmul_plain",
-           "nm_matmul_stacked_cuda", "nm_matmul_stacked_plain",
-           "stacked_stream_bytes"]
+__all__ = ["KernelCount", "active_row_groups", "nm_matmul_cuda",
+           "nm_matmul_plain", "nm_matmul_stacked_cuda",
+           "nm_matmul_stacked_plain", "nm_sp_rows", "stacked_stream_bytes"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024      # bytes of shared memory a block may use
@@ -52,6 +62,22 @@ _K2_WARPS = 8                 # warps of a K2 tensor-core block (K2_WARPS)
 _K3_THREADS, _K3_BLOCK_ROWS, _K3_NST = 256, 128, 3
 _K3_STAGE_BYTES = 16 * 1024   # target bytes of one ring stage
 _K3_TC_STAGE_BYTES = 20 * 1024  # tensor cores: 16-row stages up to this
+_SMS = 132                    # an H100's SMs: the grid the many-row plan fills
+# K2's many-row ring, as in the source: stages of SP_KS 32-column steps
+# (128-byte rows of values and of each x sub-tile), as many as fit up to
+# SP_MAXST, 1 024 bytes to align the ring
+_SP_KS, _SP_MAXST = 4, 4
+# The least B and c that take the many-row path (mode 3); below them the
+# 8-row tensor-core path (mode 2) is kept.  The CTAs a many-row grid aims
+# at: 96 for a weight streamed from HBM (> _ROWS_L2_BYTES); 64 for one that
+# stays in L2, past which a K split costs more than the SMs it fills — or
+# 128 where its unsplit grid has ≥ 32 blocks (two blocks of activation
+# rows then read it once from HBM).  Measured with tools/k2_plan_sweep.py
+# (PERF.md §6, PR 27).
+_ROWS_MIN_B = 64
+_ROWS_MIN_C = 64
+_ROWS_MIN_CTAS, _ROWS_STREAM_CTAS, _ROWS_FULL_CTAS = 64, 96, 128
+_ROWS_L2_BYTES = 32 * 2**20
 
 
 def _bind(lib: ctypes.CDLL, name: str):
@@ -59,7 +85,7 @@ def _bind(lib: ctypes.CDLL, name: str):
     fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        ints = 12 if name == "nm_matmul" else 13
+        ints = 14 if name == "nm_matmul" else 13
         fn.argtypes = [p, p, p, p] + [i] * ints + [p]
         fn.restype = ctypes.c_int
     return fn
@@ -104,31 +130,108 @@ def _check_operands(x: Tensor, values: Tensor, indices: Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _k2_plan(c: int, b: int, L: int, idx_stride: int, B: int, esize: int,
-             aligned: bool, n: int = 2, m: int = 4) -> "tuple[int, int, int]":
+             aligned: bool, n: int = 2, m: int = 4,
+             x_aligned: bool = True) -> "tuple[int, int, int, int, int]":
     """K2's launch plan → (mode, CS CTAs a cluster, dynamic shared-memory
-    bytes), as the source lays them out.  Every block owns 8 output rows.
+    bytes, BM output rows and BN activation rows a block), as the source
+    lays them out.
 
-    mode 2, the tensor-core path: bf16 2:4 with aligned bases
-    (``aligned``), b % 32 == 0 and index rows of exactly L·idx_bits/8
-    bytes.  CS is the least of 1, 2, 4, 8 whose column slices keep 16-byte
-    rows of values and indices and fit ``_k2_smem`` in 227 KB — 1 at every
-    serving shape: a split measured slower there (``tools/
-    k2_plan_sweep.py``), so it only lets wide rows keep this path.  mode 1,
-    the warp-per-row kernel with 16-byte loads (L % 8 == 0, aligned
+    The tensor-core paths need bf16 2:4 with aligned bases of values and
+    indices (``aligned``), b % 32 == 0 and index rows of exactly
+    L·idx_bits/8 bytes.  mode 3, the many-row path: also a 16-byte aligned
+    x (``x_aligned``) and c ≥ ``_ROWS_MIN_C``, and B ≥ ``_ROWS_MIN_B`` — or
+    rows too wide for one 8-row block at any B (the 8-row plan would split
+    them over a cluster, or cannot hold them at all: deepseek-v3's,
+    zamba2's, mistral's and internvl's wide decode rows run 1.4–2.1×
+    faster on mode 3, PERF.md §6, PR 27); tiles and split from
+    ``_k2_rows_plan``.  mode 2, the 8-row path (BM = BN = 8): CS is the
+    least of 1, 2, 4, 8 whose column slices keep 16-byte rows of values and
+    indices and fit ``_k2_smem`` in 227 KB — 1 at every other serving
+    shape: a split measured slower there (``tools/k2_plan_sweep.py``).
+    mode 1, the warp-per-row kernel with 16-byte loads (L % 8 == 0, aligned
     bases), and mode 0, its scalar path, for every other layout and dtype
-    and where no split fits; CS = 1 and no dynamic shared memory.
+    and where no split fits; CS = 1, no dynamic shared memory, 8 × 8
+    blocks.
     """
     bits = 8 * idx_stride // L if L else 0
-    if (aligned and esize == 2 and (n, m) == (2, 4) and 2 * L == b
-            and b % 32 == 0 and bits in (4, 8)
-            and idx_stride * 8 == L * bits):
+    tc = (aligned and esize == 2 and (n, m) == (2, 4) and 2 * L == b
+          and b % 32 == 0 and bits in (4, 8)
+          and idx_stride * 8 == L * bits)
+    rows = tc and x_aligned and c >= _ROWS_MIN_C
+    if rows and B >= _ROWS_MIN_B:
+        return _k2_rows_plan(c, b, B, bits)
+    if tc:
         for CS in (1, 2, 4, 8):
             if b % (32 * CS) or idx_stride % CS or (idx_stride // CS) % 16:
                 continue
             smem = _k2_smem(b, L, idx_stride, B, CS)
             if smem + 64 <= _SMEM_LIMIT:
-                return 2, CS, smem
-    return int(aligned and L % 8 == 0), 1, 0
+                if rows and CS > 1:
+                    break
+                return 2, CS, smem, _MAXB, _MAXB
+        if rows:
+            return _k2_rows_plan(c, b, B, bits)
+    return int(aligned and L % 8 == 0), 1, 0, _MAXB, _MAXB
+
+
+def _k2_rows_plan(c: int, b: int, B: int,
+                  bits: int) -> "tuple[int, int, int, int, int]":
+    """The many-row plan (mode 3): BN = 64 activation rows a block up to
+    B = 64, else 128.  Blocks of 256 output rows where they alone give the
+    card's 132 SMs four CTAs each (compute-bound: each x tile then serves
+    twice the weight rows; fewer waves lose that to the last one) and their
+    ring holds 3 stages.  Else 128-row blocks and the least split CS ∈
+    {1, 2, 4, 8} (each CTA keeps ≥ one 32-column step) that reaches the
+    target: _ROWS_STREAM_CTAS for a weight streamed from HBM,
+    _ROWS_MIN_CTAS for one that stays in L2 — _ROWS_FULL_CTAS on a grid of
+    ≥ 32 blocks, blocks of 64 activation rows coming before each doubling
+    of CS; where none reaches it, the most CTAs."""
+    BN = 64 if B <= 64 else 128
+    if (_k2_rows_nst(256, BN, bits) >= 3
+            and -(-c // 256) * -(-B // BN) >= 4 * _SMS):
+        return 3, 1, _k2_rows_smem(256, BN, bits), 256, BN
+    blocks = -(-c // 128) * -(-B // BN)
+    in_l2 = c * b * (16 + bits) // 16 <= _ROWS_L2_BYTES   # values + indices
+    full = in_l2 and blocks >= 32
+    target = (_ROWS_FULL_CTAS if full else _ROWS_MIN_CTAS) if in_l2 \
+        else _ROWS_STREAM_CTAS
+    tiles = (BN, 64) if full and BN == 128 else (BN,)
+    best = None
+    for CS in (1, 2, 4, 8):
+        if b // 32 < CS:
+            break
+        for bn in tiles:
+            ctas = -(-c // 128) * -(-B // bn) * CS
+            plan = (3, CS, _k2_rows_smem(128, bn, bits), 128, bn)
+            if ctas >= target:
+                return plan
+            if best is None or ctas > best[0]:
+                best = (ctas, plan)
+    return best[1]
+
+
+def _k2_rows_stage(BM: int, BN: int, bits: int) -> int:
+    """Bytes of a stage of K2's many-row ring (sp_stage in the source): x
+    (BN rows of 2 × 128 bytes), values (BM rows of 128 bytes) and index
+    bytes."""
+    return 2 * BN * 128 + BM * _SP_KS * 32 + BM * _SP_KS * (
+        8 if bits == 4 else 16)
+
+
+def _k2_rows_nst(BM: int, BN: int, bits: int) -> int:
+    """Stages of K2's many-row ring (sp_nst in the source): as many as fit
+    in 227 KB beside 1 024 bytes of alignment and the mbarriers, at most
+    _SP_MAXST; the pipeline needs 3."""
+    return min(_SP_MAXST,
+               (_SMEM_LIMIT - 1024 - 64) // _k2_rows_stage(BM, BN, bits))
+
+
+def _k2_rows_smem(BM: int, BN: int, bits: int) -> int:
+    """Dynamic shared memory of K2's many-row path (sp_smem in the source):
+    its ring and 1 024 bytes of alignment; the fp32 output tile of the
+    epilogue reuses it."""
+    return (_k2_rows_nst(BM, BN, bits) * _k2_rows_stage(BM, BN, bits)
+            + 1024)
 
 
 def _k2_smem(b: int, L: int, idx_stride: int, B: int, CS: int) -> int:
@@ -140,10 +243,10 @@ def _k2_smem(b: int, L: int, idx_stride: int, B: int, CS: int) -> int:
             + (_K2_WARPS + 1) * 64 * 4)
 
 
-def _k2_ctas(c: int, B: int, plan: "tuple[int, int, int]") -> int:
-    """CTAs (blocks) of a K2 launch under ``plan``: 8 output rows and 8
+def _k2_ctas(c: int, B: int, plan: "tuple[int, int, int, int, int]") -> int:
+    """CTAs (blocks) of a K2 launch under ``plan``: BM output rows and BN
     activation rows a block, CS blocks a cluster."""
-    return -(-c // 8) * plan[1] * -(-B // _MAXB)
+    return -(-c // plan[3]) * plan[1] * -(-B // plan[4])
 
 
 def _launch_k2(x: Tensor, values: Tensor, indices: Tensor, n: int, m: int,
@@ -153,12 +256,12 @@ def _launch_k2(x: Tensor, values: Tensor, indices: Tensor, n: int, m: int,
     y = torch.empty((B, c), dtype=x.dtype, device=x.device)
     if B == 0 or c == 0:
         return y
-    mode, CS, smem = plan
+    mode, CS, smem, BM, BN = plan
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = _fn("nm_matmul")(
         x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
         _DTYPES[x.dtype], idx_bits, mode, B, c, b, m, m - n, L,
-        indices.shape[1], CS, smem, stream)
+        indices.shape[1], CS, smem, BM, BN, stream)
     _build.check(status, "nm_matmul")
     return y
 
@@ -177,7 +280,7 @@ def _k2_operands(x: Tensor, values: Tensor, indices: Tensor, n: int, m: int,
     plan = _k2_plan(values.shape[0], b, L, indices.shape[1], x.shape[0],
                     x.element_size(),
                     all(t.data_ptr() % 16 == 0 for t in (values, indices)),
-                    n, m)
+                    n, m, x.data_ptr() % 16 == 0)
     return x, values, indices, plan
 
 
@@ -189,14 +292,31 @@ def nm_matmul_cuda(x: Tensor, values: Tensor, indices: Tensor, *, n: int,
     y = _launch_k2(x, values, indices, n, m, b, idx_bits, plan)
     if y.numel() == 0:
         return y
+    key = (x.shape[0], values.shape[0], b, str(x.dtype), idx_bits)
     nm_matmul_cuda.launches += 1
-    nm_matmul_cuda.by_shape[(x.shape[0], values.shape[0], b, str(x.dtype),
-                             idx_bits)] += 1
+    nm_matmul_cuda.by_shape[key] += 1
+    if plan[0] == 3:
+        nm_sp_rows.launches += 1
+        nm_sp_rows.by_shape[key] += 1
     return y
+
+
+class KernelCount:
+    """The launches of one ``__global__`` of a wrapper that runs several:
+    ``launches`` and ``by_shape`` as the wrapper counts them, named after
+    the kernel (``__name__``), so that a launch tally carries it too."""
+
+    def __init__(self, name: str) -> None:
+        self.__name__ = name
+        self.launches = 0
+        self.by_shape: collections.Counter = collections.Counter()
 
 
 nm_matmul_cuda.launches = 0
 nm_matmul_cuda.by_shape = collections.Counter()
+# the K2 launches that ran the many-row kernel (plan mode 3), a subset of
+# nm_matmul_cuda's
+nm_sp_rows = KernelCount("nm_sp_rows_kernel")
 
 
 def _pad_to(nbytes: int, rem: int) -> int:

@@ -1,20 +1,33 @@
 #!/usr/bin/env python3
-"""Time K2 (the n:m compressed matmul) under every launch plan it could take
-at the serving paths' shapes, on one NVIDIA GPU.
+"""Time K2 (the n:m compressed matmul) under every launch plan it could take,
+on one NVIDIA GPU, and print the crossover that sets ``_ROWS_MIN_B``.
 
     python3 tools/k2_plan_sweep.py          # from the root of a checkout
+    python3 tools/k2_plan_sweep.py --part rows
 
-For each (c, b) that K2 runs on the two paths (tinyllama-1.1b and
-qwen3-moe-30b-a3b's attention) and B ∈ {1, 4}, bf16 2:4 with 4-bit indices:
-the tensor-core path at every cluster split CS ∈ {1, 2, 4, 8} that fits,
-the warp-per-row kernel (mode 1), and
-``torch.matmul`` on the dense weight — device times of CUDA-graph replays,
-the weights rotated through copies so that every launch streams them from
-HBM.  The plan ``_k2_plan`` chooses is marked.  Every plan is first held
-against the plain version (bf16 rtol 2e-2 / atol 1e-2).
+bf16 2:4 with 4-bit indices; device times of CUDA-graph replays, the
+weights rotated through copies so that every launch streams them from HBM;
+every plan first held against the plain version (bf16 rtol 2e-2 / atol
+1e-2).  The plan ``_k2_plan`` chooses is marked with ``*``.
+
+Part ``path``: each (c, b) that K2 runs on the two serving paths
+(tinyllama-1.1b and qwen3-moe-30b-a3b's attention) at B ∈ {1, 4}: the
+8-row tensor-core path (mode 2) at every cluster split CS ∈ {1, 2, 4, 8}
+that fits, the warp-per-row kernel (mode 1) and ``torch.matmul`` on the
+dense weight.
+
+Part ``rows``: the perf ladders' shapes (mistral-large-123b, xlstm-1.3b)
+and whisper-medium's at B ∈ {8, 16, 32, 64, 128} (whisper also at its
+encoder's 6 000), and the wide rows (deepseek-v3, mistral, internvl) at
+B = 4: the 8-row path under its own plan, the many-row path (mode 3) at
+every tile BM × BN ∈ {128, 256} × {64, 128} and split CS, and
+``torch.matmul``.  Per shape the least B from which the many-row path's
+best plan stays faster than the 8-row path; the largest of these over the
+ladder and whisper shapes is the threshold.
 """
 from __future__ import annotations
 
+import argparse
 import itertools
 import math
 import sys
@@ -28,72 +41,185 @@ from chip_smoke import device_ms, gpu_line  # noqa: E402
 
 PATH_SHAPES = [(2048, 2048), (256, 2048), (5632, 2048), (2048, 5632),
                (4096, 2048), (512, 2048), (2048, 4096)]
+LADDER_SHAPES = [(12288, 12288), (1024, 12288), (28672, 12288),
+                 (12288, 28672), (8192, 2048), (4096, 4096), (4, 4096),
+                 (2048, 4096), (2048, 2048)]
+WHISPER_SHAPES = [(1024, 1024), (4096, 1024), (1024, 4096)]
+WIDE_SHAPES = [(7168, 16384), (7168, 18432), (12288, 28672), (8192, 28672),
+               (3584, 14336)]
+ROW_BATCHES = (8, 16, 32, 64, 128)
+WHISPER_ROWS = 6000
+
+
+class Operands:
+    """One packed weight and its rotated copies (so that every launch
+    streams the weight from HBM), and the dense weight's copies."""
+
+    def __init__(self, gen, dev, c: int, b: int):
+        import torch
+
+        from repro_torch.core.masks import nm_mask
+        from repro_torch.core.sparsity import pack_nm
+
+        w = (torch.randn((c, b), generator=gen, device=dev)
+             / math.sqrt(b)).to(torch.bfloat16)
+        mask = nm_mask(w.float(), torch.ones((b,), device=dev), 2, 4)
+        self.pk = pack_nm(w, mask, 2, 4, idx_bits=4)
+        wd = w.masked_fill(mask > 0.5, 0)
+        per = self.pk.values.numel() * 2 + self.pk.indices.numel()
+        n = max(1, math.ceil(128 * 2**20 / per))
+        self.vals = [self.pk.values.clone() for _ in range(n)]
+        self.idxs = [self.pk.indices.clone() for _ in range(n)]
+        self.dens = [wd.clone() for _ in range(max(1, math.ceil(
+            128 * 2**20 / (wd.numel() * 2))))]
+        self.ring = itertools.cycle(range(n))
+        self.dring = itertools.cycle(range(len(self.dens)))
+        self.c, self.b = c, b
+        self.L, self.stride = self.pk.values.shape[1], self.pk.indices.shape[1]
+
+    def reps(self, B: int, dense: bool = False) -> int:
+        n = len(self.dens if dense else self.vals)
+        return min(n * max(1, 64 // n), 8 if B > 8 else 64)
+
+    def time_plan(self, x, plan) -> float:
+        """Device ms of one launch under ``plan``, after holding it against
+        the plain version."""
+        import torch
+
+        from repro_torch.kernels import nm_spmm as K2
+
+        pk, b = self.pk, self.b
+        y_k = K2._launch_k2(x, pk.values, pk.indices, 2, 4, b, 4, plan)
+        y_p = K2.nm_matmul_plain(x, pk.values, pk.indices, 2, 4, b, 4)
+        torch.cuda.synchronize()
+        if not torch.allclose(y_k.float(), y_p.float(), rtol=2e-2,
+                              atol=1e-2):
+            raise SystemExit(f"K2 plan {plan} at ({self.c}, {b}) "
+                             f"B={x.shape[0]} disagrees with the plain "
+                             "version")
+
+        def kern():
+            i = next(self.ring)
+            K2._launch_k2(x, self.vals[i], self.idxs[i], 2, 4, b, 4, plan)
+
+        return device_ms(kern, self.reps(x.shape[0]))
+
+    def time_library(self, x) -> float:
+        import torch
+
+        return device_ms(lambda: torch.matmul(x, self.dens[next(
+            self.dring)].T), self.reps(x.shape[0], dense=True))
+
+
+def path_part(gen, dev) -> None:
+    """Every 8-row plan and the warp-per-row kernel at the path shapes."""
+    import torch
+
+    from repro_torch.kernels import nm_spmm as K2
+
+    for c, b in PATH_SHAPES:
+        ops = Operands(gen, dev, c, b)
+        for B in (1, 4):
+            x = torch.randn((B, b), generator=gen, device=dev).to(
+                torch.bfloat16)
+            chosen = K2._k2_plan(c, b, ops.L, ops.stride, B, 2, True, 2, 4)
+            plans = [(1, 1, 0, 8, 8)]
+            for CS in (1, 2, 4, 8):
+                if b % (32 * CS) or (ops.stride // CS) % 16:
+                    continue
+                smem = K2._k2_smem(b, ops.L, ops.stride, B, CS)
+                if smem + 64 <= K2._SMEM_LIMIT:
+                    plans.append((2, CS, smem, 8, 8))
+            res = {p: ops.time_plan(x, p) for p in plans}
+            lib = ops.time_library(x)
+            best = min(res, key=res.get)
+            print(f"({c}, {b}) B={B}: library {lib:.4f} ms; " + "; ".join(
+                f"{'*' if p == chosen else ''}mode {p[0]} CS {p[1]} "
+                f"{t:.4f}" for p, t in res.items())
+                + f"; best mode {best[0]} CS {best[1]}", flush=True)
+        del ops
+
+
+def rows_plans(c: int, b: int, B: int) -> list:
+    """Every many-row plan: tiles BM × BN ∈ {128, 256} × {64, 128} (BN =
+    128 only past 64 rows) whose ring holds 3 stages, splits CS with ≥ one
+    32-column step a CTA (256-row blocks unsplit)."""
+    from repro_torch.kernels import nm_spmm as K2
+
+    return [(3, CS, K2._k2_rows_smem(BM, BN, 4), BM, BN)
+            for BM, BN in ((128, 128), (128, 64), (256, 128), (256, 64))
+            for CS in (1, 2, 4, 8)
+            if b // 32 >= CS and (BN == 64 or B > 64)
+            and K2._k2_rows_nst(BM, BN, 4) >= 3 and (BM == 128 or CS == 1)]
+
+
+def rows_part(gen, dev) -> None:
+    """The 8-row path against every many-row plan, by B; the crossover."""
+    import torch
+
+    from repro_torch.kernels import nm_spmm as K2
+
+    cross = {}
+    cases = [(s, ROW_BATCHES) for s in LADDER_SHAPES] + \
+        [(s, ROW_BATCHES + (WHISPER_ROWS,)) for s in WHISPER_SHAPES] + \
+        [(s, (1, 4)) for s in WIDE_SHAPES]
+    for (c, b), batches in cases:
+        ops = Operands(gen, dev, c, b)
+        wins = {}
+        for B in batches:
+            x = torch.randn((B, b), generator=gen, device=dev).to(
+                torch.bfloat16)
+            chosen = K2._k2_plan(c, b, ops.L, ops.stride, B, 2, True, 2, 4)
+            tc8 = K2._k2_plan(c, b, ops.L, ops.stride, B, 2, True, 2, 4,
+                              False)             # x unaligned: mode 2
+            t8 = ops.time_plan(x, tc8)
+            res = {p: ops.time_plan(x, p) for p in rows_plans(c, b, B)}
+            lib = ops.time_library(x)
+            best = min(res, key=res.get)
+            wins[B] = res[best] < t8
+            top = sorted(res, key=res.get)[:6]
+            print(f"({c}, {b}) B={B}: library {lib:.4f} ms; "
+                  f"{'*' if chosen == tc8 else ''}8-row CS {tc8[1]} "
+                  f"{t8:.4f}; many-row best "
+                  + ", ".join(f"{'*' if p == chosen else ''}{p[3]}×{p[4]} "
+                              f"CS {p[1]} {res[p]:.4f}" for p in top)
+                  + (f"; chosen {chosen[3]}×{chosen[4]} CS {chosen[1]} "
+                     f"{res[chosen]:.4f} ({res[chosen] / res[best]:.2f}× "
+                     "the best)" if chosen in res else ""), flush=True)
+        if len(batches) > 2:
+            from_b = None
+            for B in batches:
+                if wins[B] and from_b is None:
+                    from_b = B
+                elif not wins[B]:
+                    from_b = None
+            cross[(c, b)] = from_b
+            print(f"  ({c}, {b}): many-row faster from B = {from_b}",
+                  flush=True)
+        del ops
+        torch.cuda.empty_cache()
+    known = [v for v in cross.values() if v is not None]
+    print(f"crossover by shape: {cross}; threshold (the largest): "
+          f"{max(known) if known else None} (_ROWS_MIN_B now "
+          f"{K2._ROWS_MIN_B})")
 
 
 def main() -> None:
     import torch
 
-    from repro_torch.core.masks import nm_mask
-    from repro_torch.core.sparsity import pack_nm
-    from repro_torch.kernels import nm_spmm as K2
-
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--part", choices=("all", "path", "rows"), default="all")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is False")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
     print(f"gpu: {gpu_line()}")
-    for c, b in PATH_SHAPES:
-        w = (torch.randn((c, b), generator=gen, device=dev)
-             / math.sqrt(b)).to(torch.bfloat16)
-        mask = nm_mask(w.float(), torch.ones((b,), device=dev), 2, 4)
-        pk = pack_nm(w, mask, 2, 4, idx_bits=4)
-        wd = w.masked_fill(mask > 0.5, 0)
-        per = pk.values.numel() * 2 + pk.indices.numel()
-        copies = max(1, math.ceil(128 * 2**20 / per))
-        vals = [pk.values.clone() for _ in range(copies)]
-        idxs = [pk.indices.clone() for _ in range(copies)]
-        dens = [wd.clone() for _ in range(max(1, math.ceil(
-            128 * 2**20 / (wd.numel() * 2))))]
-        L, stride = pk.values.shape[1], pk.indices.shape[1]
-        reps = copies * max(1, 64 // copies)
-        for B in (1, 4):
-            x = torch.randn((B, b), generator=gen, device=dev).to(
-                torch.bfloat16)
-            chosen = K2._k2_plan(c, b, L, stride, B, 2, True, 2, 4)
-            y_p = K2.nm_matmul_plain(x, pk.values, pk.indices, 2, 4, b, 4)
-            plans = [(1, 1, 0)]
-            for CS in (1, 2, 4, 8):
-                if b % (32 * CS) or (stride // CS) % 16:
-                    continue
-                smem = K2._k2_smem(b, L, stride, B, CS)
-                if smem + 64 <= K2._SMEM_LIMIT:
-                    plans.append((2, CS, smem))
-            ring = itertools.cycle(range(copies))
-            res = {}
-            for plan in plans:
-                y_k = K2._launch_k2(x, pk.values, pk.indices, 2, 4, b, 4,
-                                    plan)
-                torch.cuda.synchronize()
-                if not torch.allclose(y_k.float(), y_p.float(), rtol=2e-2,
-                                      atol=1e-2):
-                    raise SystemExit(f"K2 plan {plan} at ({c}, {b}) B={B} "
-                                     "disagrees with the plain version")
-
-                def kern(plan=plan):
-                    i = next(ring)
-                    K2._launch_k2(x, vals[i], idxs[i], 2, 4, b, 4, plan)
-
-                res[plan] = device_ms(kern, reps)
-            dring = itertools.cycle(range(len(dens)))
-            lib = device_ms(lambda: torch.matmul(x, dens[next(dring)].T),
-                            len(dens) * max(1, 64 // len(dens)))
-            best = min(res, key=res.get)
-            print(f"({c}, {b}) B={B}: library {lib:.4f} ms; " + "; ".join(
-                f"{'*' if p == chosen else ''}mode {p[0]} CS {p[1]} "
-                f"{t:.4f}" for p, t in res.items())
-                + f"; best mode {best[0]} CS {best[1]}")
-        del vals, idxs, dens
+    if args.part in ("all", "path"):
+        path_part(gen, dev)
+    if args.part in ("all", "rows"):
+        rows_part(gen, dev)
 
 
 if __name__ == "__main__":
