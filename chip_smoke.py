@@ -246,7 +246,10 @@ dist. dist — right after robust, on phase 3's tree, over two spawned
              scales, the card's payload bitwise the host's.
    Then the redesigned kernels at odd shapes: K1 at ragged tokens and b
              with and without a row mask (xtx exactly symmetric, NaN batch
-             skipped); K3 with all-zero and filled row groups mixed (their
+             skipped), and K1's wgmma kernel under every plan it can take
+             (ring configuration, tile, token split, xtx prefetch) at
+             K1_PLAN_SHAPES onto a non-zero xtx, two launches bitwise
+             equal; K3 with all-zero and filled row groups mixed (their
              outputs bitwise +0); K2's tensor-core path at every path shape
              and ragged c for B ∈ K2_BATCHES (its plan checked, two
              launches bitwise equal), its cluster split, a NaN weight (NaN
@@ -267,7 +270,14 @@ dist. dist — right after robust, on phase 3's tree, over two spawned
              timed in this run beside its time recorded in PERF.md and, on
              many-row rows, the 8-row kernel likewise; then K2's device
              time per model step of each path and its launch-weighted
-             total, each beside the library's.
+             total, each beside the library's.  K1's rows print their plan
+             (which must be the wgmma kernel's) beside the mma.sync
+             kernel's recorded time and their eager time over the replay
+             (one run of 10 calls, and the median of five), rows at 16 384
+             tokens (K1_LONG: a split plan and unsplit ones) are added,
+             then K1's launch-weighted total beside the bf16 addmm's and
+             the bound (K1's operations: the symmetric half); one torch.profiler trace of K1 launch
+             pairs (scan, product) is printed first.
 
 Kernel launch counts are zeroed just before each path (phases 3,
 train's serve, robust, dist (in each rank), baselines, plan, 4m, mla and
@@ -301,6 +311,14 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (dense): HBM bytes/s and operations/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+
+
+def k1_ops(rows: int, b: int) -> int:
+    """K1's operations on ``rows`` valid token rows: the products of the
+    symmetric half of XᵀX, rows · b · (b + 1) (a multiply and an add for
+    each of b (b + 1) / 2 sums), which is all the kernel computes."""
+    return rows * b * (b + 1)
+
 
 MOE_ARCH = "qwen3-moe-30b-a3b"
 # 48 layers hold 61 GB of bf16 weights before a compressed copy and give
@@ -464,6 +482,29 @@ K2_ROWS_TILES = (300, 1056, 129)
 # the redesign checks: K1 at ragged (tokens, b); K3 (E, C, c, b, n, m)
 # with all-zero row groups, from a full-width leaf to ragged shapes
 ODD_K1 = [(37, 100), (37, 770), (80, 100), (80, 770)]
+# K1's wgmma kernel in every ring configuration, token split and xtx
+# prefetch point: (tokens, b) ragged against the stages and tiles, unmasked
+# and with a row mask (NaN in the masked rows), onto a non-zero symmetric
+# xtx; and K1's phase-5 rows at 16 384 tokens (the calibration pipeline's
+# 8 × 2 048 a batch), which no path launches: b = 1 024 plans a token
+# split over a cluster, 2 048 and 5 632 do not
+K1_PLAN_SHAPES = [(1041, 776, False), (300, 200, True)]
+K1_LONG = [(16384, 1024), (16384, 2048), (16384, 5632)]
+# K1's phase-5 times on the mma.sync kernel the wgmma one replaced, by
+# row shape: each K1 row's "earlier ms", printed beside the row and in no
+# kernels line (chip_smoke's final run before the wgmma kernel; NVIDIA H100
+# 80GB HBM3, 700.00 W)
+K1_EARLIER_MS = {
+    "x (1024, 512) bf16": 0.0262, "x (1024, 1024) bf16": 0.0264,
+    "x (1024, 1152) bf16": 0.0267, "x (1024, 1536) bf16": 0.0411,
+    "x (1024, 2048) bf16": 0.0475, "x (1024, 2560) bf16": 0.0522,
+    "x (1024, 3584) bf16": 0.1044, "x (1024, 4096) bf16": 0.1150,
+    "x (1024, 5632) bf16": 0.2052, "x (1024, 6912) bf16": 0.2955,
+    "x (1024, 7168) bf16": 0.3154, "x (1024, 8192) bf16": 0.3924,
+    "x (1024, 12288) bf16": 0.8385, "x (1024, 14336) bf16": 1.1695,
+    "x (1024, 16384) bf16": 1.5632, "x (1024, 18432) bf16": 2.0119,
+    "x (1024, 28672) bf16": 5.0022, "x (80, 2048) bf16 + row mask": 0.0170,
+    "x (80, 768) bf16 + row mask": 0.0082}
 # the tooling phase: K2 at the ladders' decode batch, at the (c, b) the nm
 # rungs launch — mistral's wq/wo, wk/wv, gate/up, down and xlstm's five
 TOOLING_B = 128
@@ -519,7 +560,7 @@ def ptxas_entries(log: str, kernel: str) -> list:
             spill = re.sub(r".*ptxas info\s*:\s*", "", line).strip()
         m = re.search(r"Used (\d+) registers.*", line)
         if m:
-            args = re.findall(r"Li(\d+)E", current)
+            args = re.findall(r"L[ib](\d+)E", current)
             out.append((f"<{', '.join(args)}>",
                         f"{m.group(0)}; {spill}"))
             current = None
@@ -565,20 +606,39 @@ def device_ms(fn, per_graph: int, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * per_graph)
 
 
-def eager_ms(fn, iters: int) -> float:
-    """Time of one eager ``fn`` call, host launch overhead included."""
+def eager_runs(fn, iters: int, repeats: int) -> list:
+    """Time of one eager ``fn`` call, host launch overhead included, in each
+    of ``repeats`` runs of ``iters`` back-to-back calls (after one call)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    runs = []
+    for _ in range(repeats):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return runs
+
+
+def eager_ms(fn, iters: int) -> float:
+    """Time of one eager ``fn`` call, host launch overhead included: one
+    run of ``iters`` back-to-back calls."""
+    return eager_runs(fn, iters, 1)[0]
+
+
+def k1_eager_fields(fn) -> dict:
+    """A K1 row's eager times: one run of 10 calls (``eager_ms``, the
+    measurement K1's rows always had) and the median of five such runs
+    beside it (``eager_median_ms``: one run's host share moves by tens of
+    µs from run to run on a shared host)."""
+    runs = eager_runs(fn, 10, 5)
+    return {"eager_ms": runs[0], "eager_median_ms": statistics.median(runs)}
 
 
 def addmm_bf16_ms(acc, xb, per_graph: int):
@@ -593,6 +653,73 @@ def addmm_bf16_ms(acc, xb, per_graph: int):
         return "not available"
     return device_ms(lambda: torch.addmm(acc, xb.T, xb,
                                          out_dtype=torch.float32), per_graph)
+
+
+def k1_plan_fields(x, valid, xtx) -> dict:
+    """A K1 row's plan, as ``_k1_plan`` chooses it for these operands."""
+    from repro_torch.kernels import hessian_accum as K1
+
+    BM, CS, variant, smem, pf = K1.k1_operands(x, valid, xtx)[2]
+    return {"plan": {"variant": K1.VARIANTS[variant], "code": variant,
+                     "tile": BM, "cluster": CS, "smem": smem,
+                     "prefetch_eighths": pf}}
+
+
+def k1_trace(dev) -> dict:
+    """One ``torch.profiler`` trace of K1 launch pairs (the scan, then the
+    product as its programmatic dependent) replayed from a CUDA graph at
+    x (1024, 1024) and (1024, 2048): each kernel's device time, how long
+    after the scan's start the product starts, and the pair's period."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import hessian_accum as K1
+
+    out = {}
+    for b in (1024, 2048):
+        x = torch.randn((1024, b), device=dev).to(torch.bfloat16)
+        acc = [torch.zeros((b, b), device=dev), torch.zeros((), device=dev),
+               torch.zeros((), device=dev)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                K1.hessian_update_cuda(x, None, *acc)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(5):
+                K1.hessian_update_cuda(x, None, *acc)
+        graph.replay()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type.name == "CUDA"),
+                     key=lambda e: e.time_range.start)
+        scans = [e for e in evs if "scan_kernel" in e.name]
+        prods = [e for e in evs if "xtx_wg_kernel" in e.name]
+        check(len(scans) == len(prods) == 5,
+              f"K1 trace at (1024, {b}): {len(scans)} scans, {len(prods)} "
+              "products on the device")
+        mean = statistics.fmean
+        rec = {"plan": list(K1.k1_operands(x, None, acc[0])[2]),
+               "scan_us": mean(e.time_range.elapsed_us() for e in scans),
+               "product_us": mean(e.time_range.elapsed_us() for e in prods),
+               "product_after_scan_us": mean(
+                   p.time_range.start - q.time_range.start
+                   for q, p in zip(scans, prods)),
+               "pair_us": (prods[-1].time_range.end
+                           - scans[0].time_range.start) / 5}
+        out[f"x (1024, {b})"] = rec
+        print(f"  K1 trace x (1024, {b}) plan {rec['plan']}: scan "
+              f"{rec['scan_us']:.2f} us, product {rec['product_us']:.2f} us "
+              f"starting {rec['product_after_scan_us']:.2f} us after the "
+              f"scan's start, {rec['pair_us']:.2f} us a launch pair")
+        del x, acc, graph
+    return out
 
 
 def errs(got, want) -> tuple[float, float]:
@@ -759,6 +886,7 @@ def redesign_checks(gen, dev) -> None:
               f", symmetric {torch.equal(before, before.T)}, skipped "
               f"{float(acc_k[2])}")
         n1 += 1
+    n1p = k1_plan_checks(gen, dev)
     n3, zeros = 0, 0
     for (E, C, c, b, n, m), dtype in itertools.product(
             ZERO_K3, (torch.float32, torch.bfloat16)):
@@ -796,8 +924,61 @@ def redesign_checks(gen, dev) -> None:
             zeros += zero.numel()
         del w, mask, x
     print(f"kernels: redesign checks: hessian_xtx at ragged shapes {n1} ok "
-          f"(symmetric, NaN batch skipped); nm_matmul_stacked with all-zero "
+          f"(symmetric, NaN batch skipped), in every wgmma ring "
+          f"configuration, split and prefetch point {n1p} ok (onto a "
+          f"non-zero xtx, two launches bitwise equal); nm_matmul_stacked "
+          f"with all-zero "
           f"row groups {n3} ok, {zeros} outputs of all-zero groups bitwise +0")
+
+
+def k1_plan_checks(gen, dev) -> int:
+    """K1's wgmma kernel under every plan it can take — each ring
+    configuration and tile, token splits CS ∈ ``hessian_accum.SPLITS``, the
+    xtx prefetch at 7 eighths — at ``K1_PLAN_SHAPES``, against the plain version (rtol
+    1e-3 / atol 2e-2) onto a non-zero symmetric xtx (the reduction adds),
+    xtx exactly symmetric, count exact, a second launch on the same inputs
+    bitwise the first.  → checks made."""
+    import torch
+
+    from repro_torch.kernels import hessian_accum as K1
+
+    rings = [(K1.K1_WG, 64), (K1.K1_WG, 128), (K1.K1_WG_TIGHT, 64),
+             (K1.K1_WG_DEEP, 64)]
+    n = 0
+    for tok, b, masked in K1_PLAN_SHAPES:
+        x = torch.randn((tok, b), generator=gen, device=dev).to(
+            torch.bfloat16)
+        valid = None
+        if masked:
+            valid = torch.rand((tok,), generator=gen, device=dev) < 0.6
+            x[~valid] = torch.nan
+        s = torch.randn((b, b), generator=gen, device=dev)
+        base = [s + s.T, torch.full((), 5.0, device=dev),
+                torch.zeros((), device=dev)]
+        acc_p = [t.clone() for t in base]
+        K1.hessian_update_plain(x, valid, *acc_p)
+        for (variant, BM), CS, pf in itertools.product(rings, K1.SPLITS,
+                                                       (0, 7)):
+            plan = (BM, CS, variant, K1.k1_smem(variant, BM), pf)
+            runs = []
+            for _ in range(2):
+                acc = [t.clone() for t in base]
+                K1._launch(x, valid, *acc, plan)
+                runs.append(acc)
+            torch.cuda.synchronize()
+            acc = runs[0]
+            e = errs(acc[0], acc_p[0])
+            check(torch.allclose(acc[0], acc_p[0], rtol=1e-3, atol=2e-2)
+                  and torch.equal(acc[0], acc[0].T)
+                  and float(acc[1]) == float(acc_p[1])
+                  and float(acc[2]) == 0.0
+                  and torch.equal(runs[1][0], acc[0]),
+                  f"K1 plan {plan} at ({tok}, {b}) masked={masked}: err "
+                  f"{e[0]:.3g}, count {float(acc[1])} vs {float(acc_p[1])}, "
+                  f"two launches equal {torch.equal(runs[1][0], acc[0])}")
+            n += 1
+        del x, s, base, acc_p, runs
+    return n
 
 
 def k2_tc_checks(gen, dev) -> None:
@@ -1328,7 +1509,8 @@ def k2_times(gen, dev, packs: dict, err: dict, main: dict,
                 "source": "src/repro_torch/kernels/csrc/nm_spmm.cu",
                 "replaces": "src/repro/kernels/nm_spmm.py:135",
                 "launches": main.get(key, 0), "max_abs_err": err[key][0],
-                "ms": device_ms(kern, reps), "eager_ms": eager_ms(kern, 200),
+                "ms": device_ms(kern, reps),
+                "eager_ms": eager_ms(kern, 200),
                 "plain_ms": device_ms(plain, reps),
                 "bound_ms": 1e3 * max(t_b, t_o),
                 "bound_by": "bytes" if t_b >= t_o else "operations",
@@ -1401,7 +1583,7 @@ def moe_times(gen, dev, chk: dict, moe: dict) -> list:
     rows = []
 
     def row(name, shape, source, replaces, launches, err, ms, eager, plain,
-            lib, nbytes, ops, lib_bf16=None):
+            lib, nbytes, ops, lib_bf16=None, extra=None):
         t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bfloat16"]
         rows.append({
             "name": name, "shape": shape, "path": MOE_ARCH, "route": "cuda",
@@ -1409,7 +1591,7 @@ def moe_times(gen, dev, chk: dict, moe: dict) -> list:
             "max_abs_err": err, "ms": ms, "eager_ms": eager,
             "plain_ms": plain, "bound_ms": 1e3 * max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations",
-            "library_ms": lib, "library_bf16_ms": lib_bf16})
+            "library_ms": lib, "library_bf16_ms": lib_bf16, **(extra or {})})
 
     for tok, b, masked in MOE_K1:
         x = torch.randn((tok, b), generator=gen, device=dev).to(bf16)
@@ -1421,17 +1603,20 @@ def moe_times(gen, dev, chk: dict, moe: dict) -> list:
                torch.zeros((), device=dev)]
         rows_used = tok if valid is None else int(valid.sum())
         key = (tok, b, str(bf16))
+        eager = k1_eager_fields(
+            lambda: K1.hessian_update_cuda(x, valid, *acc))
         row("hessian_xtx", f"x ({tok}, {b}) bf16"
             + (" + row mask" if valid is not None else ""),
             "src/repro_torch/kernels/csrc/hessian_xtx.cu",
             "src/repro/kernels/hessian_accum.py:66",
             main["hessian_update_cuda"].get(key, 0), chk["k1"][key][0],
             device_ms(lambda: K1.hessian_update_cuda(x, valid, *acc), 10),
-            eager_ms(lambda: K1.hessian_update_cuda(x, valid, *acc), 10),
+            eager.pop("eager_ms"),
             device_ms(lambda: K1.hessian_update_plain(x, valid, *acc), 10),
             device_ms(lambda: torch.addmm(acc[0], xm.T, xm), 10),
             x.numel() * 2 + (tok if valid is not None else 0) + 2 * b * b * 4,
-            2 * rows_used * b * b, addmm_bf16_ms(acc[0], xm.to(bf16), 10))
+            k1_ops(rows_used, b), addmm_bf16_ms(acc[0], xm.to(bf16), 10),
+            {**eager, **k1_plan_fields(x, valid, acc[0])})
     rows += k2_times(gen, dev, chk["packs2"], chk["k2"],
                      main["nm_matmul_cuda"], MOE_ARCH)
     # K3 at full occupancy (every capacity row filled: no main-path step
@@ -1465,7 +1650,8 @@ def moe_times(gen, dev, chk: dict, moe: dict) -> list:
         row("nm_matmul_stacked", f"x ({E}, {C}, {b}) W ({E}, {c}, {b}) "
             "2:4 bf16, every row filled",
             "src/repro_torch/kernels/csrc/nm_spmm.cu", K3_REPLACES, 0,
-            chk["k3"][key][0], device_ms(kern, 20), eager_ms(kern, 50), plain,
+            chk["k3"][key][0], device_ms(kern, 20), eager_ms(kern, 50),
+            plain,
             lib,
             per + 2 * E * C * b + 2 * E * C * c,
             2 * E * C * c * pk.values.shape[-1])
@@ -1909,8 +2095,8 @@ def path_times(gen, dev, chk: dict, main: dict, path: str, k1_bs: list,
         acc = [torch.zeros((b, b), device=dev), torch.zeros((), device=dev),
                torch.zeros((), device=dev)]
         nbytes = x.numel() * 2 + 2 * b * b * 4
-        ops = 2 * 1024 * b * b
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bfloat16"]
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, k1_ops(1024, b) / PEAK_OPS[
+            "bfloat16"]
         key = (1024, b, str(bf16))
         rows.append({
             "name": "hessian_xtx", "shape": f"x (1024, {b}) bf16",
@@ -1921,15 +2107,15 @@ def path_times(gen, dev, chk: dict, main: dict, path: str, k1_bs: list,
             "max_abs_err": chk["k1"][key][0],
             "ms": device_ms(lambda: K1.hessian_update_cuda(x, None, *acc),
                             10),
-            "eager_ms": eager_ms(lambda: K1.hessian_update_cuda(x, None,
-                                                                *acc), 10),
+            **k1_eager_fields(lambda: K1.hessian_update_cuda(x, None, *acc)),
             "plain_ms": device_ms(lambda: K1.hessian_update_plain(
                 x, None, *acc), 10),
             "bound_ms": 1e3 * max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations",
             "library_ms": device_ms(lambda: torch.addmm(acc[0], x32.T, x32),
                                     10),
-            "library_bf16_ms": addmm_bf16_ms(acc[0], x, 10)})
+            "library_bf16_ms": addmm_bf16_ms(acc[0], x, 10),
+            **k1_plan_fields(x, None, acc[0])})
         del x, x32, acc
         torch.cuda.empty_cache()
     rows += k2_times(gen, dev, chk["packs2"], chk["k2"],
@@ -5475,6 +5661,8 @@ def main() -> None:
             print(f"  ptxas {name}: {len(regs)} kernels, {min(regs)}–"
                   f"{max(regs)} registers a thread, {spills} bytes of "
                   f"spill loads and stores")
+        for kern, info in ptxas_entries(log, "xtx_wg_kernel"):
+            print(f"  ptxas K1 wgmma <BM, BK, NST, MASK> {kern}: {info}")
         for kern, info in ptxas_entries(log, "nm_tc_kernel"):
             print(f"  ptxas K2 tensor-core {kern}: {info}")
         for kern, info in ptxas_entries(log, "nm_sp_rows_kernel"):
@@ -5803,21 +5991,33 @@ def main() -> None:
                          for k, v in dense2.items()}
 
     # ---- 5. times at the main-path shapes ---------------------------------
+    results["k1_trace"] = k1_trace(dev)
     entries = []
-    for b in (2048, 5632):
-        x = torch.randn((1024, b), generator=gen, device=dev).to(torch.bfloat16)
+    for tok, b in [(1024, 2048), (1024, 5632)] + K1_LONG:
+        x = torch.randn((tok, b), generator=gen, device=dev).to(torch.bfloat16)
         x32 = x.float()
         acc = [torch.zeros((b, b), device=dev), torch.zeros((), device=dev),
                torch.zeros((), device=dev)]
+        key = (tok, b, str(torch.bfloat16))
+        if tok != 1024:                # held against the plain version here
+            acc_p = [t.clone() for t in acc]
+            K1.hessian_update_cuda(x, None, *acc)
+            K1.hessian_update_plain(x, None, *acc_p)
+            torch.cuda.synchronize()
+            k1_err[key] = errs(acc[0], acc_p[0])
+            check(torch.allclose(acc[0], acc_p[0], rtol=1e-3, atol=2e-2)
+                  and torch.equal(acc[0], acc[0].T)
+                  and float(acc[1]) == float(acc_p[1]) == tok,
+                  f"K1 ({tok}, {b}): err {k1_err[key][0]:.3g}")
+            del acc_p
         ms = device_ms(lambda: K1.hessian_update_cuda(x, None, *acc), 10)
-        eager = eager_ms(lambda: K1.hessian_update_cuda(x, None, *acc), 10)
+        eager = k1_eager_fields(lambda: K1.hessian_update_cuda(x, None, *acc))
         plain = device_ms(lambda: K1.hessian_update_plain(x, None, *acc), 10)
         lib = device_ms(lambda: torch.addmm(acc[0], x32.T, x32), 10)
         lib_bf16 = addmm_bf16_ms(acc[0], x, 10)
         nbytes = x.numel() * 2 + 2 * b * b * 4
-        ops = 2 * 1024 * b * b
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bfloat16"]
-        key = (1024, b, str(torch.bfloat16))
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, k1_ops(tok, b) / PEAK_OPS[
+            "bfloat16"]
         path_launches = {name: ph["counts"]["hessian_update_cuda"][1].get(
             key, 0) for name, ph in (("baselines", base), ("plan", plan))}
         path_launches["robust"] = robust["counts"][
@@ -5825,17 +6025,22 @@ def main() -> None:
         path_launches["dist"] = dph["counts"]["hessian_update_cuda"][
             1].get(key, 0)
         entries.append({
-            "name": "hessian_xtx", "shape": f"x (1024, {b}) bf16",
+            "name": "hessian_xtx", "shape": f"x ({tok}, {b}) bf16",
             "route": "cuda",
+            "path": ("tinyllama-1.1b" if tok == 1024
+                     else "none: calibration batches of 8 × 2 048"),
             "source": "src/repro_torch/kernels/csrc/hessian_xtx.cu",
             "replaces": "src/repro/kernels/hessian_accum.py:66",
             "launches": k1_main.get(key, 0),
-            "max_abs_err": k1_err[key][0], "ms": ms, "eager_ms": eager,
+            "max_abs_err": k1_err[key][0], "ms": ms, **eager,
             "plain_ms": plain,
             "bound_ms": 1e3 * max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations",
             "library_ms": lib, "library_bf16_ms": lib_bf16,
-            "path_launches": path_launches})
+            "path_launches": path_launches,
+            **k1_plan_fields(x, None, acc[0])})
+        del x, x32, acc
+        torch.cuda.empty_cache()
     entries += k2_times(gen, dev, packs, k2_err, k2_main, "tinyllama-1.1b",
                         {**{name: ph["counts"]["nm_matmul_cuda"][1]
                             for name, ph in (("baselines", base),
@@ -5874,6 +6079,17 @@ def main() -> None:
               f"library {e['library_ms']:.4f} ms{tc}  bound "
               f"{e['bound_ms']:.4f} ms ({e['bound_by']})  err vs plain "
               f"{e['max_abs_err']:.3g}")
+        if e["name"] == "hessian_xtx":
+            p = e["plan"]
+            before = K1_EARLIER_MS.get(e["shape"])
+            print(f"      plan {p['variant']} BM {p['tile']} CS "
+                  f"{p['cluster']} prefetch {p['prefetch_eighths']}/8, smem "
+                  f"{p['smem']} B; mma.sync kernel recorded "
+                  + ("none" if before is None else f"{before:.4f} ms")
+                  + f"; {e['bound_ms'] / e['ms']:.0%} of the bound; eager "
+                  f"over replay {1e3 * (e['eager_ms'] - e['ms']):+.1f} µs "
+                  f"(median of five runs "
+                  f"{1e3 * (e['eager_median_ms'] - e['ms']):+.1f} µs)")
         if e["name"] == "nm_matmul":
             p = e["plan"]
             shape = re.sub(r" 2:4 bf16$", "", e["shape"])
@@ -5900,6 +6116,29 @@ def main() -> None:
         steps[path] = k2_step_line(
             [e for e in entries if e["name"] == "nm_matmul"
              and e["path"] == path], st, path)
+    k1 = [e for e in entries if e["name"] == "hessian_xtx"]
+    lib1 = [e["launches"] * e["library_bf16_ms"] for e in k1
+            if isinstance(e["library_bf16_ms"], float)]
+    wg = {K1.K1_WG, K1.K1_WG_TIGHT, K1.K1_WG_DEEP}
+    earlier = sum(e["launches"] * K1_EARLIER_MS.get(e["shape"], 0.0)
+                  for e in k1)
+    print(f"  K1 launch-weighted over every path: "
+          f"{sum(e['launches'] * e['ms'] for e in k1):.2f} ms, bf16 addmm "
+          + (f"{sum(lib1):.2f} ms" if len(lib1) == len(k1)
+             else "not available")
+          + f", bound {sum(e['launches'] * e['bound_ms'] for e in k1):.2f} "
+          f"ms, mma.sync kernel recorded {earlier:.2f} ms; every path row "
+          f"on the wgmma kernel: "
+          f"{all(e['plan']['code'] in wg for e in k1)}")
+    long_cs = {e["plan"]["cluster"] for e in k1
+               if e["shape"].startswith(f"x ({K1_LONG[0][0]},")}
+    check(1 in long_cs and len(long_cs) > 1,
+          f"K1's {K1_LONG[0][0]}-token rows must time both a split and an "
+          f"unsplit plan; they planned CS {sorted(long_cs)}")
+    check(all(e["plan"]["code"] in wg for e in k1),
+          "a K1 path row (bf16, b % 8 == 0) is not planned on the wgmma "
+          "kernel: " + str([(e["shape"], e["plan"]) for e in k1
+                            if e["plan"]["code"] not in wg]))
     k2 = [e for e in entries if e["name"] == "nm_matmul"]
     results["k2_steps"] = steps
     print(f"  K2 launch-weighted over every path: "

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library under ``build/repro_torch/`` at the
 repository root (listed in ``.gitignore``).  The library's file name carries
-a digest of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded.  ``build_all`` starts one ``nvcc`` per source
+a digest of the source, of every ``csrc`` header it includes (``#include
+"<header>"``, followed through the headers) and of the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.  ``build_all`` starts one ``nvcc`` per source
 at once and waits for all of them.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -43,9 +45,31 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the csrc headers it includes, directly or
+    through other headers, in the order first met."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = CSRC / inc.decode()
+            if header.is_file():
+                todo.append(header)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    parts = [" ".join(NVCC_FLAGS).encode()]
+    for path in _sources(name):
+        data = path.read_bytes()
+        parts.append(f"\0{path.name}\0{len(data)}\0".encode() + data)
+    digest = hashlib.sha256(b"".join(parts)).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
