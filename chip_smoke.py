@@ -450,7 +450,7 @@ WARP_ROW_K2_MS = {"B=1 W (2048, 2048)": 0.0065, "B=4 W (2048, 2048)": 0.0126,
 SERVE_K2 = [(2048, 2048), (256, 2048), (5632, 2048), (2048, 5632)]
 # K2's __global__ by plan mode, as the kernels line names it
 K2_KERNELS = {0: "nm_kernel", 1: "nm_kernel", 2: "nm_tc_kernel",
-              3: "nm_sp_rows_kernel"}
+              3: "nm_sp_rows_kernel", 4: "nm_sp_dec_kernel"}
 # K2's time per launch with the 8-row tensor-core kernel at the rows that
 # now take the many-row kernel, as PERF.md records it (the wide rows PRs
 # 17–19, whisper PR 18, the ladders PR 22; NVIDIA H100 80GB HBM3, 700 W),
@@ -466,6 +466,49 @@ TC8_K2_MS = {"B=4 W (7168, 16384)": 0.1220, "B=4 W (7168, 18432)": 0.1359,
              "B=128 W (12288, 28672)": 7.2141, "B=128 W (8192, 2048)": 0.1702,
              "B=128 W (4096, 4096)": 0.1828, "B=128 W (4, 4096)": 0.0051,
              "B=128 W (2048, 4096)": 0.0956, "B=128 W (2048, 2048)": 0.0454}
+# K2's time per launch on the 8-row tensor-core kernel (mode 2) at every
+# B = 1 / B = 4 row of PERF.md §6's table that ran it before the decode
+# kernel (NVIDIA H100 80GB HBM3, 700 W): printed beside this run's rows, and
+# their launch-weighted sum (719.0 ms at the table's launches) beside this
+# run's; K2's launch-weighted total then (877.93 ms)
+MODE2_K2_MS = {
+    "B=1 W (2048, 2048)": 0.0052, "B=4 W (2048, 2048)": 0.0053,
+    "B=1 W (256, 2048)": 0.0032, "B=4 W (256, 2048)": 0.0032,
+    "B=1 W (5632, 2048)": 0.0088, "B=4 W (5632, 2048)": 0.0088,
+    "B=1 W (2048, 5632)": 0.0098, "B=4 W (2048, 5632)": 0.0106,
+    "B=1 W (4096, 2048)": 0.0072, "B=4 W (4096, 2048)": 0.0073,
+    "B=1 W (512, 2048)": 0.0034, "B=4 W (512, 2048)": 0.0034,
+    "B=1 W (2048, 4096)": 0.0079, "B=4 W (2048, 4096)": 0.0084,
+    "B=1 W (1536, 7168)": 0.0106, "B=4 W (1536, 7168)": 0.013,
+    "B=1 W (24576, 1536)": 0.0226, "B=4 W (24576, 1536)": 0.0238,
+    "B=1 W (576, 7168)": 0.0062, "B=4 W (576, 7168)": 0.0072,
+    "B=1 W (7168, 16384)": 0.0716, "B=1 W (18432, 7168)": 0.0578,
+    "B=4 W (18432, 7168)": 0.0879, "B=1 W (7168, 18432)": 0.0904,
+    "B=1 W (1024, 1152)": 0.0033, "B=4 W (1024, 1152)": 0.0033,
+    "B=1 W (256, 1152)": 0.0028, "B=4 W (256, 1152)": 0.0028,
+    "B=1 W (6912, 1152)": 0.0071, "B=4 W (6912, 1152)": 0.0075,
+    "B=1 W (1152, 1024)": 0.0034, "B=4 W (1152, 1024)": 0.0034,
+    "B=1 W (1152, 6912)": 0.0094, "B=4 W (1152, 6912)": 0.0123,
+    "B=1 W (14704, 3584)": 0.0253, "B=4 W (14704, 3584)": 0.0357,
+    "B=1 W (3584, 7168)": 0.0158, "B=4 W (3584, 7168)": 0.0248,
+    "B=1 W (3584, 3584)": 0.0101, "B=4 W (3584, 3584)": 0.0122,
+    "B=1 W (14336, 3584)": 0.0251, "B=4 W (14336, 3584)": 0.0353,
+    "B=1 W (3584, 14336)": 0.0393, "B=1 W (8192, 2048)": 0.0105,
+    "B=4 W (8192, 2048)": 0.011, "B=1 W (4096, 4096)": 0.0121,
+    "B=4 W (4096, 4096)": 0.0141, "B=1 W (4, 4096)": 0.0036,
+    "B=4 W (4, 4096)": 0.0039, "B=4 W (1024, 1024)": 0.0032,
+    "B=4 W (4096, 1024)": 0.0051, "B=4 W (1024, 4096)": 0.0058,
+    "B=1 W (2560, 2560)": 0.007, "B=4 W (2560, 2560)": 0.0074,
+    "B=1 W (640, 2560)": 0.0038, "B=4 W (640, 2560)": 0.0041,
+    "B=1 W (6912, 2560)": 0.0115, "B=4 W (6912, 2560)": 0.014,
+    "B=1 W (2560, 6912)": 0.0127, "B=4 W (2560, 6912)": 0.0182,
+    "B=1 W (12288, 12288)": 0.0866, "B=4 W (12288, 12288)": 0.1239,
+    "B=1 W (1024, 12288)": 0.0111, "B=4 W (1024, 12288)": 0.0124,
+    "B=1 W (28672, 12288)": 0.1823, "B=4 W (28672, 12288)": 0.2778,
+    "B=1 W (8192, 8192)": 0.0338, "B=4 W (8192, 8192)": 0.0492,
+    "B=1 W (1024, 8192)": 0.0082, "B=4 W (1024, 8192)": 0.0089,
+    "B=1 W (28672, 8192)": 0.0973, "B=4 W (28672, 8192)": 0.1407}
+MODE2_ROWS_MS, K2_BEFORE_MS = 719.0, 877.93
 # the tensor-core K2's checks: ragged c (the cluster split), its batch
 # sizes, and (c, b, B) of the NaN-weight and x-view checks
 K2_RAGGED = [(37, 128), (129, 256), (300, 512)]
@@ -477,6 +520,11 @@ K2_EDGE = [(2048, 2048, 4), (256, 2048, 1), (37, 128, 9)]
 # from the threshold (K2._ROWS_MIN_B, added at run time) to whisper's
 # encoder, and the shape every tile and split is held at
 K2_ROWS_RAGGED = [(200, 1056), (100, 96), (1000, 512)]
+# the decode path (plan mode 4): its batch sizes, and the ragged shape every
+# tile, split and ring depth is held at (34 column steps: 9 stages, the
+# last one cut)
+K2_DEC_BATCHES = (1, 2, 3, 4, 5, 8, 9, 17, 31, 33, 63)
+K2_DEC_TILES = (300, 1088)
 K2_ROWS_BATCHES = (127, 129, 6000)
 K2_ROWS_TILES = (300, 1056, 129)
 # the redesign checks: K1 at ragged (tokens, b); K3 (E, C, c, b, n, m)
@@ -1012,7 +1060,7 @@ def k2_tc_checks(gen, dev) -> None:
         if mode is None:
             mode = tc_mode(pk.values.shape[0], b, x.shape[0], bits)
         check(plan[0] == mode, f"K2 {what}: plan {plan} is not mode {mode} "
-              "(3: many rows, 2: 8 rows on the tensor cores)")
+              "(4: decode, 3: many rows, 2: 8 rows on the tensor cores)")
         y_k = K2.nm_matmul_cuda(x, pk.values, pk.indices, n=2, m=4, b=b,
                                 idx_bits=bits)
         y_2 = K2.nm_matmul_cuda(x, pk.values, pk.indices, n=2, m=4, b=b,
@@ -1021,6 +1069,18 @@ def k2_tc_checks(gen, dev) -> None:
         torch.cuda.synchronize()
         check(torch.equal(y_k.view(torch.int16), y_2.view(torch.int16)),
               f"K2 {what}: two launches differ")
+        if plan[0] == 4:
+            # the 8-row kernel, which the decode path took over here (what
+            # an unaligned x still takes), held against the plain version
+            c, L = pk.values.shape
+            tc8 = K2._k2_plan(c, b, L, pk.indices.shape[1], x.shape[0], 2,
+                              True, 2, 4, False)
+            y_8 = K2._launch_k2(x.contiguous(), pk.values, pk.indices, 2, 4,
+                                b, bits, tc8)
+            check(tc8[0] == 2 and torch.allclose(y_8.float(), y_p.float(),
+                                                 **tol),
+                  f"K2 {what}: the 8-row plan {tc8} against the plain "
+                  f"version: max abs err {errs(y_8, y_p)[0]:.3g}")
         return y_k, y_p, plan
 
     n_ok, worst, plans = 0, (0.0, 0.0), set()
@@ -1107,6 +1167,180 @@ def k2_tc_checks(gen, dev) -> None:
           f"weight {n_nan} ok (NaN column, no skip); strided / offset x "
           f"{n_view} ok")
     k2_rows_checks(gen, dev, pack, run)
+    k2_dec_checks(gen, dev, pack, run)
+
+
+def k2_dec_checks(gen, dev, pack, run) -> None:
+    """Phase 2 for K2's decode path (plan mode 4, nm_sp_dec_kernel): every
+    path shape of the serving phases' K2 checks and K2_RAGGED at B ∈
+    K2_DEC_BATCHES, 4- and 8-bit indices — through the wrapper where it
+    plans mode 4 (counted), else under the decode plan launched directly —
+    two launches bitwise equal; every split and ring depth under
+    explicit plans; every 2:4 position pair in every slot of a metadata
+    word at N = 8; a NaN kept weight; x strided (copied: mode 4) and one
+    element off alignment (mode 2); a CUDA-graph replay bitwise the direct
+    call.  Each against the plain version at rtol 2e-2 / atol 1e-2 and the
+    fp32 product: max rel err at most the dense bf16 product's + 2⁻⁸."""
+    import torch
+
+    from repro_torch.core.sparsity import pack_nm
+    from repro_torch.kernels import nm_spmm as K2
+    from repro_torch.kernels.ref import nm_expand
+
+    tol = {"rtol": 2e-2, "atol": 1e-2}
+    worst, n_ok, plans = (0.0, 0.0), 0, set()
+
+    def hold(y_k, x, pk, b, bits, what, equal_nan=False):
+        nonlocal worst, n_ok
+        y_p = K2.nm_matmul_plain(x, pk.values, pk.indices, 2, 4, b, bits)
+        e = errs(y_k, y_p)
+        ok = y_k.shape == y_p.shape and torch.allclose(
+            y_k.float(), y_p.float(), equal_nan=equal_nan, **tol)
+        rel = dense = 0.0
+        if not equal_nan:
+            w = nm_expand(pk.values, pk.indices, 2, 4, b, bits)
+            y32 = x.float() @ w.float().T
+            dense = errs(x @ w.T, y32)[1]
+            rel = errs(y_k, y32)[1]
+            worst = max(worst, e)
+        check(ok and rel <= dense + 2 ** -8,
+              f"K2 decode {what}: max abs err {e[0]:.3g}, rel err vs fp32 "
+              f"{rel:.3g} (dense bf16 {dense:.3g})")
+        n_ok += 1
+
+    def direct(x, pk, b, bits, plan, what):
+        y_k = K2._launch_k2(x, pk.values, pk.indices, 2, 4, b, bits, plan)
+        y_2 = K2._launch_k2(x, pk.values, pk.indices, 2, 4, b, bits, plan)
+        torch.cuda.synchronize()
+        check(torch.equal(y_k, y_2), f"K2 decode {what}: two launches of "
+              f"{plan} differ")
+        hold(y_k, x, pk, b, bits, what)
+        plans.add((plan[3], plan[1], K2._k2_dec_nst(plan[2], plan[3],
+                                                    plan[4], bits, plan[1])))
+
+    def counted(x, pk, b, bits, what, mode=4):
+        dec = K2.nm_sp_dec.launches
+        y_k, _, plan = run(x, pk, b, bits, what, mode)
+        check(K2.nm_sp_dec.launches == dec + 2 * (mode == 4),
+              f"K2 decode {what}: nm_sp_dec counted "
+              f"{K2.nm_sp_dec.launches - dec} of 2 launches")
+        hold(y_k, x, pk, b, bits, what)
+        if mode == 4:
+            plans.add((plan[3], plan[1], K2._k2_dec_nst(
+                plan[2], plan[3], plan[4], bits, plan[1])))
+        return y_k, plan
+
+    n_wrap = 0
+    for (c, b), bits in itertools.product(
+            [*SERVE_K2, *MOE_ATTN, *K2_RAGGED], (4, 8)):
+        pk = pack(c, b, bits)
+        for B in K2_DEC_BATCHES:
+            x = torch.randn((B, b), generator=gen, device=dev).to(
+                torch.bfloat16)
+            what = f"({c}, {b}) B={B} idx{bits}"
+            if tc_mode(c, b, B, bits) == 4:
+                counted(x, pk, b, bits, what)
+                n_wrap += 1
+            else:
+                direct(x, pk, b, bits, K2._k2_dec_plan(c, b, B, bits), what)
+        del pk
+    # every split and ring depth of the 64-row tile: explicit plans at a
+    # ragged shape
+    c, b = K2_DEC_TILES
+    n_plans = 0
+    for bits, B in ((4, 4), (8, 4), (4, 33)):
+        pk = pack(c, b, bits)
+        x = torch.randn((B, b), generator=gen, device=dev).to(torch.bfloat16)
+        N = 8 * -(-B // 8)
+        nks = -(-b // (32 * K2._DEC_KS))
+        BM = K2._DEC_BM
+        for CS in K2._DEC_SPLITS:
+            if nks < CS:
+                continue
+            for d in sorted({2, 3, K2._k2_dec_nst_max(BM, N, bits, CS)}):
+                direct(x, pk, b, bits,
+                       (4, CS, K2._k2_dec_smem(BM, N, bits, d, CS), BM, N),
+                       f"CS {CS} nst {d} ({c}, {b}) B={B} idx{bits}")
+                n_plans += 1
+    # every pair of kept positions in every row and group slot of the
+    # metadata words at N = 8: row r's group j keeps pair (r // 16 + j //
+    # 8) % 6; unsplit and split
+    pairs = list(itertools.combinations(range(4), 2))
+    c, b = 96, 192
+    idx = torch.tensor([[pairs[(r // 16 + j // 8) % 6] for j in range(b // 4)]
+                        for r in range(c)], device=dev)       # (c, g, 2)
+    keep = torch.zeros((c, b // 4, 4), device=dev)
+    keep.scatter_(2, idx, 1.0)
+    mask = 1.0 - keep.reshape(c, b)
+    mag = torch.rand((c, b), generator=gen, device=dev) + 0.5
+    sign = torch.randint(0, 2, (c, b), generator=gen, device=dev) * 2 - 1
+    w = (mag * sign * (mask < 0.5)).to(torch.bfloat16)
+    for bits in (4, 8):
+        pk = pack_nm(w, mask, 2, 4, idx_bits=bits)
+        x = torch.randn((4, b), generator=gen, device=dev).to(torch.bfloat16)
+        for CS in (1, 2):
+            direct(x, pk, b, bits,
+                   (4, CS, K2._k2_dec_smem(K2._DEC_BM, 8, bits, 2, CS),
+                    K2._DEC_BM, 8),
+                   f"six pairs CS {CS} idx{bits}")
+    # a NaN kept weight: NaN in its column, no skip
+    n_nan = 0
+    for (c, b, B), bits in itertools.product(((200, 1088, 1), (1000, 576, 4)),
+                                             (4, 8)):
+        pk = pack(c, b, bits, nan_row=c // 2)
+        x = torch.randn((B, b), generator=gen, device=dev).to(torch.bfloat16)
+        y_k = K2._launch_k2(x, pk.values, pk.indices, 2, 4, b, bits,
+                            K2._k2_dec_plan(c, b, B, bits))
+        torch.cuda.synchronize()
+        check(bool(torch.isnan(y_k[:, c // 2]).all()) and bool(
+            torch.isfinite(torch.cat([y_k[:, :c // 2], y_k[:, c // 2 + 1:]],
+                                     1)).all()),
+              f"K2 decode NaN weight ({c}, {b}) B={B} idx{bits}: NaN column "
+              f"{bool(torch.isnan(y_k[:, c // 2]).all())}")
+        hold(y_k, x, pk, b, bits, f"NaN weight ({c}, {b}) B={B}",
+             equal_nan=True)
+        n_nan += 1
+    # x strided (copied by the wrapper: its plan, mode 4 on zamba2's
+    # (3 584, 3 584) at B = 4) and off alignment (mode 2)
+    c, b, B = 3584, 3584, 4
+    pk = pack(c, b, 4)
+    strided = torch.randn((B, b + 8), generator=gen, device=dev).to(
+        torch.bfloat16)[:, 3:3 + b]
+    offset = torch.randn((B * b + 1,), generator=gen, device=dev).to(
+        torch.bfloat16)[1:].view(B, b)
+    counted(strided, pk, b, 4, "strided x")
+    counted(offset, pk, b, 4, "x one element off 16 bytes", mode=2)
+    # a CUDA-graph replay bitwise the direct call, unsplit and split plans
+    n_graph = 0
+    for c, b, B in ((2048, 2048, 4), (5632, 2048, 1), (200, 1088, 33)):
+        pk = pack(c, b, 4)
+        x = torch.randn((B, b), generator=gen, device=dev).to(torch.bfloat16)
+        plan = K2._k2_dec_plan(c, b, B, 4)
+        y_d = K2._launch_k2(x, pk.values, pk.indices, 2, 4, b, 4, plan)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            K2._launch_k2(x, pk.values, pk.indices, 2, 4, b, 4, plan)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y_g = K2._launch_k2(x, pk.values, pk.indices, 2, 4, b, 4, plan)
+        y_g.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(y_g, y_d), f"K2 decode ({c}, {b}) B={B} {plan}: "
+              "the graph's replay differs from the direct call")
+        n_graph += 1
+    print(f"kernels: nm_matmul decode path vs plain and fp32: {n_ok} checks "
+          f"ok (B ∈ {K2_DEC_BATCHES} at the path shapes and {K2_RAGGED}, "
+          f"{n_wrap} through the wrapper's mode-4 plan; {n_plans} splits × "
+          f"depths at {K2_DEC_TILES}; the six position pairs in "
+          f"every slot; strided x; an x off alignment on mode 2), max abs/"
+          f"rel err {worst[0]:.3g}/{worst[1]:.3g}; {len(plans)} (BM, CS, "
+          f"nst) plans run, BM {sorted({p[0] for p in plans})}, CS "
+          f"{sorted({p[1] for p in plans})}, nst {min(p[2] for p in plans)}–"
+          f"{max(p[2] for p in plans)}; NaN weight {n_nan} ok; {n_graph} "
+          "graph replays bitwise the direct call")
 
 
 def k2_rows_checks(gen, dev, pack, run) -> None:
@@ -1520,7 +1754,7 @@ def k2_times(gen, dev, packs: dict, err: dict, main: dict,
                          "smem": plan[2], "tile": [plan[3], plan[4]],
                          "ctas": K2._k2_ctas(c, B, plan)},
                 "warp_row_ms": device_ms(kern_old, reps),
-                "tc8_ms": (device_ms(kern_tc8, reps) if plan[0] == 3
+                "tc8_ms": (device_ms(kern_tc8, reps) if plan[0] in (3, 4)
                            else None)})
             if others:
                 rows[-1]["path_launches"] = {
@@ -1530,16 +1764,15 @@ def k2_times(gen, dev, packs: dict, err: dict, main: dict,
 
 
 def tc_mode(c: int, b: int, B: int, bits: int = 4) -> int:
-    """The tensor-core plan mode K2 should take for bf16 2:4 with aligned
-    operands: 3 (many rows) where c ≥ K2._ROWS_MIN_C and either B ≥
-    K2._ROWS_MIN_B or the 8-row plan (what an unaligned x takes) would split
-    the rows over a cluster or cannot hold them; else 2."""
+    """The plan mode K2 takes for bf16 2:4 with aligned operands: the
+    plan's own (``nm_spmm._k2_plan``, whose decode rule
+    ``tools/k2_dec_rule.py`` fits to the decode sweep's timings) — 3 (many
+    rows) from ``_ROWS_MIN_B``, below it 4 (decode) where the rule takes
+    it, else 2 (8 rows)."""
     from repro_torch.kernels import nm_spmm as K2
 
     L = b // 2
-    tc8 = K2._k2_plan(c, b, L, L * bits // 8, B, 2, True, 2, 4, False)
-    wide = tc8[0] != 2 or tc8[1] > 1
-    return 3 if c >= K2._ROWS_MIN_C and (B >= K2._ROWS_MIN_B or wide) else 2
+    return K2._k2_plan(c, b, L, L * bits // 8, B, 2, True, 2, 4)[0]
 
 
 def k2_mode(row: dict) -> int:
@@ -2808,14 +3041,15 @@ def depth_profile(cfg, comp, prompts, depths, fault_block: int) -> dict:
 
 def family_counts(label: str, expect: dict) -> dict:
     """Read the path's launches now and hold them against ``expect``; the
-    many-row kernel's, unless given, are every bf16 K2 launch whose shape
-    calls for it (``tc_mode``)."""
+    many-row and decode kernels', unless given, are every bf16 K2 launch
+    whose shape calls for them (``tc_mode``)."""
     counts = path_counts()
-    rows = sum(n for (B, c, b, dt, bits), n in
-               counts["nm_matmul_cuda"][1].items()
-               if dt == "torch.bfloat16" and tc_mode(c, b, B, bits) == 3)
-    if rows and "nm_sp_rows_kernel" not in expect:
-        expect = dict(expect, nm_sp_rows_kernel=rows)
+    for mode in (3, 4):
+        n = sum(k for (B, c, b, dt, bits), k in
+                counts["nm_matmul_cuda"][1].items()
+                if dt == "torch.bfloat16" and tc_mode(c, b, B, bits) == mode)
+        if n and K2_KERNELS[mode] not in expect:
+            expect = dict(expect, **{K2_KERNELS[mode]: n})
     launches = {name: n for name, (n, _) in counts.items() if n}
     check(launches == expect, f"{label} launches {launches}, expected "
           f"{expect}")
@@ -3138,7 +3372,7 @@ def zero_counts() -> None:
     from repro_torch.kernels import hessian_accum as K1, nm_spmm as K2
 
     for fn in (K1.hessian_update_cuda, K2.nm_matmul_cuda,
-               K2.nm_matmul_stacked_cuda, K2.nm_sp_rows):
+               K2.nm_matmul_stacked_cuda, K2.nm_sp_rows, K2.nm_sp_dec):
         fn.launches = 0
         fn.by_shape.clear()
 
@@ -3150,7 +3384,7 @@ def uncounted():
     from repro_torch.kernels import hessian_accum as K1, nm_spmm as K2
 
     fns = (K1.hessian_update_cuda, K2.nm_matmul_cuda,
-           K2.nm_matmul_stacked_cuda, K2.nm_sp_rows)
+           K2.nm_matmul_stacked_cuda, K2.nm_sp_rows, K2.nm_sp_dec)
     saved = [(fn.launches, dict(fn.by_shape)) for fn in fns]
     try:
         yield
@@ -3167,7 +3401,8 @@ def path_counts() -> dict:
 
     return {fn.__name__: (fn.launches, dict(fn.by_shape))
             for fn in (K1.hessian_update_cuda, K2.nm_matmul_cuda,
-                       K2.nm_matmul_stacked_cuda, K2.nm_sp_rows)}
+                       K2.nm_matmul_stacked_cuda, K2.nm_sp_rows,
+                       K2.nm_sp_dec)}
 
 
 def add_counts(total: dict, counts: dict) -> None:
@@ -5667,6 +5902,14 @@ def main() -> None:
             print(f"  ptxas K2 tensor-core {kern}: {info}")
         for kern, info in ptxas_entries(log, "nm_sp_rows_kernel"):
             print(f"  ptxas K2 many-row <idx_bits, BM, BN> {kern}: {info}")
+        dec = ptxas_entries(log, "nm_sp_dec_kernel")
+        if dec:
+            regs = [int(re.search(r"Used (\d+) registers", i)[1])
+                    for _, i in dec]
+            print(f"  ptxas K2 decode: {len(dec)} variants <idx_bits, N>, "
+                  f"{min(regs)}–{max(regs)} registers a thread; "
+                  + "; ".join(f"{k} {i}" for k, i in dec
+                              if k in ("<4, 8>", "<8, 64>")))
     print(f"phase build: {len(_build.SOURCES)} kernels in {secs:.2f} s")
     results["build_seconds"] = secs
 
@@ -5865,13 +6108,22 @@ def main() -> None:
     ntok = sum(len(r.out) for r in done)
     check(k1_launches > 0 and k2_launches > 0,
           f"main path launches K1 {k1_launches} K2 {k2_launches}")
+    # the decode kernel ran every launch whose shape calls for it, and no
+    # other one (none here: at tinyllama's widths the 8-row kernel ran as
+    # fast in the decode sweep; its own path is the dense2 phase's)
+    dec_want = sum(n for (B, c, b, dt, bits), n in k2_main.items()
+                   if tc_mode(c, b, B, bits) == 4)
+    check(K2.nm_sp_dec.launches == dec_want,
+          f"main path: nm_sp_dec_kernel launched {K2.nm_sp_dec.launches} "
+          f"times, {dec_want} of the serve's K2 launches call for it")
     st = engine.stats
     print(f"phase serve: compressed {cb / db:.4f} of dense bf16 bytes on "
           f"the pruned linears ({cb / 2**20:.1f} MiB vs "
           f"{db / 2**20:.1f} MiB); 4 requests, {ntok} tokens in "
           f"{t_serve:.2f} s ({ntok / t_serve:.1f} tok/s, "
           f"{st['decode_steps']} decode steps, {st['prefills']} prefills)"
-          f"; K2 launches {k2_launches} (154 per decode step)")
+          f"; K2 launches {k2_launches} (154 per decode step; "
+          f"{K2.nm_sp_dec.launches} on nm_sp_dec_kernel)")
     print(f"  req 0: {done[0].out}")
 
     e = first_step_line(model, comp, prompts)
@@ -5989,6 +6241,15 @@ def main() -> None:
                               if kk != "by_shape"}
                              if isinstance(v, dict) else v)
                          for k, v in dense2.items()}
+    # the decode kernel's path: mistral-large-123b served at full width, its
+    # counts set to 0 before the arch and read after it (family_counts held
+    # every one of its launches against the plan)
+    dec_shapes = dense2["mistral-large-123b"]["by_shape"]["nm_sp_dec_kernel"]
+    check(sum(dec_shapes.values()) > 0,
+          "dense2 mistral-large-123b: nm_sp_dec_kernel never launched")
+    print(f"  decode kernel's path (mistral-large-123b serve): "
+          f"{sum(dec_shapes.values())} nm_sp_dec_kernel launches, by (B, c, "
+          f"b) {dict(sorted((k[:3], n) for k, n in dec_shapes.items()))}")
 
     # ---- 5. times at the main-path shapes ---------------------------------
     results["k1_trace"] = k1_trace(dev)
@@ -6097,7 +6358,7 @@ def main() -> None:
             before = "none" if before is None else f"{before:.4f}"
             tc8 = ""
             if e["tc8_ms"] is not None:
-                rec = TC8_K2_MS.get(shape)
+                rec = MODE2_K2_MS.get(shape, TC8_K2_MS.get(shape))
                 tc8 = (f"; 8-row kernel now {e['tc8_ms']:.4f} ms (recorded "
                        f"{'none' if rec is None else f'{rec:.4f}'})")
             print(f"      plan mode {p['mode']} ({e['kernel']}) CS "
@@ -6148,8 +6409,29 @@ def main() -> None:
           f"warp-per-row kernel "
           f"{sum(e['launches'] * e['warp_row_ms'] for e in k2):.2f}"
           f" ms; every path launch on its tensor-core plan (mode 3 from B = "
-          f"{K2._ROWS_MIN_B} and for rows too wide for 8-row blocks, else "
-          f"2): {all(e['plan']['mode'] == k2_mode(e) for e in k2)}")
+          f"{K2._ROWS_MIN_B}, mode 4 below it where the plan's rule takes "
+          f"it, else 2): {all(e['plan']['mode'] == k2_mode(e) for e in k2)}")
+    moved = [e for e in k2
+             if re.sub(r" 2:4 bf16$", "", e["shape"]) in MODE2_K2_MS]
+    now = sum(e["launches"] * e["ms"] for e in moved)
+    rec = sum(e["launches"] * MODE2_K2_MS[re.sub(r" 2:4 bf16$", "",
+                                                 e["shape"])]
+              for e in moved)
+    tc8 = sum(e["launches"] * (e["ms"] if e["tc8_ms"] is None
+                               else e["tc8_ms"]) for e in moved)
+    results["k2_totals"] = {
+        "all_ms": sum(e["launches"] * e["ms"] for e in k2),
+        "before_ms": K2_BEFORE_MS, "mode2_rows": len(moved),
+        "mode2_rows_ms": now, "mode2_rows_recorded_ms": rec,
+        "mode2_rows_mode2_now_ms": tc8, "mode2_rows_before_ms": MODE2_ROWS_MS}
+    print(f"  K2 launch-weighted {results['k2_totals']['all_ms']:.2f} ms "
+          f"against {K2_BEFORE_MS} ms before the decode kernel; the "
+          f"{len(moved)} rows that ran "
+          f"mode 2 in PERF.md's table: {now:.2f} ms against its "
+          f"{MODE2_ROWS_MS} ms (its recorded times at this run's launches "
+          f"{rec:.2f} ms; the 8-row kernel timed now {tc8:.2f} ms); on the "
+          f"decode kernel (mode 4): "
+          f"{sum(e['plan']['mode'] == 4 for e in moved)} of them")
     check(all(e["plan"]["mode"] == k2_mode(e) for e in k2),
           "a K2 path shape is not planned on its tensor-core path: "
           + str([(e["shape"], e["plan"]) for e in k2

@@ -40,7 +40,15 @@
 // tensor cores (wgmma.mma_async.sp, x read from shared memory), fed by TMA,
 // with the hardware's metadata built in registers from the stored
 // positions.
-// The cluster split and shared memory come from the host's plan
+// Below B = _ROWS_MIN_B, bf16 2:4 with 16-byte index rows takes the decode
+// kernel (nm_sp_dec_kernel, mode 4; see its note) where the plan measured
+// it faster than the 8-row kernel, and rows too wide for an 8-row block up
+// to B = 8 (the many-row kernel past it): the same sparse tensor cores on 64-row
+// tiles of weights streamed through a TMA ring, N = 8·⌈B/8⌉ activation
+// rows, the K range split over a cluster so that the grid covers the card.
+// The 8-row kernel keeps the rows where its lower fixed cost wins and an x
+// that is not 16-byte aligned.
+// The tiles, cluster split and shared memory come from the host's plan
 // (kernels/nm_spmm.py::_k2_plan).  fp32, n:m other than 2:4 and rows that
 // are not 16-byte aligned (on no served path) keep nm_kernel:
 // one warp per output row, 16-byte value loads with the matching index
@@ -1571,6 +1579,24 @@ bool tmap_bf16(CUtensorMap* map, const void* base, int rows, int cols,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A byte matrix (rows × cols, row-major, cols % 16 == 0) as boxes of
+// box_rows × box_cols bytes, unswizzled, zero past its edges.
+bool tmap_u8(CUtensorMap* map, const void* base, int rows, int cols,
+             int box_rows, int box_cols) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int IDX_BITS, int MW, int BN>
 int launch_k2_sp(const void* x, const void* vals, const void* idx, void* y,
                  int B, int c, int b, int L, int idx_stride, int CS,
@@ -1638,10 +1664,481 @@ int launch_k2_sp_checked(const void* x, const void* vals, const void* idx,
 #undef SP_ARGS
 }
 
+
+// ---- K2 at decode batch: bf16 2:4 on the sparse tensor cores ----------------
+// mode 4, nm_sp_dec_kernel: B < _ROWS_MIN_B activation rows (decode's slots,
+// prefill's single rows), where the work is the weight bytes read once from
+// HBM and nothing else.  The product is mode 3's — yᵀ = W · xᵀ on
+// wgmma.mma_async.sp m64nNk32, W the sparse A operand in registers (ldmatrix
+// from the 128-byte-swizzled TMA tile of values, metadata built from the
+// stored positions, meta16), x (B, b) the K-major B operand read by the
+// tensor cores from shared memory — shaped for a handful of rows:
+//   * N = 8·⌈B/8⌉ (8 at B ≤ 8).  x is never staged whole: each ring stage
+//     holds the stage's K slice of the N x rows (TMA zero-fills rows past B),
+//     so a block reads B·2 bytes of x from L2 for every 1.25·BM bytes of
+//     weights it streams, and B = 4 moves what B = 1 does.  (The 8-row
+//     kernel, mode 2, copied its x rows whole into every 8-row block.)
+//   * One producer lane keeps a ring of nst stages full (BM rows × 128
+//     columns of values, their index bytes and the x slice, each by a TMA
+//     tensor map: one arrival a stage), refilling a slot as soon as the
+//     consumer warps free it (full and empty mbarriers), so the loads of
+//     one stage overlap the products of the others.  At N = 8 a stage is
+//     12–24 KB; the ring's depth is the plan's (dynamic shared memory = nst
+//     stages + 1 024 bytes of alignment + a split's receive buffer): 4
+//     stages, since several CTAs an SM with shallow rings measured faster
+//     than one CTA with a deep one (tools/k2_plan_sweep.py --part decode).
+//   * One consumer warpgroup of BM = 64 output rows.  It issues a stage's
+//     four wgmmas, then waits for the previous stage's (two register sets,
+//     as mode 3) and frees that stage's slot.  (A second warpgroup, BM =
+//     128, was at most 7 % faster below B = 32 in the sweep, and up to 18 %
+//     from B = 32 on, where its wide rows share each x slice between twice
+//     the weight rows; it was dropped with its 16 instantiations, which
+//     doubled this file's build.)
+//   * K split over a cluster of CS CTAs on stage boundaries, so that the
+//     grid's CTAs cover the SMs (c/BM blocks alone leave most of the 132 SMs
+//     idle at c ≤ 2 048, or a short second wave).  CTA q owns rows
+//     [q·BM/CS, (q+1)·BM/CS) of the block: every CTA stores its fp32 partial
+//     sums of those rows straight into q's shared memory (st.async through
+//     distributed shared memory, completing on q's mbarrier), and q sums
+//     the CS slots in rank order — no atomics, the same y every run.  The
+//     one cluster barrier is split (arrived at the start, waited for before
+//     the stores), so no CTA waits for the cluster at its end: pulling the
+//     tiles between two cluster-wide barriers cost 1.4–1.7 µs a launch
+//     (tools/k2_dec_variants.py --part split measures the split's cost).
+// y (B, c) is written in bf16 from the fp32 sums, rows < B only.  Nothing is
+// skipped: a NaN kept weight gives NaN in its column.  Rows past c get
+// positions (0, 1) with zero values, as in mode 3.
+constexpr int DEC_MAXST = 32;  // ring stages at most (static mbarriers)
+constexpr int DEC_KS = 4;      // 32-column steps a stage (a multiple of 4)
+constexpr int DEC_BM = 64;     // output rows a block: one consumer warpgroup
+// x (KS/2 sub-tiles of N rows × 128 bytes), values (KS/4 boxes of BM rows
+// × 128 bytes), index bytes: one stage
+__host__ __device__ constexpr int dec_stage(int BM, int N, int idx_bits) {
+  return DEC_KS / 2 * N * 128 + BM * DEC_KS * 32 +
+         BM * DEC_KS * (idx_bits == 4 ? 8 : 16);
+}
+
+template <int SEL>
+__device__ __forceinline__ void wgmma_sp_dec(float (&d)[4], const uint32_t (&a)[4],
+                                             uint64_t desc_b, uint32_t meta) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %11, 0;\n"
+      "wgmma.mma_async.sp.sync.aligned.m64n8k32.f32.bf16.bf16 "
+      "{%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, %8, %9, %10, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(meta),
+        "n"(SEL), "r"(1));
+}
+template <int SEL>
+__device__ __forceinline__ void wgmma_sp_dec(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t desc_b, uint32_t meta) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %15, 0;\n"
+      "wgmma.mma_async.sp.sync.aligned.m64n16k32.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7}, "
+      "{%8,%9,%10,%11}, %12, %13, %14, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(meta),
+        "n"(SEL), "r"(1));
+}
+template <int SEL>
+__device__ __forceinline__ void wgmma_sp_dec(float (&d)[12], const uint32_t (&a)[4],
+                                             uint64_t desc_b, uint32_t meta) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %19, 0;\n"
+      "wgmma.mma_async.sp.sync.aligned.m64n24k32.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11}, "
+      "{%12,%13,%14,%15}, %16, %17, %18, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(meta),
+        "n"(SEL), "r"(1));
+}
+template <int SEL>
+__device__ __forceinline__ void wgmma_sp_dec(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc_b, uint32_t meta) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %23, 0;\n"
+      "wgmma.mma_async.sp.sync.aligned.m64n32k32.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+      "{%16,%17,%18,%19}, %20, %21, %22, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(meta),
+        "n"(SEL), "r"(1));
+}
+template <int SEL>
+__device__ __forceinline__ void wgmma_sp_dec(float (&d)[20], const uint32_t (&a)[4],
+                                             uint64_t desc_b, uint32_t meta) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %27, 0;\n"
+      "wgmma.mma_async.sp.sync.aligned.m64n40k32.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19}, "
+      "{%20,%21,%22,%23}, %24, %25, %26, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(meta),
+        "n"(SEL), "r"(1));
+}
+template <int SEL>
+__device__ __forceinline__ void wgmma_sp_dec(float (&d)[24], const uint32_t (&a)[4],
+                                             uint64_t desc_b, uint32_t meta) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %31, 0;\n"
+      "wgmma.mma_async.sp.sync.aligned.m64n48k32.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23}, "
+      "{%24,%25,%26,%27}, %28, %29, %30, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(meta),
+        "n"(SEL), "r"(1));
+}
+template <int SEL>
+__device__ __forceinline__ void wgmma_sp_dec(float (&d)[28], const uint32_t (&a)[4],
+                                             uint64_t desc_b, uint32_t meta) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %35, 0;\n"
+      "wgmma.mma_async.sp.sync.aligned.m64n56k32.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27}, "
+      "{%28,%29,%30,%31}, %32, %33, %34, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(meta),
+        "n"(SEL), "r"(1));
+}
+template <int SEL>
+__device__ __forceinline__ void wgmma_sp_dec(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc_b, uint32_t meta) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %39, 0;\n"
+      "wgmma.mma_async.sp.sync.aligned.m64n64k32.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "{%32,%33,%34,%35}, %36, %37, %38, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(meta),
+        "n"(SEL), "r"(1));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  uint64_t state;  // the arrival's phase token, not needed here
+  asm volatile("mbarrier.arrive.shared::cta.b64 %0, [%1];"
+               : "=l"(state)
+               : "r"(smem_u32(bar))
+               : "memory");
+}
+
+// One consumer warpgroup (BM = DEC_BM output rows) and one producer warp;
+// N activation rows (B ≤ N, a multiple of 8).
+template <int IDX_BITS, int N>
+__global__ void __launch_bounds__(160, 1)
+nm_sp_dec_kernel(const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_i,
+                 __nv_bfloat16* __restrict__ y, int B, int c, int b, int CS,
+                 int nst) {
+  constexpr int BM = DEC_BM;
+  constexpr int KS = DEC_KS;
+  constexpr int IK = IDX_BITS == 4 ? 8 : 16, IROW = KS * IK;
+  constexpr int XS = N * 128;   // bytes of an x sub-tile (KS/2 a stage)
+  constexpr int VB = BM * 128;  // bytes of a value box (KS/4 a stage)
+  constexpr int STAGE = dec_stage(BM, N, IDX_BITS);
+  static_assert(KS % 4 == 0, "a stage holds whole 128-byte value boxes");
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[DEC_MAXST], empty[DEC_MAXST], red;
+  // the ring on a 1 024-byte boundary, as the 128-byte swizzle needs
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = blockIdx.x % CS;  // == the CTA's rank in its cluster
+  const int o0 = blockIdx.x / CS * BM;
+  const int nk = b / 32;
+  // the CTA's stages of the K range: whole stages, the last CTA's last one
+  // cut at b (its value and x boxes past b come zero-filled from TMA)
+  const int nks = (nk + KS - 1) / KS;
+  const int st0 = rank * nks / CS, st1 = (rank + 1) * nks / CS;
+  const int ks0 = st0 * KS, ks1 = min(nk, st1 * KS);
+  const int ns = st1 - st0;
+
+  // full: the producer's TMA bytes; empty: every consumer warp, once the
+  // stage's wgmmas are done; red: a split's partial rows of this CTA's
+  // share, from every CTA of the cluster (BM · N fp32 in all)
+  if (tid == 0) {
+    for (int s = 0; s < nst; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init(&red, 1);
+    if (CS > 1) mbar_expect_tx(&red, static_cast<uint32_t>(BM * N * 4));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // a split's cluster barrier, in two halves: arrived once `red` is set up,
+  // waited for only before the partial rows are sent
+  if (CS > 1) asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = warp * 16;  // the consumer warp's 16 rows
+
+  if (warp == 4) {
+    // the producer: stage s into slot s % nst once the slot's last stage
+    // is consumed.  Stage layout: x sub-tiles [KS/2][N][128 B], value
+    // boxes [KS/4][BM][128 B] (both swizzled), index bytes [BM][IROW]
+    for (int s = 0; s < ns && lane == 0; ++s) {
+      if (s == 0) {
+        asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tm_v))
+                     : "memory");
+        asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tm_i))
+                     : "memory");
+        asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tm_x))
+                     : "memory");
+      }
+      const int slot = s % nst;
+      if (s >= nst) mbar_wait(&empty[slot], static_cast<uint32_t>((s / nst - 1) & 1));
+      unsigned char* st = smem + slot * STAGE;
+      const int kb = ks0 + s * KS;  // first 32-column step of the stage
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_expect_tx(&full[slot], KS / 2 * XS + KS / 4 * VB + BM * IROW);
+#pragma unroll
+      for (int h = 0; h < KS / 4; ++h)
+        tma_load_2d(st + KS / 2 * XS + h * VB, &tm_v, kb * 16 + 64 * h, o0,
+                    &full[slot]);
+      tma_load_2d(st + KS / 2 * XS + KS / 4 * VB, &tm_i, kb * IK, o0, &full[slot]);
+#pragma unroll
+      for (int h = 0; h < KS / 2; ++h)
+        tma_load_2d(st + h * XS, &tm_x, kb * 32 + 64 * h, 0, &full[slot]);
+    }
+  } else {
+    // this thread's metadata rows (g and g + 8 of the warp's 16) and
+    // whether they exist, its ldmatrix row
+    const int r = o0 + wrow + g;
+    const uint32_t mfix = (r < c ? 0u : 0x0000FFFFu) | (r + 8 < c ? 0u : 0xFFFF0000u);
+    const int arow = wrow + (lane & 15);
+
+    // One stage: its fragments into (a, meta), its wgmmas issued; then wait
+    // for the previous stage's, whose fragments (pa, pmeta) and slot are
+    // free after.
+    auto step = [&](int s, uint32_t (&a)[KS][4], uint32_t (&meta)[KS / 2],
+                    uint32_t (&pa)[KS][4], uint32_t (&pmeta)[KS / 2]) {
+      const int slot = s % nst;
+      mbar_wait(&full[slot], static_cast<uint32_t>((s / nst) & 1));
+      const unsigned char* xs = smem + slot * STAGE;
+      const unsigned char* vs = xs + KS / 2 * XS;
+      const unsigned char* si = vs + KS / 4 * VB;
+      const int nkk = min(KS, ks1 - ks0 - s * KS);
+      // step kk's values: box kk / 4, the swizzled 16-byte chunk of row
+      // arow (chunk XOR row & 7)
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(a[kk], vs + (kk >> 2) * VB + arow * 128 +
+                           ((((kk & 3) * 2 + (lane >> 4)) ^ (arow & 7)) << 4));
+#pragma unroll
+      for (int p = 0; p < KS / 2; ++p) {
+        const unsigned char* ip =
+            si + (wrow + g) * IROW + (2 * p + (t >> 1)) * IK + (t & 1) * (IK / 2);
+        const uint32_t w =
+            meta16<IDX_BITS>(ip) | (meta16<IDX_BITS>(ip + 8 * IROW) << 16);
+        meta[p] = (w & ~mfix) | (0x44444444u & mfix);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        if (kk < nkk) {
+          const uint64_t desc = gmma_desc_sw128(xs + (kk >> 1) * XS + (kk & 1) * 64);
+          if (kk & 1)
+            wgmma_sp_dec<1>(acc, a[kk], desc, meta[kk >> 1]);
+          else
+            wgmma_sp_dec<0>(acc, a[kk], desc, meta[kk >> 1]);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) keep(pa[kk][q]);
+#pragma unroll
+      for (int p = 0; p < KS / 2; ++p) keep(pmeta[p]);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) keep(acc[i]);
+      __syncwarp();
+      if (s > 0 && lane == 0) mbar_arrive(&empty[(s - 1) % nst]);
+    };
+
+    uint32_t a0[KS][4], a1[KS][4], m0[KS / 2], m1[KS / 2];
+    for (int s = 0; s < ns; s += 2) {
+      step(s, a0, m0, a1, m1);
+      if (s + 1 < ns) step(s + 1, a1, m1, a0, m0);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        keep(a0[kk][q]);
+        keep(a1[kk][q]);
+      }
+#pragma unroll
+    for (int p = 0; p < KS / 2; ++p) {
+      keep(m0[p]);
+      keep(m1[p]);
+    }
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) keep(acc[i]);
+  }
+
+  // d[4j + e]: output row wrow + g (+ 8 for e ≥ 2), activation row
+  // 8j + 2t (+ 1 for odd e)
+  const bool consumer = warp < 4;
+  if (CS == 1) {
+    if (!consumer) return;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int a = 8 * j + 2 * t + (e & 1), o = o0 + wrow + g + 8 * (e >> 1);
+        if (a < B && o < c) store(y + static_cast<int64_t>(a) * c + o, acc[4 * j + e]);
+      }
+    return;
+  }
+  // a K split: CTA q owns rows [q·R, (q+1)·R) of the block (R = BM / CS).
+  // Every CTA stores each partial sum straight into its owner's receive
+  // buffer (recv [CS][R][N] fp32 after the ring, slot = the sender's rank)
+  // by st.async, completing on the owner's `red`; the owner then sums the
+  // CS slots in rank order.  Nothing is read remotely, so no CTA waits for
+  // the cluster at its end.
+  __syncwarp();  // the producer warp's lanes meet again for .aligned
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  const int R = BM / CS;
+  float* recv = reinterpret_cast<float*>(smem + nst * STAGE);
+  if (consumer) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = wrow + g + 8 * h, q = o / R;
+        uint32_t dst, bar;
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                     : "=r"(dst)
+                     : "r"(smem_u32(recv + (rank * R + o - q * R) * N + 8 * j + 2 * t)),
+                       "r"(q));
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                     : "=r"(bar)
+                     : "r"(smem_u32(&red)), "r"(q));
+        asm volatile(
+            "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 "
+            "[%0], {%1, %2}, [%3];" ::"r"(dst),
+            "f"(acc[4 * j + 2 * h]), "f"(acc[4 * j + 2 * h + 1]), "r"(bar)
+            : "memory");
+      }
+  }
+  mbar_wait(&red, 0u);
+  for (int l = tid; l < B * R; l += 160) {
+    const int a = l / R, ol = l - a * R;
+    float v = 0.0f;
+    for (int q = 0; q < CS; ++q) v += recv[(q * R + ol) * N + a];
+    if (o0 + rank * R + ol < c)
+      store(y + static_cast<int64_t>(a) * c + o0 + rank * R + ol, v);
+  }
+}
+
+// Dynamic shared memory of the decode path with an nst-stage ring: the
+// ring, 1 024 bytes to align it and, for a split (CS > 1), the receive
+// buffer of the partial rows (BM · N fp32); as _k2_dec_smem.
+size_t dec_red(int BM, int N, int CS) {
+  return CS > 1 ? static_cast<size_t>(BM) * N * 4 : 0;
+}
+size_t dec_smem(int BM, int N, int idx_bits, int nst, int CS) {
+  return static_cast<size_t>(nst) * dec_stage(BM, N, idx_bits) + 1024 +
+         dec_red(BM, N, CS);
+}
+
+template <int IDX_BITS, int N>
+int launch_k2_dec(const void* x, const void* vals, const void* idx, void* y,
+                  int B, int c, int b, int L, int idx_stride, int CS, int nst,
+                  size_t smem, cudaStream_t s) {
+  constexpr int BM = DEC_BM;
+  auto kern = nm_sp_dec_kernel<IDX_BITS, N>;
+  static size_t smem_set = 48 * 1024;  // the variant's limit so far
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = smem;
+  }
+  CUtensorMap tm_v, tm_x, tm_i;
+  if (!tmap_bf16(&tm_v, vals, c, L, BM) || !tmap_bf16(&tm_x, x, B, b, N) ||
+      !tmap_u8(&tm_i, idx, c, idx_stride, BM, DEC_KS * (IDX_BITS == 4 ? 8 : 16)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((c + BM - 1) / BM * CS));
+  cfg.blockDim = dim3(160);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = static_cast<unsigned>(CS);
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = CS > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, kern, tm_v, tm_x, tm_i, static_cast<__nv_bfloat16*>(y), B, c, b,
+      CS, nst));
+}
+
+template <int IDX_BITS>
+int launch_k2_dec_n(const void* x, const void* vals, const void* idx, void* y,
+                    int B, int c, int b, int L, int idx_stride, int CS,
+                    int nst, size_t smem, int N, cudaStream_t s) {
+#define DEC_N(n)                                                           \
+  case n:                                                                  \
+    return launch_k2_dec<IDX_BITS, n>(x, vals, idx, y, B, c, b, L,        \
+                                      idx_stride, CS, nst, smem, s);
+  switch (N) {
+    DEC_N(8) DEC_N(16) DEC_N(24) DEC_N(32) DEC_N(40) DEC_N(48) DEC_N(56)
+    DEC_N(64)
+  }
+#undef DEC_N
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The checks of _k2_plan's decode path: bf16 2:4, b % 32 == 0, index rows
+// of exactly L·idx_bits/8 bytes, a multiple of 16 (a TMA tensor map's row
+// stride), 16-byte aligned x, values and indices,
+// BM = DEC_BM output rows a block and N = 8·⌈B/8⌉ activation rows (BN),
+// CS ∈ {1, 2, 4, 8} with ≥ one stage a CTA and BM % CS == 0, and smem
+// bytes holding a ring of 2 … DEC_MAXST whole stages (their count is the
+// ring's depth) within 227 KB beside the mbarriers.
+int launch_k2_dec_checked(const void* x, const void* vals, const void* idx,
+                          void* y, int idx_bits, int B, int c, int b, int m,
+                          int keep, int L, int idx_stride, int CS, int smem,
+                          int BM, int BN, cudaStream_t s) {
+  const bool cs_ok = CS == 1 || CS == 2 || CS == 4 || CS == 8;
+  const bool al = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(vals) |
+                   reinterpret_cast<uintptr_t>(idx)) % 16 == 0;
+  if (m != 4 || keep != 2 || L * 2 != b || b % 32 != 0 || !cs_ok ||
+      (b / 32 + DEC_KS - 1) / DEC_KS < CS || idx_stride != L * idx_bits / 8 ||
+      idx_stride % 16 != 0 ||
+      !al || BM != DEC_BM || BM % CS != 0 ||
+      BN != 8 * ((B + 7) / 8) || BN > 64 || smem <= 1024 ||
+      smem + (2 * DEC_MAXST + 1) * sizeof(uint64_t) > SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int stage = dec_stage(BM, BN, idx_bits);
+  const int nst = (smem - 1024 - static_cast<int>(dec_red(BM, BN, CS))) / stage;
+  if (nst < 2 || nst > DEC_MAXST ||
+      static_cast<size_t>(smem) != dec_smem(BM, BN, idx_bits, nst, CS))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define DEC_ARGS x, vals, idx, y, B, c, b, L, idx_stride, CS, nst, smem, BN, s
+  return idx_bits == 4 ? launch_k2_dec_n<4>(DEC_ARGS) : launch_k2_dec_n<8>(DEC_ARGS);
+#undef DEC_ARGS
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, values and y share it).  mode (the
-// caller's plan, kernels/nm_spmm.py::_k2_plan): 3 = the many-row path on
+// caller's plan, kernels/nm_spmm.py::_k2_plan): 4 = the decode path on the
+// sparse tensor cores (bf16 2:4: see launch_k2_dec_checked) with BM output
+// rows a block, BN = 8·⌈B/8⌉, CS CTAs a cluster and smem bytes of dynamic
+// shared memory (its ring of smem / stage stages); 3 = the many-row path on
 // the sparse tensor cores (bf16 2:4: see launch_k2_sp_checked) with BM × BN
 // tiles, CS CTAs a cluster and smem bytes of dynamic shared memory; 2 = the
 // tensor-core path (bf16 2:4, 16-byte row slices: see launch_k2_tc_checked)
@@ -1655,15 +2152,17 @@ extern "C" int nm_matmul(const void* x, const void* vals, const void* idx,
                          int CS, int smem, int BM, int BN, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || c <= 0) return static_cast<int>(cudaGetLastError());
-  if (mode < 0 || mode > 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode < 0 || mode > 4) return static_cast<int>(cudaErrorInvalidValue);
   if (mode >= 2) {
     if (dtype != 1 || (idx_bits != 4 && idx_bits != 8))
       return static_cast<int>(cudaErrorInvalidValue);
     const int err =
-        mode == 3 ? launch_k2_sp_checked(x, vals, idx, y, idx_bits, B, c, b, m,
-                                         keep, L, idx_stride, CS, smem, BM, BN, s)
-                  : launch_k2_tc_checked(x, vals, idx, y, idx_bits, B, c, b, m,
-                                         keep, L, idx_stride, CS, smem, s);
+        mode == 4 ? launch_k2_dec_checked(x, vals, idx, y, idx_bits, B, c, b, m,
+                                          keep, L, idx_stride, CS, smem, BM, BN, s)
+        : mode == 3 ? launch_k2_sp_checked(x, vals, idx, y, idx_bits, B, c, b, m,
+                                           keep, L, idx_stride, CS, smem, BM, BN, s)
+                    : launch_k2_tc_checked(x, vals, idx, y, idx_bits, B, c, b, m,
+                                           keep, L, idx_stride, CS, smem, s);
     if (err != 0) return err;
     return static_cast<int>(cudaGetLastError());
   }

@@ -6,10 +6,14 @@ nm_matmul_stacked``), as one launch per leaf.
 ``nm_matmul_cuda`` launches the hand-written kernels in ``csrc/nm_spmm.cu``
 (see the notes there: what they replace, what bounds them on the H100 and
 what their design does about it), as ``_k2_plan`` chooses: bf16 2:4 at
-B ≥ ``_ROWS_MIN_B`` activation rows, and rows too wide for one 8-row block,
-on the many-row kernel (mode 3, ``nm_sp_rows_kernel``), the rest on the
-8-row tensor-core kernel (mode 2), other formats on the warp-per-row
-kernel (modes 0 and 1).  The many-row
+B ≥ ``_ROWS_MIN_B`` activation rows on the many-row kernel (mode 3,
+``nm_sp_rows_kernel``); below it on the decode kernel (mode 4,
+``nm_sp_dec_kernel``) where the plan measured it faster, else on the 8-row
+tensor-core kernel (mode 2); other formats on the warp-per-row kernel
+(modes 0 and 1).  The decode regime is bound by the weight bytes read once:
+mode 4 streams 64-row tiles through a TMA ring and splits K over a cluster
+so that the grid covers the card, with x's few rows a slice of each ring
+stage, where mode 2 copied them whole into every 8-row block.  The many-row
 regime is bound by the weight bytes at B = 128 (decode at production
 batch: the compressed weight read once is 0.625 of the dense bytes) and by
 the tensor-core rate by B = 6 000 (whisper's encoder); the 8-row kernel
@@ -40,6 +44,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -52,7 +57,8 @@ Tensor = torch.Tensor
 
 __all__ = ["KernelCount", "active_row_groups", "nm_matmul_cuda",
            "nm_matmul_plain", "nm_matmul_stacked_cuda",
-           "nm_matmul_stacked_plain", "nm_sp_rows", "stacked_stream_bytes"]
+           "nm_matmul_stacked_plain", "nm_sp_dec", "nm_sp_rows",
+           "stacked_stream_bytes"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024      # bytes of shared memory a block may use
@@ -78,6 +84,39 @@ _ROWS_MIN_B = 64
 _ROWS_MIN_C = 64
 _ROWS_MIN_CTAS, _ROWS_STREAM_CTAS, _ROWS_FULL_CTAS = 64, 96, 128
 _ROWS_L2_BYTES = 32 * 2**20
+# K2's decode ring (mode 4), as in the source: DEC_BM output rows a block,
+# stages of DEC_KS 32-column steps, 2 … DEC_MAXST of them (static
+# mbarriers: 2 · DEC_MAXST + 1 of 8 bytes).  Its plan: the least split
+# whose CTAs reach _DEC_CTAS (_DEC_CTAS_WIDE where B > 32: a stage then
+# carries 2–8× the x bytes), a ring of _DEC_NST stages — more CTAs an SM
+# with shallow rings beat one deep ring (tools/k2_plan_sweep.py --part
+# decode, PERF.md §6).
+_DEC_KS, _DEC_MAXST, _DEC_BM = 4, 32, 64
+_DEC_SPLITS = (1, 2, 4, 8)
+_DEC_NST, _DEC_CTAS, _DEC_CTAS_WIDE = 4, 132, 66
+# What the decode rule reads of the 8-row kernel's grid: an H100 SM's
+# shared memory (1 KB of it reserved a block) and the blocks an SM its
+# registers allow (256 threads of 40 registers: 6 in 64 K)
+_SMEM_SM, _SMEM_BLOCK_RESERVED, _TC_BLOCKS_SM = 228 * 1024, 1024, 6
+
+
+class _DecRule(NamedTuple):
+    """Where the decode kernel (mode 4) takes a row below _ROWS_MIN_B
+    activation rows (``_k2_dec_wins``), read off the 8-row kernel's grid
+    and the weight's bytes."""
+    one_per: int      # B = 1: the 8-row kernel's blocks an SM, at most
+    one_waves: int    # B = 1: its waves over the card's SMs, at least
+    few_waves: int    # 2 ≤ B ≤ 8: its waves, at least
+    few_b: int        # 2 ≤ B ≤ 8: columns b, at least
+    many_bytes: int   # 8 < B: B · the weight's bytes, at least
+    wide_max_b: int   # rows too wide for one 8-row block: up to this B
+
+
+# fitted by tools/k2_dec_rule.py to the sweep tools/k2_decode_sweep.json:
+# mode 4 only where it ran in ≤ 0.95 of the replaced mode's time there
+# (many_bytes: 62.5 MiB)
+_DEC_RULE = _DecRule(one_per=1, one_waves=2, few_waves=2, few_b=2560,
+                     many_bytes=65_536_000, wide_max_b=8)
 
 
 def _bind(lib: ctypes.CDLL, name: str):
@@ -139,12 +178,15 @@ def _k2_plan(c: int, b: int, L: int, idx_stride: int, B: int, esize: int,
     The tensor-core paths need bf16 2:4 with aligned bases of values and
     indices (``aligned``), b % 32 == 0 and index rows of exactly
     L·idx_bits/8 bytes.  mode 3, the many-row path: also a 16-byte aligned
-    x (``x_aligned``) and c ≥ ``_ROWS_MIN_C``, and B ≥ ``_ROWS_MIN_B`` — or
-    rows too wide for one 8-row block at any B (the 8-row plan would split
-    them over a cluster, or cannot hold them at all: deepseek-v3's,
-    zamba2's, mistral's and internvl's wide decode rows run 1.4–2.1×
-    faster on mode 3, PERF.md §6, PR 27); tiles and split from
-    ``_k2_rows_plan``.  mode 2, the 8-row path (BM = BN = 8): CS is the
+    x (``x_aligned``) and c ≥ ``_ROWS_MIN_C``, and B ≥ ``_ROWS_MIN_B``;
+    tiles and split from ``_k2_rows_plan``.  mode 4, the decode path, below
+    that, with index rows of whole 16-byte rows too (its tensor map):
+    where ``_k2_dec_wins`` takes it from the 8-row path, and on rows too
+    wide for one 8-row block (the 8-row plan would split them over a
+    cluster, or cannot hold them at all) up to ``_DEC_RULE.wide_max_b``
+    rows — past that, and on other index rows, such rows take the
+    many-row path; tiles, split and ring from ``_k2_dec_plan``.  mode 2,
+    the 8-row path (BM = BN = 8): CS is the
     least of 1, 2, 4, 8 whose column slices keep 16-byte rows of values and
     indices and fit ``_k2_smem`` in 227 KB — 1 at every other serving
     shape: a split measured slower there (``tools/k2_plan_sweep.py``).
@@ -160,6 +202,7 @@ def _k2_plan(c: int, b: int, L: int, idx_stride: int, B: int, esize: int,
     rows = tc and x_aligned and c >= _ROWS_MIN_C
     if rows and B >= _ROWS_MIN_B:
         return _k2_rows_plan(c, b, B, bits)
+    dec = rows and idx_stride % 16 == 0
     if tc:
         for CS in (1, 2, 4, 8):
             if b % (32 * CS) or idx_stride % CS or (idx_stride // CS) % 16:
@@ -168,7 +211,11 @@ def _k2_plan(c: int, b: int, L: int, idx_stride: int, B: int, esize: int,
             if smem + 64 <= _SMEM_LIMIT:
                 if rows and CS > 1:
                     break
+                if dec and _k2_dec_wins(c, b, B, idx_stride, smem):
+                    return _k2_dec_plan(c, b, B, bits)
                 return 2, CS, smem, _MAXB, _MAXB
+        if dec and B <= _DEC_RULE.wide_max_b:
+            return _k2_dec_plan(c, b, B, bits)
         if rows:
             return _k2_rows_plan(c, b, B, bits)
     return int(aligned and L % 8 == 0), 1, 0, _MAXB, _MAXB
@@ -210,6 +257,47 @@ def _k2_rows_plan(c: int, b: int, B: int,
     return best[1]
 
 
+def _k2_dec_wins(c: int, b: int, B: int, idx_stride: int, smem: int,
+                 rule: "_DecRule | None" = None) -> bool:
+    """Whether the decode kernel (mode 4) takes a row (c, b) at B <
+    _ROWS_MIN_B rows from the 8-row kernel, whose unsplit plan needs
+    ``smem`` bytes a block, by ``rule`` (``_DEC_RULE``): read off that
+    plan's grid of c/8 blocks — the blocks an SM fits and the waves they
+    take over the card — at B ≤ 8, where the 8-row kernel streams the
+    weight once, and off the bytes past it, where it streams them once for
+    every 8 rows."""
+    rule = _DEC_RULE if rule is None else rule
+    per = min(_TC_BLOCKS_SM, _SMEM_SM // (smem + _SMEM_BLOCK_RESERVED))
+    waves = -(-(-(-c // _MAXB)) // (_SMS * per))
+    if B == 1:
+        return per <= rule.one_per and waves >= rule.one_waves
+    if B <= _MAXB:
+        return waves >= rule.few_waves and b >= rule.few_b
+    return B * c * (b + idx_stride) >= rule.many_bytes
+
+
+def _k2_dec_plan(c: int, b: int, B: int,
+                 bits: int) -> "tuple[int, int, int, int, int]":
+    """The decode plan (mode 4): N = 8·⌈B/8⌉ activation rows, blocks of
+    _DEC_BM output rows, the least split CS ∈ {1, 2, 4, 8} (each CTA
+    keeping ≥ one stage) whose CTAs reach _DEC_CTAS (_DEC_CTAS_WIDE where
+    B > 32), else the most, and a ring of _DEC_NST stages, cut to the
+    CTA's own stages (at least 2)."""
+    N = 8 * -(-B // 8)
+    BM = _DEC_BM
+    nks = -(-b // (32 * _DEC_KS))
+    target = _DEC_CTAS if B <= 32 else _DEC_CTAS_WIDE
+    CS = 1
+    for cs in _DEC_SPLITS:
+        if nks < cs:
+            break
+        CS = cs
+        if -(-c // BM) * cs >= target:
+            break
+    nst = max(2, min(_DEC_NST, -(-nks // CS)))
+    return 4, CS, _k2_dec_smem(BM, N, bits, nst, CS), BM, N
+
+
 def _k2_rows_stage(BM: int, BN: int, bits: int) -> int:
     """Bytes of a stage of K2's many-row ring (sp_stage in the source): x
     (BN rows of 2 × 128 bytes), values (BM rows of 128 bytes) and index
@@ -232,6 +320,40 @@ def _k2_rows_smem(BM: int, BN: int, bits: int) -> int:
     epilogue reuses it."""
     return (_k2_rows_nst(BM, BN, bits) * _k2_rows_stage(BM, BN, bits)
             + 1024)
+
+
+def _k2_dec_stage(BM: int, N: int, bits: int) -> int:
+    """Bytes of a stage of K2's decode ring (dec_stage in the source): x
+    (N rows of DEC_KS · 64 bytes), values (BM rows of DEC_KS · 32 bytes)
+    and index bytes."""
+    return _DEC_KS // 2 * N * 128 + BM * _DEC_KS * 32 + BM * _DEC_KS * (
+        8 if bits == 4 else 16)
+
+
+def _k2_dec_red(BM: int, N: int, CS: int) -> int:
+    """Bytes of the decode path's receive buffer (dec_red in the source):
+    a split's partial rows, BM · N fp32; none unsplit."""
+    return BM * N * 4 if CS > 1 else 0
+
+
+def _k2_dec_smem(BM: int, N: int, bits: int, nst: int, CS: int) -> int:
+    """Dynamic shared memory of K2's decode path with an ``nst``-stage ring
+    (dec_smem in the source): the ring, 1 024 bytes of alignment and a
+    split's receive buffer."""
+    return nst * _k2_dec_stage(BM, N, bits) + 1024 + _k2_dec_red(BM, N, CS)
+
+
+def _k2_dec_nst_max(BM: int, N: int, bits: int, CS: int) -> int:
+    """The deepest decode ring that fits in 227 KB beside its mbarriers."""
+    return min(_DEC_MAXST, (_SMEM_LIMIT - 1024 - 8 * (2 * _DEC_MAXST + 1)
+                            - _k2_dec_red(BM, N, CS))
+               // _k2_dec_stage(BM, N, bits))
+
+
+def _k2_dec_nst(smem: int, BM: int, N: int, bits: int, CS: int) -> int:
+    """The ring depth a decode plan's shared memory holds."""
+    return (smem - 1024 - _k2_dec_red(BM, N, CS)) // _k2_dec_stage(BM, N,
+                                                                    bits)
 
 
 def _k2_smem(b: int, L: int, idx_stride: int, B: int, CS: int) -> int:
@@ -295,9 +417,10 @@ def nm_matmul_cuda(x: Tensor, values: Tensor, indices: Tensor, *, n: int,
     key = (x.shape[0], values.shape[0], b, str(x.dtype), idx_bits)
     nm_matmul_cuda.launches += 1
     nm_matmul_cuda.by_shape[key] += 1
-    if plan[0] == 3:
-        nm_sp_rows.launches += 1
-        nm_sp_rows.by_shape[key] += 1
+    if plan[0] in (3, 4):
+        kern = nm_sp_rows if plan[0] == 3 else nm_sp_dec
+        kern.launches += 1
+        kern.by_shape[key] += 1
     return y
 
 
@@ -317,6 +440,8 @@ nm_matmul_cuda.by_shape = collections.Counter()
 # the K2 launches that ran the many-row kernel (plan mode 3), a subset of
 # nm_matmul_cuda's
 nm_sp_rows = KernelCount("nm_sp_rows_kernel")
+# the K2 launches that ran the decode kernel (plan mode 4)
+nm_sp_dec = KernelCount("nm_sp_dec_kernel")
 
 
 def _pad_to(nbytes: int, rem: int) -> int:

@@ -11,8 +11,8 @@ build or launch raises.
 ``ServeConfig`` through ``model_builder`` into ``layers.dense``.
 
 Each CUDA wrapper counts the launches it makes (``launches``, and
-``by_shape``); ``nm_spmm.nm_sp_rows`` counts those of K2's that ran its
-many-row kernel.  A CUDA graph replays kernels without running the wrappers,
+``by_shape``); ``nm_spmm.nm_sp_rows`` and ``nm_spmm.nm_sp_dec`` count
+those of K2's that ran its many-row and its decode kernel.  A CUDA graph replays kernels without running the wrappers,
 so the serving engine takes a graph's tally at capture
 (``launch_counts`` / ``take_launches``) and adds it on every replay
 (``add_launches``).
@@ -110,9 +110,11 @@ def hessian_xtx(x: Tensor) -> Tensor:
 
 def _counted() -> tuple:
     """The CUDA wrappers that count their launches (read at call time), and
-    K2's many-row kernel, whose launches ``nm_matmul_cuda`` also counts."""
+    K2's many-row and decode kernels, whose launches ``nm_matmul_cuda`` also
+    counts."""
     return (hessian_accum.hessian_update_cuda, nm_spmm.nm_matmul_cuda,
-            nm_spmm.nm_matmul_stacked_cuda, nm_spmm.nm_sp_rows)
+            nm_spmm.nm_matmul_stacked_cuda, nm_spmm.nm_sp_rows,
+            nm_spmm.nm_sp_dec)
 
 
 def launch_counts() -> list:

@@ -142,6 +142,12 @@ class Graph:
         gc.disable()
         before = kops.launch_counts()
         self.graph = torch.cuda.CUDAGraph()
+        # the generator a capture registers (the current device's default)
+        # leaves capture mode only in torch's epilogue of a capture that
+        # succeeds: after a failed one its next draw would raise, so it
+        # gets back a copy of its state from before the capture
+        gen = torch.cuda.default_generators[side.device.index]
+        saved = gen.clone_state()
         try:
             # capture_begin, not ``torch.cuda.graph``: that context
             # synchronizes the card and empties the allocator's cache at
@@ -151,8 +157,16 @@ class Graph:
                                          capture_error_mode="thread_local")
                 try:
                     self.out = fn()
-                finally:
-                    self.graph.capture_end()
+                except BaseException:
+                    # the capture is invalid: end it (its own error follows
+                    # from fn's) and raise fn's
+                    with contextlib.suppress(RuntimeError):
+                        self.graph.capture_end()
+                    raise
+                self.graph.capture_end()
+        except BaseException:
+            gen.graphsafe_set_state(saved)
+            raise
         finally:
             if collecting:
                 gc.enable()

@@ -277,11 +277,9 @@ def test_supervised_rollback_replays_the_restored_buffers(cuda):
     assert eng.graph_stats()["graphs"] == 2
 
 
-@pytest.mark.cuda
-def test_a_failing_capture_raises(cuda):
-    """A step that syncs the host passes its eager warm-up and fails its
-    capture: the engine raises, it does not fall back to eager."""
-    model, comp = _tree("tinyllama-1.1b", {}, cuda)
+def _failing_capture(model, comp) -> ServingEngine:
+    """Serve one request with a decode step that syncs the host: it passes
+    its eager warm-up and fails its capture, and the engine raises."""
     inner = model.decode_step
 
     def syncing(params, cache, tokens, pos):
@@ -298,4 +296,29 @@ def test_a_failing_capture_raises(cuda):
             eng.run()
     finally:
         del model.decode_step
+    return eng
+
+
+@pytest.mark.cuda
+def test_a_failing_capture_raises(cuda):
+    """A step that syncs the host passes its eager warm-up and fails its
+    capture: the engine raises, it does not fall back to eager."""
+    model, comp = _tree("tinyllama-1.1b", {}, cuda)
+    eng = _failing_capture(model, comp)
     assert all(s.graph is None for s in eng._steps.values())
+
+
+@pytest.mark.cuda
+def test_the_default_generator_draws_after_a_failing_capture(cuda):
+    """After the failing capture above, a draw from the default CUDA
+    generator succeeds and equals the draw that the generator's state from
+    before the serve gives (greedy serving draws nothing): the capture's
+    failure path hands the generator back its state, since PyTorch ends a
+    generator's capture mode only after a capture that succeeds."""
+    model, comp = _tree("tinyllama-1.1b", {}, cuda)
+    state = torch.cuda.get_rng_state()
+    _failing_capture(model, comp)
+    got = torch.randn((64,), device=cuda)
+    torch.cuda.set_rng_state(state)
+    want = torch.randn((64,), device=cuda)
+    assert torch.equal(got, want)

@@ -128,10 +128,16 @@ def test_rows_every_tile_and_split(cuda, BM, BN, CS, bits):
                                    (200, 14336, 4)])
 def test_rows_wide_rows_at_small_batch(cuda, c, b, B, bits):
     """Rows too wide for one 8-row block (its plan would split them over a
-    cluster) take the many-row path at decode and prefill batch too."""
+    cluster) leave the 8-row path at decode and prefill batch too: for the
+    decode path (mode 4) up to B = 8, measured faster there than the
+    many-row path, whose own plan still runs them where asked."""
     g, pk = _packed(cuda, c, b, bits, c + B + bits)
     x = _x(g, cuda, B, b)
-    y, _ = _launch(x, pk, b, bits)
+    y, _ = _launch(x, pk, b, bits, mode=4)
+    _check(y, x, pk, b, bits)
+    y = K2._launch_k2(x, pk.values, pk.indices, 2, 4, b, bits,
+                      K2._k2_rows_plan(c, b, B, bits))
+    torch.cuda.synchronize()
     _check(y, x, pk, b, bits)
 
 

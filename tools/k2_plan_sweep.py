@@ -24,6 +24,18 @@ every tile BM × BN ∈ {128, 256} × {64, 128} and split CS, and
 ``torch.matmul``.  Per shape the least B from which the many-row path's
 best plan stays faster than the 8-row path; the largest of these over the
 ladder and whisper shapes is the threshold.
+
+Part ``decode``: every (c, b) of PERF.md's K2 table at B ∈ {1, 4, 8, 16,
+32, 63}: the 8-row path (mode 2) under its plan, the decode path (mode 4)
+at every split CS ∈ {1, 2, 4, 8} and ring depth (2, 4, 8 stages and the
+deepest that fits, each cut to the CTA's own stages) of its 64-row tiles,
+``torch.matmul``, and the many-row path (mode 3) under its plan.  At
+B = 64 the decode path's best against mode 3's plan: the crossover that
+sets ``_ROWS_MIN_B``.  Every timing also goes to
+``chiprun_out/k2_decode_sweep.json``, from which ``tools/k2_dec_rule.py
+--from`` makes the digest that the plan's decode rule is fitted to.
+
+    python3 tools/k2_plan_sweep.py --part decode [--shapes c,b ...]
 """
 from __future__ import annotations
 
@@ -49,6 +61,17 @@ WIDE_SHAPES = [(7168, 16384), (7168, 18432), (12288, 28672), (8192, 28672),
                (3584, 14336)]
 ROW_BATCHES = (8, 16, 32, 64, 128)
 WHISPER_ROWS = 6000
+# PERF.md's K2 table: the path shapes above and every other served family's
+TABLE_SHAPES = PATH_SHAPES + [
+    (1536, 7168), (24576, 1536), (576, 7168), (7168, 16384), (18432, 7168),
+    (7168, 18432), (1024, 1152), (256, 1152), (6912, 1152), (1152, 1024),
+    (1152, 6912), (14704, 3584), (3584, 7168), (3584, 3584), (14336, 3584),
+    (3584, 14336), (8192, 2048), (4096, 4096), (4, 4096), (1024, 1024),
+    (4096, 1024), (1024, 4096), (2560, 2560), (640, 2560), (6912, 2560),
+    (2560, 6912), (12288, 12288), (1024, 12288), (28672, 12288),
+    (12288, 28672), (8192, 8192), (1024, 8192), (28672, 8192), (8192, 28672)]
+DEC_BATCHES = (1, 4, 8, 16, 32, 63)
+DEC_DEPTHS = (2, 4, 8)
 
 
 class Operands:
@@ -204,11 +227,92 @@ def rows_part(gen, dev) -> None:
           f"{K2._ROWS_MIN_B})")
 
 
+def dec_plans(c: int, b: int, B: int) -> list:
+    """Every decode plan: CS ∈ {1, 2, 4, 8} with ≥ one stage a CTA, ring
+    depths DEC_DEPTHS and the deepest that fits, each cut to the CTA's
+    stages (at least 2)."""
+    from repro_torch.kernels import nm_spmm as K2
+
+    N, BM = 8 * -(-B // 8), K2._DEC_BM
+    nks = -(-b // (32 * K2._DEC_KS))
+    plans = []
+    for CS in K2._DEC_SPLITS:
+        top = K2._k2_dec_nst_max(BM, N, 4, CS)
+        if nks < CS or top < 2:
+            break
+        own = -(-nks // CS)
+        depths = sorted({max(2, min(d, top, own))
+                         for d in (*DEC_DEPTHS, top)})
+        plans += [(4, CS, K2._k2_dec_smem(BM, N, 4, d, CS), BM, N)
+                  for d in depths]
+    return plans
+
+
+def dec_part(gen, dev, shapes) -> None:
+    """Mode 2 under its plan against every decode plan, by B; mode 3 where
+    it runs today and at B = 64 (the crossover)."""
+    import json
+
+    import torch
+
+    from repro_torch.kernels import nm_spmm as K2
+
+    records = []
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    for c, b in shapes:
+        ops = Operands(gen, dev, c, b)
+        for B in (*DEC_BATCHES, 64):
+            x = torch.randn((B, b), generator=gen, device=dev).to(
+                torch.bfloat16)
+            chosen = K2._k2_plan(c, b, ops.L, ops.stride, B, 2, True, 2, 4)
+            tc8 = K2._k2_plan(c, b, ops.L, ops.stride, B, 2, True, 2, 4,
+                              False)              # x unaligned: mode 2
+            rec = {"c": c, "b": b, "B": B, "chosen": list(chosen)}
+            if tc8[0] == 2:
+                rec["mode2"] = [list(tc8), ops.time_plan(x, tc8)]
+            if c >= K2._ROWS_MIN_C:
+                rp = K2._k2_rows_plan(c, b, B, 4)
+                rec["mode3"] = [list(rp), ops.time_plan(x, rp)]
+            if c >= K2._ROWS_MIN_C and B <= 64:
+                res = {p: ops.time_plan(x, p) for p in dec_plans(c, b, B)}
+                rec["mode4"] = [[list(p), t] for p, t in res.items()]
+                best = min(res, key=res.get)
+            rec["library"] = ops.time_library(x)
+            records.append(rec)
+            line = f"({c}, {b}) B={B}: library {rec['library']:.4f}"
+            if "mode2" in rec:
+                line += f"; mode 2 CS {tc8[1]} {rec['mode2'][1]:.4f}"
+            if "mode3" in rec:
+                rp = rec["mode3"][0]
+                line += (f"; mode 3 {rp[3]}×{rp[4]} CS {rp[1]} "
+                         f"{rec['mode3'][1]:.4f}")
+            if "mode4" in rec:
+                top = sorted(res, key=res.get)[:4]
+                line += "; mode 4 best " + ", ".join(
+                    f"{'*' if p == chosen else ''}BM {p[3]} CS {p[1]} "
+                    f"nst {K2._k2_dec_nst(p[2], p[3], p[4], 4, p[1])} "
+                    f"{res[p]:.4f}"
+                    for p in top)
+                if chosen in res:
+                    line += (f"; chosen {res[chosen]:.4f} "
+                             f"({res[chosen] / res[best]:.2f}× the best)")
+            print(line + f"; plan mode {chosen[0]}", flush=True)
+            (out / "k2_decode_sweep.json").write_text(json.dumps(
+                {"gpu": gpu_line(), "rows": records}))
+        del ops
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--part", choices=("all", "path", "rows"), default="all")
+    ap.add_argument("--part", choices=("all", "path", "rows", "decode"),
+                    default="all")
+    ap.add_argument("--shapes", nargs="*", default=None,
+                    help="decode part: c,b weight shapes, each swept at "
+                    "every B of DEC_BATCHES (default: TABLE_SHAPES)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is False")
@@ -220,6 +324,10 @@ def main() -> None:
         path_part(gen, dev)
     if args.part in ("all", "rows"):
         rows_part(gen, dev)
+    if args.part in ("all", "decode"):
+        shapes = TABLE_SHAPES if args.shapes is None else [
+            tuple(map(int, s.split(","))) for s in args.shapes]
+        dec_part(gen, dev, shapes)
 
 
 if __name__ == "__main__":
