@@ -259,13 +259,23 @@ dist. dist — right after robust, on phase 3's tree, over two spawned
              split, every 2:4 position pair in every metadata slot, a NaN
              weight, strided x, and an x off alignment on the 8-row plan,
              each also against the fp32 product (the dense bf16 product's
-             error + 2⁻⁸).
+             error + 2⁻⁸); K3's decode-occupancy kernel (plan mode 4) on
+             both full-width qwen3-moe leaves with x from moe_ffn's
+             dispatch of 1–115 tokens, 4- and 8-bit indices, C = 48,
+             ZERO_K3's ragged shapes under every split and depth, idle
+             groups bitwise +0 (all-zero and −0 x, a NaN weight in a
+             skipped expert), a NaN weight's column, and a CUDA graph
+             replayed on a second routing bitwise its direct call; the
+             mode-2 tensor-core kernel on the same leaves and shapes and
+             through the wrapper on an x off alignment.
 5. times   — each kernel at each main-path shape: kernel, plain version and
              one library call (K1 also the bf16 tensor-core addmm), beside
              the bound the card's peaks give; K3 also at the serving path's
              decode occupancy (x from moe_ffn's own dispatch of 1 and 4
              tokens), its bound counting only the weights of active row
-             groups.  K2's rows also print the plan and its kernel, the
+             groups, beside the mode-2 kernel timed in the same run and
+             torch.bmm over the whole stack and over the active experts.
+             K2's rows also print the plan and its kernel, the
              warp-per-row kernel (K2's design before the tensor-core path)
              timed in this run beside its time recorded in PERF.md and, on
              many-row rows, the 8-row kernel likewise; then K2's device
@@ -437,6 +447,13 @@ DIST_PG_TIMEOUT, DIST_JOIN_TIMEOUT = 180, 360
 K3_REPLACES = ("src/repro/kernels/ops.py:151-161 (loops the pallas_call of "
                "src/repro/kernels/nm_spmm.py:135)")
 MAXB_ROWS = 8                 # capacity rows K3 computes per row group
+# K3's __global__ by plan mode, as the kernels line names it
+K3_KERNELS = {0: "nm_stacked_kernel", 1: "nm_stacked_kernel",
+              2: "nm_stacked_tc_kernel", 4: "nm_stacked_sp_dec_kernel"}
+# K3's launch-weighted ms over qwen3-moe's path and its bound before the
+# decode-occupancy kernel (PERF.md §6's earlier K3 rows; NVIDIA H100 80GB
+# HBM3, 700 W), printed beside this run's
+K3_BEFORE_MS, K3_BEFORE_BOUND_MS = 13.66, 3.73
 # K2's time per launch with the warp-per-row kernel, as PERF.md records it
 # (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
 WARP_ROW_K2_MS = {"B=1 W (2048, 2048)": 0.0065, "B=4 W (2048, 2048)": 0.0126,
@@ -577,6 +594,9 @@ PREFILL_SEQ, PREFILL_RUNS = 8192, 3
 DRAWS = {"gemma3-1b held-out": ("gemma3-1b", 9999, 4, 8, 256),
          "tinyllama-1.1b calibration": ("tinyllama-1.1b", 1234, 2, 8, 128)}
 DRAWS_TIMEOUT = 300          # s: the host draws, from their start
+# K3's decode-occupancy checks: the dispatch's token counts (C = 8 up to
+# 115 tokens, moe.capacity), as tools/k3_plan_sweep.py sweeps them
+K3_DEC_TOKENS = (1, 2, 4, 8, 16, 32, 64, 115)
 ZERO_K3 = [(128, 8, 768, 2048, 2, 4), (6, 3, 37, 128, 2, 4),
            (6, 17, 300, 128, 5, 8), (5, 17, 37, 96, 2, 4),
            (4, 3, 33, 104, 5, 8), (4, 17, 200, 512, 2, 4)]
@@ -652,6 +672,23 @@ def device_ms(fn, per_graph: int, replays: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (replays * per_graph)
+
+
+def bmm_active_ms(x, dense, act) -> float:
+    """Device time of ``torch.bmm`` over only the active experts of a K3
+    leaf: x (E, C, b) and dense (E, c, b) gathered at the experts with an
+    active row group (``act``, (E, G) bool) before the timing, the weights
+    rotated through copies until they pass 96 MiB, so that they stream
+    from HBM as the kernel's rotated weights do (the L2 holds 50 MB)."""
+    import torch
+
+    idx = act.any(dim=1).nonzero().flatten()
+    xa = x[idx].contiguous()
+    wa = dense[idx].transpose(-1, -2).contiguous()
+    n = min(8, math.ceil(96 * 2**20 / max(1, wa.numel() * 2)) + 1)
+    ws = [wa] + [wa.clone() for _ in range(n - 1)]
+    ring = itertools.cycle(ws)
+    return device_ms(lambda: torch.bmm(xa, next(ring)), 4 * n)
 
 
 def eager_runs(fn, iters: int, repeats: int) -> list:
@@ -1343,6 +1380,273 @@ def k2_dec_checks(gen, dev, pack, run) -> None:
           "graph replays bitwise the direct call")
 
 
+def k3_dec_checks(gen, dev) -> None:
+    """Phase 2 for K3's decode-occupancy path (plan mode 4,
+    nm_stacked_sp_dec_kernel) against its plain version at bf16 rtol 2e-2 /
+    atol 1e-2, and against the fp32 product (max rel err at most the dense
+    bf16 product's + 2⁻⁸): both full-width qwen3-moe leaves on x from
+    moe_ffn's own dispatch at K3_DEC_TOKENS (C = 8), 4- and 8-bit indices,
+    through the wrapper (its plan mode 4, counted), and at C = 48; ZERO_K3's
+    shapes that mode 4 takes (c % 128 ≠ 0, C ∈ {3, 17}) under every
+    cluster size and ring depth (2 and the deepest); an all-zero x (every
+    y bitwise +0); −0 rows idle; a NaN weight in a skipped expert (+0) and
+    in an active expert's kept weight (NaN in its column); every case two
+    launches bitwise equal; a CUDA graph captured on one routing and
+    replayed on another, bitwise the direct call on the second, where the
+    kernel splits K over its clusters and where it gives each CTA its own
+    items.  The mode-2 tensor-core kernel, which the wrapper still
+    plans for x off 16-byte alignment, is held to its plain version (idle
+    rows +0) at both leaves, at ZERO_K3's 2:4 shapes and through the
+    wrapper on such an x."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.sparsity import pack_nm_stacked, unpack_nm_stacked
+    from repro_torch.kernels import nm_spmm as K2
+
+    tol = {"rtol": 2e-2, "atol": 1e-2}
+    worst, n_ok, plans = (0.0, 0.0), 0, set()
+
+    def stack(E, c, b, bits, nan=None):
+        w = (torch.randn((E, c, b), generator=gen, device=dev)
+             / math.sqrt(b)).to(torch.bfloat16)
+        mask = nm_mask3(w, 2, 4)
+        if nan is not None:
+            e, r = nan
+            w[e, r, int((mask[e, r] < 0.5).nonzero()[0])] = torch.nan
+        return pack_nm_stacked(w, mask, 2, 4, idx_bits=bits)
+
+    def routed(E, C, b, active):
+        x = torch.zeros((E, C, b), device=dev, dtype=torch.bfloat16)
+        for e, grp in active:
+            r = slice(8 * grp, min(C, 8 * grp + 8))
+            x[e, r] = torch.randn(x[e, r].shape, generator=gen,
+                                  device=dev).to(torch.bfloat16)
+        return x
+
+    def hold(y, x, pk, bits, what, fp32=True):
+        nonlocal worst, n_ok
+        b = x.shape[-1]
+        idle = ~K2.active_row_groups(x)
+        rows = idle.repeat_interleave(MAXB_ROWS, 1)[:, :x.shape[1]]
+        y_p = K2.nm_matmul_stacked_plain(x, pk.values, pk.indices, 2, 4, b,
+                                         bits)
+        e = errs(y, y_p)
+        ok = (y.shape == y_p.shape and torch.allclose(
+            y.float(), y_p.float(), **tol)
+            and bool((y.view(torch.int16)[rows] == 0).all()))
+        rel = dense = 0.0
+        if fp32:
+            w = unpack_nm_stacked(pk)
+            y32 = torch.bmm(x.float(), w.float().transpose(1, 2))
+            dense = errs(torch.bmm(x, w.transpose(1, 2)), y32)[1]
+            rel = errs(y, y32)[1]
+        check(ok and rel <= dense + 2 ** -8,
+              f"K3 decode {what}: max abs err {e[0]:.3g}, rel err vs fp32 "
+              f"{rel:.3g} (dense bf16 {dense:.3g}), idle rows +0 "
+              f"{bool((y.view(torch.int16)[rows] == 0).all())}")
+        worst = max(worst, e)
+        n_ok += 1
+
+    def direct(x, pk, bits, plan, what, fp32=True):
+        b = x.shape[-1]
+        ys = [K2._launch_k3(x, pk.values, pk.indices, 2, 4, b, bits, plan)
+              for _ in range(2)]
+        torch.cuda.synchronize()
+        check(torch.equal(ys[0].view(torch.int16), ys[1].view(torch.int16)),
+              f"K3 decode {what}: two launches of {plan} differ")
+        hold(ys[0], x, pk, bits, what, fp32)
+        if plan[0] == 4:
+            plans.add(plan)
+        return ys[0]
+
+    n_mode2 = 0
+
+    def mode2(x, pk, bits, what):
+        """The mode-2 kernel on its own plan, where the layout gives it
+        one."""
+        nonlocal n_mode2
+        L, stride = pk.values.shape[-1], pk.indices.shape[-1]
+        plan = K2._k3_plan(L, stride, x.shape[-1], 2, True)
+        if plan[0] == 2:
+            direct(x, pk, bits, plan, f"the mode-2 kernel {what}", fp32=False)
+            n_mode2 += 1
+
+    # the two full-width leaves on the dispatch's x, through the wrapper
+    cfg = get_config(MOE_ARCH)
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    n_wrap = 0
+    for bits in (4, 8):
+        gu, dn = stack(E, f, d, bits), stack(E, d, f, bits)
+        xs = moe_dispatch_inputs(gen, dev, {(E, 8, f, d): gu,
+                                            (E, 8, d, f): dn}, K3_DEC_TOKENS)
+        for T in K3_DEC_TOKENS:
+            for pk, x in ((gu, xs[d][T]), (dn, xs[f][T])):
+                b = x.shape[-1]
+                plan = K2._k3_operands(x, pk.values, pk.indices, 2, 4, b,
+                                       bits)[3]
+                check(plan[0] == 4, f"K3 leaf b={b} T={T} idx{bits}: plan "
+                      f"{plan} is not the decode path (mode 4)")
+                n0 = K2.nm_stacked_sp_dec.launches
+                ys = [K2.nm_matmul_stacked_cuda(x, pk.values, pk.indices,
+                                                n=2, m=4, b=b, idx_bits=bits)
+                      for _ in range(2)]
+                torch.cuda.synchronize()
+                check(K2.nm_stacked_sp_dec.launches == n0 + 2 and torch.equal(
+                    ys[0].view(torch.int16), ys[1].view(torch.int16)),
+                    f"K3 leaf b={b} T={T} idx{bits}: counted "
+                    f"{K2.nm_stacked_sp_dec.launches - n0} of 2 launches, or "
+                    "two launches differ")
+                hold(ys[0], x, pk, bits, f"leaf b={b} T={T} idx{bits}")
+                plans.add(plan)
+                n_wrap += 1
+                mode2(x, pk, bits, f"leaf b={b} T={T} idx{bits}")
+        if bits == 4:
+            # through the wrapper: C = 48 (mode 4), and the T = 1 x off
+            # 16-byte alignment (the mode-2 kernel, not counted as mode 4)
+            x48 = routed(E, 48, d, [(e, e % 6) for e in range(0, E, 5)])
+            off = torch.zeros((xs[d][1].numel() + 1,), device=dev,
+                              dtype=torch.bfloat16)[1:].view(xs[d][1].shape)
+            off.copy_(xs[d][1])
+            for x, mode in ((x48, 4), (off, 2)):
+                plan = K2._k3_operands(x, gu.values, gu.indices, 2, 4, d,
+                                       4)[3]
+                n0 = (K2.nm_matmul_stacked_cuda.launches,
+                      K2.nm_stacked_sp_dec.launches)
+                y = K2.nm_matmul_stacked_cuda(x, gu.values, gu.indices, n=2,
+                                              m=4, b=d, idx_bits=4)
+                torch.cuda.synchronize()
+                check(plan[0] == mode and (
+                    K2.nm_matmul_stacked_cuda.launches,
+                    K2.nm_stacked_sp_dec.launches) == (
+                        n0[0] + 1, n0[1] + (mode == 4)),
+                      f"K3 wrapper at C={x.shape[1]}, x at "
+                      f"{x.data_ptr() % 16} mod 16: plan {plan}, not mode "
+                      f"{mode}, or miscounted")
+                hold(y, x, gu, 4, f"wrapper C={x.shape[1]} plan {plan}",
+                     fp32=mode == 4)
+                n_wrap += 1
+        del gu, dn, xs
+    # ZERO_K3's 2:4 shapes that mode 4 takes, every plan, idle groups
+    # mixed; the mode-2 kernel on the same inputs
+    n_plans = 0
+    for E, C, c, b, n, m in ZERO_K3:
+        if (n, m) != (2, 4):
+            continue
+        G, nks = -(-C // MAXB_ROWS), -(-b // (32 * K2._DEC_KS))
+        for bits in (4, 8):
+            if (b // 2 * bits // 8) % 16:
+                continue                        # index rows not whole 16 B
+            pk = stack(E, c, b, bits)
+            x = routed(E, C, b, [(e, grp) for e in range(E)
+                                 for grp in range(G)
+                                 if e % 2 and not (G > 2 and grp == 1)])
+            x[0, 0, 0] = -0.0
+            mode2(x, pk, bits, f"E={E} C={C} c={c} b={b} idx{bits}")
+            for CS in K2._K3D_SPLITS:
+                if nks < CS:
+                    continue
+                top = max(dd for dd in range(2, K2._K3D_MAXST + 1)
+                          if K2._k3_dec_fits(dd, CS, E * G, bits))
+                for nst in sorted({2, top}):
+                    direct(x, pk, bits, (4, CS, nst),
+                           f"E={E} C={C} c={c} b={b} idx{bits} CS {CS} nst "
+                           f"{nst}")
+                    n_plans += 1
+    # an all-zero x, −0 entries: every y bitwise +0, each cluster size
+    pk = stack(16, 300, 1088, 4)
+    x = torch.zeros((16, 8, 1088), device=dev, dtype=torch.bfloat16)
+    x[7] = -0.0
+    for CS in K2._K3D_SPLITS:
+        y = direct(x, pk, 4, (4, CS, 2), f"all-zero x CS {CS}")
+        check(bool((y.view(torch.int16) == 0).all()),
+              f"K3 decode all-zero x CS {CS}: a y entry is not +0")
+    # −0 rows idle beside active ones, against active_row_groups
+    pk = stack(8, 128, 256, 4)
+    x = routed(8, 17, 256, [(1, 0), (2, 2), (5, 1)])
+    x[0] = -0.0
+    x[3, 9, 7] = -0.0
+    check(K2.active_row_groups(x).nonzero().tolist()
+          == [[1, 0], [2, 2], [5, 1]], "K3 decode: −0 rows counted active")
+    for CS in (1, 2):                            # 2 stages: a split of 2
+        direct(x, pk, 4, (4, CS, 2), f"−0 rows CS {CS}")
+    # NaN kept weights: in idle expert 2 (+0), in active expert 3 (row 150)
+    n_nan = 0
+    for bits in (4, 8):
+        pk = stack(6, 200, 512, bits, nan=(2, 37))
+        pk3 = stack(6, 200, 512, bits, nan=(3, 150))
+        pk.values[3], pk.indices[3] = pk3.values[3], pk3.indices[3]
+        x = routed(6, 8, 512, [(0, 0), (3, 0), (5, 0)])
+        for plan in (K2._k3_operands(x, pk.values, pk.indices, 2, 4, 512,
+                                     bits)[3], (4, 4, 2), (4, 1, 3)):
+            y = K2._launch_k3(x, pk.values, pk.indices, 2, 4, 512, bits, plan)
+            y_p = K2.nm_matmul_stacked_plain(x, pk.values, pk.indices, 2, 4,
+                                             512, bits)
+            torch.cuda.synchronize()
+            keep = torch.tensor([0, 1, 3, 4, 5], device=dev)
+            rest = torch.cat([y[3, :, :150], y[3, :, 151:]], 1)
+            check(bool((y[2].view(torch.int16) == 0).all())
+                  and bool(torch.isnan(y[3, :, 150]).all())
+                  and bool(torch.isfinite(rest).all())
+                  and torch.allclose(y[keep].float(), y_p[keep].float(),
+                                     equal_nan=True, **tol),
+                  f"K3 decode NaN weights idx{bits} {plan}: skipped expert "
+                  f"+0 {bool((y[2].view(torch.int16) == 0).all())}, NaN "
+                  f"column {bool(torch.isnan(y[3, :, 150]).all())}")
+            n_nan += 1
+    # a graph captured on one routing, replayed on another: 8 and 9
+    # active groups of 6 tiles, split over clusters of CS ≤ 2 (their items
+    # × CS fit the grid of 132 CTAs, one an SM at 6 stages), one CTA an
+    # item at CS = 4
+    n_graph = 0
+    pk = stack(E, f, d, 4)
+    x1 = routed(E, 8, d, [(e, 0) for e in range(0, E, 16)])
+    x2 = routed(E, 8, d, [(e, 0) for e in range(3, E, 14)])
+    for CS in K2._K3D_SPLITS:
+        if -(-d // (32 * K2._DEC_KS)) < CS:
+            continue                             # no stage a CTA
+        plan = (4, CS, 6)
+        y2 = direct(x2, pk, 4, plan, f"graph's second routing {plan}",
+                    fp32=False)
+        static = x1.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            K2._launch_k3(static, pk.values, pk.indices, 2, 4, d, 4, plan)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            yg = K2._launch_k3(static, pk.values, pk.indices, 2, 4, d, 4,
+                               plan)
+        graph.replay()
+        torch.cuda.synchronize()
+        first = torch.equal(yg.view(torch.int16), K2._launch_k3(
+            x1, pk.values, pk.indices, 2, 4, d, 4, plan).view(torch.int16))
+        static.copy_(x2)
+        yg.fill_(1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        check(first and torch.equal(yg.view(torch.int16),
+                                    y2.view(torch.int16)),
+              f"K3 decode graph {plan}: the replay on the first routing "
+              f"equal {first}; on the second routing it differs from the "
+              "direct call")
+        del graph
+        n_graph += 1
+    print(f"kernels: nm_matmul_stacked decode path vs plain and fp32: {n_ok} "
+          f"checks ok ({n_wrap} through the wrapper's mode-4 plan at both "
+          f"leaves, T ∈ {K3_DEC_TOKENS}, idx 4/8, C = 48 and an x off "
+          f"16-byte alignment; {n_plans} splits × depths at ZERO_K3's 2:4 "
+          f"shapes; all-zero and −0 x; {n_mode2} of the mode-2 kernel on "
+          f"the same leaves and shapes), max abs/rel err "
+          f"{worst[0]:.3g}/{worst[1]:.3g}; {len(plans)} decode plans run, "
+          f"CS {sorted({p[1] for p in plans})}, nst "
+          f"{sorted({p[2] for p in plans})}; idle groups bitwise +0; NaN "
+          f"weights {n_nan} ok (skipped expert +0, active NaN column); "
+          f"{n_graph} graphs replayed on a second routing, bitwise its "
+          "direct call")
+
+
 def k2_rows_checks(gen, dev, pack, run) -> None:
     """Phase 2 for K2's many-row path (plan mode 3, nm_sp_rows_kernel):
     ragged (c, b) at B from the threshold to whisper's 6 000 rows, 4- and
@@ -1480,7 +1784,7 @@ def moe_phase(dev) -> dict:
           f"{cfg.vocab_size}, qk_norm {cfg.qk_norm}), {cfg.dtype}; depth cut "
           f"{full.num_layers} → {L} layers")
     kernels = (K1.hessian_update_cuda, K2.nm_matmul_cuda,
-               K2.nm_matmul_stacked_cuda)
+               K2.nm_matmul_stacked_cuda, K2.nm_stacked_sp_dec)
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1539,10 +1843,16 @@ def moe_phase(dev) -> dict:
     st = engine.stats
     steps = st["prefill_tokens"] + st["decode_steps"]
     ntok = sum(len(r.out) for r in done)
+    # every serve step's K3 launches are at C = 8 (T ≤ 4 tokens): the
+    # decode-occupancy kernel's wherever the plan takes both leaves there
+    dec = all(k3_plan_mode(E, 8, c, b) == 4 for E, _, c, b in MOE_LEAVES)
     expect = {"hessian_update_cuda": k1_expect,
               "nm_matmul_cuda": 4 * L * steps,
-              "nm_matmul_stacked_cuda": 3 * L * steps}
+              "nm_matmul_stacked_cuda": 3 * L * steps,
+              "nm_stacked_sp_dec_kernel": 3 * L * steps if dec else 0}
     check(launches == expect, f"MoE launches {launches}, expected {expect}")
+    check(launches["nm_stacked_sp_dec_kernel"] > 0,
+          "qwen3-moe's serve path launched no nm_stacked_sp_dec_kernel")
     print(f"phase moe serve: {len(stacks)} expert stacks as stacked leaves "
           f"of E = {cfg.num_experts}; compressed {cb / db:.4f} of dense bf16 "
           f"bytes ({cb / 2**20:.1f} MiB vs {db / 2**20:.1f} MiB); 4 "
@@ -1633,11 +1943,11 @@ def moe_phase(dev) -> dict:
             "per_kernel": compared}
 
 
-def moe_dispatch_inputs(gen, dev, packs3: dict) -> dict:
+def moe_dispatch_inputs(gen, dev, packs3: dict, tokens=(1, 4)) -> dict:
     """K3's inputs at the serving path's occupancy, made by the port's own
     ``moe_ffn`` at full width: a random router over the two phase-2 leaves
     (gate = up = the (128, 768, 2048) leaf, down = the (128, 2048, 768)
-    one) on T = 1 and T = 4 tokens → {b: {T: x (E, C, b)}}, the gate/up
+    one) on each count of ``tokens`` → {b: {T: x (E, C, b)}}, the gate/up
     input (the dispatch buffer) at b = 2048 and h, the down input, at 768."""
     import torch
 
@@ -1663,7 +1973,7 @@ def moe_dispatch_inputs(gen, dev, packs3: dict) -> dict:
     ops.nm_matmul_stacked = spy
     try:
         with torch.no_grad():
-            for T in (1, 4):
+            for T in tokens:
                 seen.clear()
                 x = torch.randn((T, 1, d), generator=gen,
                                 device=dev).to(torch.bfloat16)
@@ -1775,6 +2085,14 @@ def tc_mode(c: int, b: int, B: int, bits: int = 4) -> int:
     return K2._k2_plan(c, b, L, L * bits // 8, B, 2, True, 2, 4)[0]
 
 
+def k3_plan_mode(E: int, C: int, c: int, b: int, bits: int = 4) -> int:
+    """K3's plan mode for bf16 2:4 (E, C, c, b) with aligned operands."""
+    from repro_torch.kernels import nm_spmm as K2
+
+    L = b // 2
+    return K2._k3_plan(L, L * bits // 8, b, 2, True, 2, 4, E, C, c)[0]
+
+
 def k2_mode(row: dict) -> int:
     """The tensor-core plan mode a phase-5 K2 row calls for (tc_mode)."""
     B, c, b = map(int, re.findall(r"\d+", row["shape"])[:3])
@@ -1855,16 +2173,17 @@ def moe_times(gen, dev, chk: dict, moe: dict) -> list:
     # K3 at full occupancy (every capacity row filled: no main-path step
     # is like that, so no launches), then at the main path's decode
     # occupancy: x from moe_ffn's own dispatch of T = 1 (prefill) and T = 4
-    # (decode) tokens, launches split by the engine's step counts
+    # (decode) tokens, launches split by the engine's step counts.  Each on
+    # the wrapper's plan, with the mode-2 kernel on the same inputs
+    # as "earlier ms", torch.bmm over the whole dense stack as the library
+    # and, for information, over only the active experts' dense weights
+    # (gathered before the timing and rotated as the kernel's weights are)
     cfg_d = get_config(MOE_ARCH).d_model             # gate/up leaves' b
     st = moe["stats"]
     per_t = {1: st["prefill_tokens"] * moe["layers"],
              4: st["decode_steps"] * moe["layers"]}
     decode_x = moe_dispatch_inputs(gen, dev, chk["packs3"])
     for (E, C, c, b), pk in chk["packs3"].items():
-        # one leaf is ≥ 250 MB, far past the 50 MB L2: every launch streams
-        # it from HBM without rotating copies
-        x = torch.randn((E, C, b), generator=gen, device=dev).to(bf16)
         wd = unpack_nm_stacked(pk)                       # (E, c, b)
         leaf = 2 if b == cfg_d else 1                    # gate+up, or down
         key = (E, C, c, b, str(bf16), 4)
@@ -1872,61 +2191,76 @@ def moe_times(gen, dev, chk: dict, moe: dict) -> list:
               == leaf * (per_t[1] + per_t[4]),
               f"K3 launches at {key} do not split into T=1 / T=4 steps")
         per = pk.values.numel() * 2 + pk.indices.numel()
-        lib = device_ms(lambda: torch.bmm(x, wd.transpose(-1, -2)), 20)
-        plain = device_ms(lambda: K2.nm_matmul_stacked_plain(
-            x, pk.values, pk.indices, 2, 4, b, 4), 2)
-
-        def kern(xx=x):
-            K2.nm_matmul_stacked_cuda(xx, pk.values, pk.indices, n=2, m=4,
-                                      b=b, idx_bits=4)
-
-        row("nm_matmul_stacked", f"x ({E}, {C}, {b}) W ({E}, {c}, {b}) "
-            "2:4 bf16, every row filled",
-            "src/repro_torch/kernels/csrc/nm_spmm.cu", K3_REPLACES, 0,
-            chk["k3"][key][0], device_ms(kern, 20), eager_ms(kern, 50),
-            plain,
-            lib,
-            per + 2 * E * C * b + 2 * E * C * c,
-            2 * E * C * c * pk.values.shape[-1])
-        for T, xd in decode_x[b].items():
-            groups = int(K2.active_row_groups(xd).sum())
-            experts = int(K2.active_row_groups(xd).any(dim=1).sum())
+        L, stride = pk.values.shape[-1], pk.indices.shape[-1]
+        old = K2._k3_plan(L, stride, b, 2, True)         # the mode-2 kernel
+        filled = torch.randn((E, C, b), generator=gen, device=dev).to(bf16)
+        for T, x in [(0, filled), *decode_x[b].items()]:
+            act = K2.active_row_groups(x)
+            groups, experts = int(act.sum()), int(act.any(dim=1).sum())
+            plan = K2._k3_operands(x, pk.values, pk.indices, 2, 4, b, 4)[3]
             # rotate copies of the leaf so the active experts' weights
-            # (16–64 MB) stream from HBM, not from the 50 MB L2
-            copies = min(8, math.ceil(96 * 2**20 / max(1, groups * per // E))
-                         + 1)
-            vals = [pk.values] + [pk.values.clone() for _ in range(copies - 1)]
+            # (16–64 MB at decode) stream from HBM, not from the 50 MB L2;
+            # a filled leaf (≥ 250 MB) does without
+            copies = 1 if T == 0 else min(8, math.ceil(
+                96 * 2**20 / max(1, groups * per // E)) + 1)
+            vals = [pk.values] + [pk.values.clone()
+                                  for _ in range(copies - 1)]
             idxs = [pk.indices] + [pk.indices.clone()
                                    for _ in range(copies - 1)]
             nxt = itertools.cycle(range(copies))
 
-            def kern_d():
+            def kern(xx=x):
                 i = next(nxt)
-                K2.nm_matmul_stacked_cuda(xd, vals[i], idxs[i], n=2, m=4,
+                K2.nm_matmul_stacked_cuda(xx, vals[i], idxs[i], n=2, m=4,
                                           b=b, idx_bits=4)
 
-            y_k = K2.nm_matmul_stacked_cuda(xd, pk.values, pk.indices, n=2,
+            def kern_old(xx=x):
+                i = next(nxt)
+                K2._launch_k3(xx, vals[i], idxs[i], 2, 4, b, 4, old)
+
+            y_k = K2.nm_matmul_stacked_cuda(x, pk.values, pk.indices, n=2,
                                             m=4, b=b, idx_bits=4)
-            y_p = K2.nm_matmul_stacked_plain(xd, pk.values, pk.indices, 2,
+            y_p = K2.nm_matmul_stacked_plain(x, pk.values, pk.indices, 2,
                                              4, b, 4)
             torch.cuda.synchronize()
             e = errs(y_k, y_p)
             check(torch.allclose(y_k.float(), y_p.float(), rtol=2e-2,
                                  atol=1e-2),
-                  f"K3 at decode occupancy T={T} b={b}: err {e[0]:.3g}")
-            print(f"  K3 decode occupancy T={T} b={b}: {experts} active "
-                  f"experts of {E}, {groups} active row groups, "
-                  f"{K2.stacked_stream_bytes(xd, pk.values, pk.indices)} "
-                  f"bytes streamed")
-            row("nm_matmul_stacked", f"x ({E}, {C}, {b}) from moe_ffn T={T}"
-                f": {experts} active experts, W ({E}, {c}, {b}) 2:4 bf16",
+                  f"K3 at T={T} b={b}: err {e[0]:.3g}")
+            reps = 20 if T == 0 else copies * 4
+            t_old = device_ms(kern_old, reps)
+            t_new = device_ms(kern, reps)
+            nbytes = K2.stacked_stream_bytes(x, pk.values, pk.indices)
+            what = ("every row filled" if T == 0 else
+                    f"from moe_ffn T={T}: {experts} active experts")
+            print(f"  K3 {what} b={b}: {groups} active row groups, "
+                  f"{nbytes} bytes streamed; plan {plan}, the mode-2 kernel "
+                  f"{t_old:.4f} ms, this plan {t_new:.4f} ms")
+            row("nm_matmul_stacked", f"x ({E}, {C}, {b}) {what}, "
+                f"W ({E}, {c}, {b}) 2:4 bf16",
                 "src/repro_torch/kernels/csrc/nm_spmm.cu", K3_REPLACES,
-                leaf * per_t[T], e[0], device_ms(kern_d, copies * 4),
-                eager_ms(kern_d, 50), plain, lib,
-                K2.stacked_stream_bytes(xd, pk.values, pk.indices),
-                2 * MAXB_ROWS * c * pk.values.shape[-1] * groups)
+                0 if T == 0 else leaf * per_t[T], e[0], t_new,
+                eager_ms(kern, 50),
+                device_ms(lambda: K2.nm_matmul_stacked_plain(
+                    x, pk.values, pk.indices, 2, 4, b, 4), 2),
+                device_ms(lambda: torch.bmm(x, wd.transpose(-1, -2)), 20),
+                nbytes, 2 * MAXB_ROWS * c * L * groups,
+                extra={"kernel": K3_KERNELS[plan[0]], "plan": list(plan),
+                       "earlier_ms": t_old,
+                       "library_active_ms": bmm_active_ms(x, wd, act),
+                       "active_groups": groups, "active_experts": experts})
             del vals, idxs
-        del wd
+        del wd, filled
+    k3 = [r for r in rows if r["name"] == "nm_matmul_stacked"]
+    print(f"  K3 launch-weighted over qwen3-moe's path: "
+          f"{sum(r['launches'] * r['ms'] for r in k3):.2f} ms (before the "
+          f"decode kernel {K3_BEFORE_MS} ms; the mode-2 kernel in this run "
+          f"{sum(r['launches'] * r['earlier_ms'] for r in k3):.2f}), bound "
+          f"{sum(r['launches'] * r['bound_ms'] for r in k3):.2f} ms (before "
+          f"{K3_BEFORE_BOUND_MS}), torch.bmm "
+          f"{sum(r['launches'] * r['library_ms'] for r in k3):.2f} ms, over "
+          f"the active experts only "
+          f"{sum(r['launches'] * r['library_active_ms'] for r in k3):.2f} ms")
     return rows
 
 
@@ -3372,7 +3706,8 @@ def zero_counts() -> None:
     from repro_torch.kernels import hessian_accum as K1, nm_spmm as K2
 
     for fn in (K1.hessian_update_cuda, K2.nm_matmul_cuda,
-               K2.nm_matmul_stacked_cuda, K2.nm_sp_rows, K2.nm_sp_dec):
+               K2.nm_matmul_stacked_cuda, K2.nm_sp_rows, K2.nm_sp_dec,
+               K2.nm_stacked_sp_dec):
         fn.launches = 0
         fn.by_shape.clear()
 
@@ -3384,7 +3719,8 @@ def uncounted():
     from repro_torch.kernels import hessian_accum as K1, nm_spmm as K2
 
     fns = (K1.hessian_update_cuda, K2.nm_matmul_cuda,
-           K2.nm_matmul_stacked_cuda, K2.nm_sp_rows, K2.nm_sp_dec)
+           K2.nm_matmul_stacked_cuda, K2.nm_sp_rows, K2.nm_sp_dec,
+           K2.nm_stacked_sp_dec)
     saved = [(fn.launches, dict(fn.by_shape)) for fn in fns]
     try:
         yield
@@ -3402,7 +3738,7 @@ def path_counts() -> dict:
     return {fn.__name__: (fn.launches, dict(fn.by_shape))
             for fn in (K1.hessian_update_cuda, K2.nm_matmul_cuda,
                        K2.nm_matmul_stacked_cuda, K2.nm_sp_rows,
-                       K2.nm_sp_dec)}
+                       K2.nm_sp_dec, K2.nm_stacked_sp_dec)}
 
 
 def add_counts(total: dict, counts: dict) -> None:
@@ -5902,6 +6238,12 @@ def main() -> None:
             print(f"  ptxas K2 tensor-core {kern}: {info}")
         for kern, info in ptxas_entries(log, "nm_sp_rows_kernel"):
             print(f"  ptxas K2 many-row <idx_bits, BM, BN> {kern}: {info}")
+        for kern, info in ptxas_entries(log, "nm_stacked_sp_dec_kernel"):
+            name = f"nm_stacked_sp_dec_kernelILi{kern.strip('<>')}E"
+            serial = any("C7520" in ln and name in ln
+                         for ln in log.splitlines())
+            print(f"  ptxas K3 decode <idx_bits> {kern}: {info}; wgmma "
+                  f"serialized by ptxas (C7520): {serial}")
         dec = ptxas_entries(log, "nm_sp_dec_kernel")
         if dec:
             regs = [int(re.search(r"Used (\d+) registers", i)[1])
@@ -6044,6 +6386,7 @@ def main() -> None:
     moe_chk = moe_kernel_checks(gen, dev)
     redesign_checks(gen, dev)
     k2_tc_checks(gen, dev)
+    k3_dec_checks(gen, dev)
     mla_chk = path_kernel_checks(gen, dev, "MLA", MLA_K1, MLA_K2)
     gemma_chk = path_kernel_checks(gen, dev, "gemma3", GEMMA_K1, GEMMA_K2)
     fam_chk = {"zamba2-7b": path_kernel_checks(gen, dev, "zamba2", ZAMBA_K1,
@@ -6351,6 +6694,13 @@ def main() -> None:
                   f"over replay {1e3 * (e['eager_ms'] - e['ms']):+.1f} µs "
                   f"(median of five runs "
                   f"{1e3 * (e['eager_median_ms'] - e['ms']):+.1f} µs)")
+        if e["name"] == "nm_matmul_stacked":
+            print(f"      plan {tuple(e['plan'])} ({e['kernel']}); the "
+                  f"mode-2 kernel now {e['earlier_ms']:.4f} ms; torch.bmm over "
+                  f"the "
+                  f"{e['active_experts']} active experts only "
+                  f"{e['library_active_ms']:.4f} ms; "
+                  f"{e['bound_ms'] / e['ms']:.0%} of the bound")
         if e["name"] == "nm_matmul":
             p = e["plan"]
             shape = re.sub(r" 2:4 bf16$", "", e["shape"])

@@ -115,6 +115,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int WARPS = 8;  // output rows per block, one warp each
@@ -2132,6 +2134,534 @@ int launch_k2_dec_checked(const void* x, const void* vals, const void* idx,
 #undef DEC_ARGS
 }
 
+// ---- K3 at decode occupancy: bf16 2:4 on the sparse tensor cores ----------
+// mode 4 of nm_matmul_stacked: nm_stacked_vote_kernel, then
+// nm_stacked_sp_dec_kernel.  At decode a leaf's x (E, C, b) holds a token in
+// a handful of its E · ⌈C/8⌉ row groups (8 experts of 128 at T = 1, ~30 at
+// T = 4), so the work is the routed experts' weights read once from HBM, x
+// read once to find them and y written (zeros where nothing was routed).
+// The mode-2 grid of (128-row block, row group, expert) blocks is mostly blocks
+// that vote and exit, and its few working blocks each stream a 128-row slab
+// alone.  Here:
+//   * The vote.  A row group is active when any of its x entries is ≠ 0
+//     (−0 counts as zero, NaN as not; kernels/nm_spmm.py::active_row_groups),
+//     one block a group writing a byte of `flags`, on the device at every
+//     call (no host sync: a CUDA graph replayed on another routing computes
+//     that routing).  The product is its programmatic dependent
+//     (griddepcontrol): its CTAs are resident and set up when the vote ends.
+//     An idle group's weights are never read and its y rows are written +0
+//     by the product's CTAs while their first loads land — bitwise what the
+//     full product gives for finite weights (CAVEAT, as the mode-2 kernel: a
+//     non-finite weight in a skipped expert gives 0 where the plain version
+//     gives NaN; the prune guards keep served weights finite).  (A vote
+//     inside the product, its CTAs meeting at a grid-wide barrier, and a
+//     vote without the dependent launch measured slower: PERF.md §6.)
+//   * A persistent grid sized to the card (every CTA that is co-resident,
+//     in clusters of CS CTAs: one an SM at 6 stages, two at 4) walks the
+//     items (active group × 128-row tile of c).  Every CTA compacts the
+//     flags into the list of active groups in shared memory (in order:
+//     each thread counts a run of flags, one block-wide scan).
+//   * The K split is decided there, from the work the vote found: where the
+//     items × CS fit the grid at once (8 active groups of gate/up at T = 1:
+//     48 items), each cluster takes one item and its CTAs split the K range
+//     on stage boundaries — K2's decode split: every CTA stores its fp32
+//     partial rows into the owner's shared memory (st.async, completing on
+//     the owner's `red`), the owner sums the CS slots in rank order, no
+//     atomics, the same y every run; elsewhere every CTA walks items of its
+//     own (k = CTA, CTA + grid, …), each item's y stored from registers.
+//     (The host cannot see the occupancy, and a split taken at every one
+//     lost where the items alone fill the card: PERF.md §6.)
+//   * The product of an item is K2's decode product at N = 8 (the group's
+//     8 capacity rows), on two warpgroups of 64 rows that share each stage's
+//     x slice: yᵀ = W_e · x_eᵀ on wgmma.mma_async.sp m64n8k32, W_e
+//     the sparse A operand (ldmatrix from the 128-byte-swizzled value tile,
+//     metadata built from the stored positions, meta16), x the K-major B
+//     operand read from shared memory.  Three TMA tensor maps over the whole
+//     stack, the expert a coordinate: values (E, c, L), index bytes (E, c,
+//     idx_stride), x (E, C, b); TMA zero-fills rows past c and C and columns
+//     past b, so nothing is padded by the caller (a cut stage's steps past
+//     b multiply zeros, with valid metadata: no wgmma on a divergent path).
+//   * One producer lane keeps a ring of nst stages (128 columns of values,
+//     their index bytes and of the group's x rows) full across the CTA's
+//     items (full / empty mbarriers), so the next item's loads are in
+//     flight during an item's epilogue.  (64-row tiles, one warpgroup, read
+//     the x slice twice as often and took up to 2 % longer past ~30 active
+//     groups: PERF.md §6.)
+// y (E, C, c) is written in bf16 from the fp32 sums, rows < C and < c only.
+constexpr int K3D_VOTE_THREADS = 256;  // a vote block
+constexpr int K3D_MAXST = 16;          // ring stages at most (static mbarriers)
+constexpr int K3D_N = 8;               // capacity rows of a group: wgmma's N
+
+constexpr int K3D_BM = 128;            // output rows a tile: two warpgroups
+constexpr int K3D_THREADS = 2 * 128 + 32;  // and one producer warp
+// Dynamic shared memory of the decode path: 1 024 bytes to align the ring,
+// nst stages, a split's receive buffer (K3D_BM · 8 fp32) and the list of
+// active groups (2 bytes each, EG = E · ⌈C/8⌉), as _k3_dec_smem.
+size_t k3d_smem(int nst, int CS, int EG, int idx_bits) {
+  return 1024 + static_cast<size_t>(nst) * dec_stage(K3D_BM, K3D_N, idx_bits) +
+         (CS > 1 ? static_cast<size_t>(K3D_BM) * K3D_N * 4 : 0) +
+         (static_cast<size_t>(EG) * 2 + 15) / 16 * 16;
+}
+
+__device__ __forceinline__ uint32_t ld_cg_u8(const uint8_t* p) {
+  uint32_t v;
+  asm volatile("ld.global.cg.u8 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// p[0..n) = +0 (bf16), this thread's share: 16-byte stores between a
+// scalar head and tail.
+__device__ __forceinline__ void zero_bf16(__nv_bfloat16* p, int64_t n) {
+  uint16_t* h = reinterpret_cast<uint16_t*>(p);
+  const int64_t mis = static_cast<int64_t>((reinterpret_cast<uintptr_t>(p) & 15) >> 1);
+  int64_t head = (8 - mis) & 7;
+  if (head > n) head = n;
+  for (int64_t i = threadIdx.x; i < head; i += blockDim.x) h[i] = 0;
+  const int64_t nvec = (n - head) >> 3;
+  uint4* v = reinterpret_cast<uint4*>(h + head);
+  for (int64_t i = threadIdx.x; i < nvec; i += blockDim.x)
+    v[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int64_t i = head + nvec * 8 + threadIdx.x; i < n; i += blockDim.x) h[i] = 0;
+}
+
+// One block a row group: flags[group] = any of its x rows ≠ 0.
+__global__ void __launch_bounds__(K3D_VOTE_THREADS)
+nm_stacked_vote_kernel(const __nv_bfloat16* __restrict__ x, uint8_t* __restrict__ flags,
+                       int G, int C, int b) {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const int pair = blockIdx.x, e = pair / G, r0 = (pair - e * G) * K3D_N;
+  const int nr = min(K3D_N, C - r0);
+  const int nz = __syncthreads_or(
+      any_nonzero(x + (static_cast<int64_t>(e) * C + r0) * b, static_cast<int64_t>(nr) * b));
+  if (threadIdx.x == 0) flags[pair] = static_cast<uint8_t>(nz != 0);
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0,
+                                            int c1, int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+template <int IDX_BITS>
+__global__ void __launch_bounds__(K3D_THREADS, 2)
+nm_stacked_sp_dec_kernel(const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_x,
+                         const __grid_constant__ CUtensorMap tm_i,
+                         __nv_bfloat16* __restrict__ y, const uint8_t* __restrict__ flags,
+                         int E, int C, int c, int b, int CS, int nst) {
+  constexpr int BM = K3D_BM, N = K3D_N, KS = DEC_KS;
+  constexpr int IK = IDX_BITS == 4 ? 8 : 16, IROW = KS * IK;
+  constexpr int XS = N * 128;   // bytes of an x sub-tile (KS/2 a stage)
+  constexpr int VB = BM * 128;  // bytes of a value box (KS/4 a stage)
+  constexpr int STAGE = dec_stage(BM, N, IDX_BITS);
+  constexpr int THREADS = K3D_THREADS, WARPS = THREADS / 32;
+  static_assert(KS % 4 == 0, "a stage holds whole 128-byte value boxes");
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[K3D_MAXST], empty[K3D_MAXST], red;
+  __shared__ int warp_count[WARPS];
+  // the ring on a 1 024-byte boundary, as the 128-byte swizzle needs
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  float* recv = reinterpret_cast<float*>(smem + nst * STAGE);  // [CS][BM/CS][N]
+  uint16_t* list = reinterpret_cast<uint16_t*>(smem + nst * STAGE + (CS > 1 ? BM * N * 4 : 0));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = (C + N - 1) / N, EG = E * G;
+  const int ntiles = (c + BM - 1) / BM;
+  const int nk = b / 32, nks = (nk + KS - 1) / KS;
+
+  // full: the producer's TMA bytes; empty: every consumer warp, once the
+  // stage's wgmmas are done; red: a split's partial rows of this CTA's
+  // share, from every CTA of the cluster (BM · N fp32 in all)
+  if (tid == 0) {
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tm_v)) : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tm_i)) : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tm_x)) : "memory");
+    for (int s = 0; s < nst; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WARPS - 1);
+    }
+    mbar_init(&red, 1);
+    if (CS > 1) mbar_expect_tx(&red, static_cast<uint32_t>(BM * N * 4));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // the vote's flags (the launch is its programmatic dependent)
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  __syncthreads();
+
+  // 1. the active groups in order: thread t counts flags [t·per, (t+1)·per),
+  // one block-wide scan gives its place in the list
+  const int per = (EG + THREADS - 1) / THREADS;
+  const int f0 = min(EG, tid * per), f1 = min(EG, f0 + per);
+  int cnt = 0;
+  for (int f = f0; f < f1; ++f) cnt += ld_cg_u8(flags + f) != 0u;
+  int incl = cnt;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) warp_count[warp] = incl;
+  __syncthreads();
+  int before = 0, nact = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    before += w < warp ? warp_count[w] : 0;
+    nact += warp_count[w];
+  }
+  int pos = before + incl - cnt;
+  for (int f = f0; f < f1; ++f)
+    if (ld_cg_u8(flags + f)) list[pos++] = static_cast<uint16_t>(f);
+  __syncthreads();
+
+  // 2. the split and this CTA's items: the whole cluster on one item where
+  // every item's CS pieces fit the grid at once, else one CTA an item
+  const int nall = nact * ntiles;
+  const bool split = CS > 1 && nall * CS <= static_cast<int>(gridDim.x);
+  const int parts = split ? CS : 1, part = split ? blockIdx.x % CS : 0;  // cluster rank
+  const int unit = split ? blockIdx.x / CS : blockIdx.x;
+  const int nunits = split ? gridDim.x / CS : gridDim.x;
+  const int st0 = part * nks / parts, st1 = (part + 1) * nks / parts;
+  const int ns = st1 - st0, ks0 = st0 * KS, ks1 = min(nk, st1 * KS);
+  const int nitems = nall > unit ? (nall - unit + nunits - 1) / nunits : 0;  // ≤ 1 split
+  const int total = nitems * ns;  // the CTA's stages over all its items
+  // a split's cluster barrier, in two halves: arrived once `red` is set up,
+  // waited for only before the partial rows are sent
+  if (split) asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+
+  // item i → expert e, its group's first capacity row r0, the tile's o0
+  auto item = [&](int i, int& e, int& r0, int& o0) {
+    const int k = unit + i * nunits, q = k / ntiles;
+    const int pair = list[q];
+    e = pair / G;
+    r0 = (pair - e * G) * N;
+    o0 = (k - q * ntiles) * BM;
+  };
+  // global stage gs → item gs / ns, stage gs % ns of its K range.  Stage
+  // layout: x sub-tiles [KS/2][N][128 B], value boxes [KS/4][BM][128 B]
+  // (both swizzled), index bytes [BM][IROW]
+  auto issue = [&](int gs) {
+    const int i = gs / ns, s = gs - i * ns;
+    int e, r0, o0;
+    item(i, e, r0, o0);
+    const int slot = gs % nst;
+    unsigned char* st = smem + slot * STAGE;
+    const int kb = ks0 + s * KS;  // first 32-column step of the stage
+    mbar_expect_tx(&full[slot], KS / 2 * XS + KS / 4 * VB + BM * IROW);
+#pragma unroll
+    for (int h = 0; h < KS / 4; ++h)
+      tma_load_3d(st + KS / 2 * XS + h * VB, &tm_v, kb * 16 + 64 * h, o0, e, &full[slot]);
+    tma_load_3d(st + KS / 2 * XS + KS / 4 * VB, &tm_i, kb * IK, o0, e, &full[slot]);
+#pragma unroll
+    for (int h = 0; h < KS / 2; ++h)
+      tma_load_3d(st + h * XS, &tm_x, kb * 32 + 64 * h, r0, e, &full[slot]);
+  };
+
+  // 3. the producer lane starts the ring; then every thread writes +0 into
+  // its share of the idle groups' y rows (the CTAs with the fewest items
+  // first) while the first stages land
+  if (warp == WARPS - 1 && lane == 0)
+    for (int gs = 0; gs < min(nst, total); ++gs) issue(gs);
+  for (int pair = gridDim.x - 1 - blockIdx.x; pair < EG; pair += gridDim.x) {
+    if (ld_cg_u8(flags + pair)) continue;
+    const int e = pair / G, r0 = (pair - e * G) * N;
+    zero_bf16(y + (static_cast<int64_t>(e) * C + r0) * c,
+              static_cast<int64_t>(min(N, C - r0)) * c);
+  }
+  if (total == 0) return;  // the same for every CTA of a split's cluster
+
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = warp * 16;  // a consumer warp's 16 rows of the tile
+  float acc[N / 2];
+#pragma unroll
+  for (int q = 0; q < N / 2; ++q) acc[q] = 0.0f;
+
+  if (warp == WARPS - 1) {
+    // the producer: stage gs into slot gs % nst once the slot's last stage
+    // is consumed
+    for (int gs = nst; gs < total && lane == 0; ++gs) {
+      const int slot = gs % nst;
+      mbar_wait(&empty[slot], static_cast<uint32_t>((gs / nst - 1) & 1));
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      issue(gs);
+    }
+  } else {
+    const int arow = wrow + (lane & 15);
+    // a stage's slot is free once its wgmmas are: the previous stage's after
+    // this one's are issued, an item's last stage at once
+    auto free_slot = [&](int gs) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[gs % nst]);
+    };
+    // One stage: its fragments into (a, meta), its wgmmas issued; then wait
+    // for the previous stage's, whose fragments (pa, pmeta) and slot are
+    // free after; at an item's last stage its y (unsplit: stored here).
+    auto step = [&](int gs, uint32_t (&a)[KS][4], uint32_t (&meta)[KS / 2],
+                    uint32_t (&pa)[KS][4], uint32_t (&pmeta)[KS / 2]) {
+      const int i = gs / ns, s = gs - i * ns;
+      int e, r0, o0;
+      item(i, e, r0, o0);
+      // this thread's metadata rows (g and g + 8 of the warp's 16): rows
+      // past c get positions (0, 1) with zero values, as do a cut stage's
+      // steps past b
+      const int r = o0 + wrow + g;
+      const uint32_t mfix = (r < c ? 0u : 0x0000FFFFu) | (r + 8 < c ? 0u : 0xFFFF0000u);
+      const int nkk = min(KS, ks1 - ks0 - s * KS);
+      const int slot = gs % nst;
+      mbar_wait(&full[slot], static_cast<uint32_t>((gs / nst) & 1));
+      const unsigned char* xs = smem + slot * STAGE;
+      const unsigned char* vs = xs + KS / 2 * XS;
+      const unsigned char* si = vs + KS / 4 * VB;
+      // step kk's values: box kk / 4, the swizzled 16-byte chunk of row
+      // arow (chunk XOR row & 7)
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(a[kk], vs + (kk >> 2) * VB + arow * 128 +
+                           ((((kk & 3) * 2 + (lane >> 4)) ^ (arow & 7)) << 4));
+#pragma unroll
+      for (int p = 0; p < KS / 2; ++p) {
+        const unsigned char* ip =
+            si + (wrow + g) * IROW + (2 * p + (t >> 1)) * IK + (t & 1) * (IK / 2);
+        const uint32_t w = meta16<IDX_BITS>(ip) | (meta16<IDX_BITS>(ip + 8 * IROW) << 16);
+        meta[p] = 2 * p + (t >> 1) < nkk ? (w & ~mfix) | (0x44444444u & mfix) : 0x44444444u;
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint64_t desc = gmma_desc_sw128(xs + (kk >> 1) * XS + (kk & 1) * 64);
+        if (kk & 1)
+          wgmma_sp_dec<1>(acc, a[kk], desc, meta[kk >> 1]);
+        else
+          wgmma_sp_dec<0>(acc, a[kk], desc, meta[kk >> 1]);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) keep(pa[kk][q]);
+#pragma unroll
+      for (int p = 0; p < KS / 2; ++p) keep(pmeta[p]);
+#pragma unroll
+      for (int q = 0; q < N / 2; ++q) keep(acc[q]);
+      if (s > 0) free_slot(gs - 1);
+      if (s < ns - 1) return;
+      wgmma_wait<0>();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) keep(a[kk][q]);
+#pragma unroll
+      for (int p = 0; p < KS / 2; ++p) keep(meta[p]);
+#pragma unroll
+      for (int q = 0; q < N / 2; ++q) keep(acc[q]);
+      free_slot(gs);
+      if (split) return;  // the cluster sums it below
+      // d[q]: output row o0 + wrow + g (+ 8 for q ≥ 2), capacity row
+      // r0 + 2t (+ 1 for odd q)
+      const int nr = min(N, C - r0);
+      __nv_bfloat16* ye = y + (static_cast<int64_t>(e) * C + r0) * c;
+#pragma unroll
+      for (int q = 0; q < N / 2; ++q) {
+        const int a2 = 2 * t + (q & 1), o = o0 + wrow + g + 8 * (q >> 1);
+        if (a2 < nr && o < c) store(ye + static_cast<int64_t>(a2) * c + o, acc[q]);
+        acc[q] = 0.0f;
+        keep(acc[q]);
+      }
+    };
+
+    uint32_t a0[KS][4], a1[KS][4], m0[KS / 2], m1[KS / 2];
+    for (int gs = 0; gs < total; gs += 2) {
+      step(gs, a0, m0, a1, m1);
+      if (gs + 1 < total) step(gs + 1, a1, m1, a0, m0);
+    }
+  }
+  if (!split) return;
+
+  // a split's one item: CTA q owns rows [q·R, (q+1)·R) of the tile (R =
+  // BM / CS).  Every CTA stores each partial sum straight into its owner's
+  // receive buffer (recv [CS][R][N] fp32, slot = the sender's rank) by
+  // st.async, completing on the owner's `red`; the owner then sums the CS
+  // slots in rank order.
+  __syncwarp();  // the producer warp's lanes meet again for .aligned
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  const int R = BM / CS;
+  if (warp < WARPS - 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = wrow + g + 8 * h, q = o / R;
+      uint32_t dst, bar;
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                   : "=r"(dst)
+                   : "r"(smem_u32(recv + (part * R + o - q * R) * N + 2 * t)), "r"(q));
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                   : "=r"(bar)
+                   : "r"(smem_u32(&red)), "r"(q));
+      asm volatile(
+          "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 "
+          "[%0], {%1, %2}, [%3];" ::"r"(dst),
+          "f"(acc[2 * h]), "f"(acc[2 * h + 1]), "r"(bar)
+          : "memory");
+    }
+  }
+  int e, r0, o0;
+  item(0, e, r0, o0);
+  const int nr = min(N, C - r0);
+  __nv_bfloat16* ye = y + (static_cast<int64_t>(e) * C + r0) * c;
+  mbar_wait(&red, 0u);
+  for (int l = tid; l < nr * R; l += THREADS) {
+    const int a2 = l / R, ol = l - a2 * R;
+    float v = 0.0f;
+    for (int q = 0; q < CS; ++q) v += recv[(q * R + ol) * N + a2];
+    if (o0 + part * R + ol < c)
+      store(ye + static_cast<int64_t>(a2) * c + o0 + part * R + ol, v);
+  }
+}
+
+// A 3-D tensor map over a stack (E, rows, cols), row-major, of esize-byte
+// elements: boxes of box_rows × box_cols of one matrix, zero past its edges.
+bool tmap_3d(CUtensorMap* map, CUtensorMapDataType type, int esize, const void* base,
+             int E, int rows, int cols, int box_rows, int box_cols,
+             CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(E)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * esize,
+                                 static_cast<cuuint64_t>(cols) * esize * rows};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The CTAs of one launch: every CTA that is co-resident on the card, in
+// whole clusters (a CTA past that would wait for a slot).  The co-resident
+// CTAs of each (device, kernel, shared memory, cluster) are asked of the
+// runtime once (its occupancy queries cost more host time than the launch)
+// and kept.
+template <typename K>
+int k3d_grid(K kern, cudaLaunchConfig_t cfg, int CS) {
+  struct Fit {
+    int dev;
+    const void* kern;
+    size_t smem;
+    int CS, fit;
+  };
+  static std::mutex lock;
+  static Fit seen[64];
+  static int nseen = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  const void* key = reinterpret_cast<const void*>(kern);
+  int fit = 0;
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    for (int i = 0; i < nseen && fit == 0; ++i)
+      if (seen[i].dev == dev && seen[i].kern == key && seen[i].smem == cfg.dynamicSmemBytes &&
+          seen[i].CS == CS)
+        fit = seen[i].fit;
+  }
+  if (fit == 0) {
+    int sms = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    if (CS > 1) {
+      cfg.gridDim = dim3(static_cast<unsigned>(CS * sms));
+      if (cudaOccupancyMaxActiveClusters(&fit, kern, &cfg) != cudaSuccess) return 0;
+      fit *= CS;
+    } else {
+      if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kern, cfg.blockDim.x,
+                                                        cfg.dynamicSmemBytes) != cudaSuccess)
+        return 0;
+      fit *= sms;
+    }
+    std::lock_guard<std::mutex> hold(lock);
+    if (nseen < 64 && fit > 0) seen[nseen++] = {dev, key, cfg.dynamicSmemBytes, CS, fit};
+  }
+  return fit / CS * CS;
+}
+
+template <int IDX_BITS>
+int launch_k3_dec(const void* x, const void* vals, const void* idx, void* y, uint8_t* flags,
+                  int E, int C, int c, int b, int L, int idx_stride, int CS, int nst,
+                  cudaStream_t s) {
+  constexpr int BM = K3D_BM;
+  auto kern = nm_stacked_sp_dec_kernel<IDX_BITS>;
+  const int G = (C + K3D_N - 1) / K3D_N;
+  const size_t smem = k3d_smem(nst, CS, E * G, IDX_BITS);
+  static size_t smem_set = 48 * 1024;  // the variant's limit so far
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = smem;
+  }
+  constexpr int IROW = DEC_KS * (IDX_BITS == 4 ? 8 : 16);
+  CUtensorMap tm_v, tm_x, tm_i;
+  if (!tmap_3d(&tm_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, vals, E, c, L, BM, 64,
+               CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tmap_3d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, E, C, b, K3D_N, 64,
+               CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tmap_3d(&tm_i, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, idx, E, c, idx_stride, BM, IROW,
+               CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(K3D_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(CS);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CS > 1 ? 1 : 0;
+  const int grid = k3d_grid(kern, cfg, CS);
+  if (grid < CS) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cfg.gridDim = dim3(static_cast<unsigned>(grid));
+  nm_stacked_vote_kernel<<<E * G, K3D_VOTE_THREADS, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), flags, G, C, b);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attr[cfg.numAttrs].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[cfg.numAttrs].val.programmaticStreamSerializationAllowed = 1;
+  ++cfg.numAttrs;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kern, tm_v, tm_x, tm_i,
+                                             static_cast<__nv_bfloat16*>(y),
+                                             static_cast<const uint8_t*>(flags), E, C,
+                                             c, b, CS, nst));
+}
+
+// The checks of _k3_plan's decode path: bf16 2:4, b % 32 == 0, index rows
+// of exactly L·idx_bits/8 bytes, a multiple of 16 (a tensor map's row
+// stride), 16-byte aligned x, values and indices, CS ∈ {1, 2, 4} with ≥
+// one stage a CTA, a ring of 2 …
+// K3D_MAXST stages, E · ⌈C/8⌉ < 65 536 groups and the
+// shared memory within 227 KB.
+int launch_k3_dec_checked(const void* x, const void* vals, const void* idx, void* y,
+                          uint8_t* flags, int idx_bits, int E, int C, int c, int b, int m,
+                          int keep, int L, int idx_stride, int CS, int nst,
+                          cudaStream_t s) {
+  const bool al = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(vals) |
+                   reinterpret_cast<uintptr_t>(idx)) % 16 == 0;
+  const int64_t EG = static_cast<int64_t>(E) * ((C + K3D_N - 1) / K3D_N);
+  if (m != 4 || keep != 2 || L * 2 != b || b % 32 != 0 ||
+      (CS != 1 && CS != 2 && CS != 4) || (b / 32 + DEC_KS - 1) / DEC_KS < CS ||
+      idx_stride != L * idx_bits / 8 || idx_stride % 16 != 0 || !al || flags == nullptr ||
+      nst < 2 || nst > K3D_MAXST || EG >= 65536 ||
+      k3d_smem(nst, CS, static_cast<int>(EG), idx_bits) +
+              (2 * K3D_MAXST + 1) * sizeof(uint64_t) + 64 > SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define K3D_ARGS x, vals, idx, y, flags, E, C, c, b, L, idx_stride, CS, nst, s
+  return idx_bits == 4 ? launch_k3_dec<4>(K3D_ARGS) : launch_k3_dec<8>(K3D_ARGS);
+#undef K3D_ARGS
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, values and y share it).  mode (the
@@ -2189,20 +2719,32 @@ extern "C" int nm_matmul(const void* x, const void* vals, const void* idx,
 // and of indices (idx_stride % 16 == 0) and 16-byte aligned bases, with G
 // (16 or 32 lanes a row) and SR (rows a ring stage); 2 = the tensor-core
 // path, which needs all that, bf16, 2:4 and b % 32 == 0, with SR = 8 or 16
-// output rows a stage (G ignored).
+// output rows a stage (G ignored); 4 = the decode-occupancy path on the
+// sparse tensor cores (bf16 2:4: see launch_k3_dec_checked) with clusters
+// of CS CTAs and an nst-stage ring, flags E · ⌈C/8⌉ bytes of scratch for
+// the vote.  G and SR are ignored at mode 4, CS, nst and flags below it.
 // Shared memory within 227 KB, as _k3_plan computes it.  Returns
 // cudaGetLastError().
 extern "C" int nm_matmul_stacked(const void* x, const void* vals,
-                                 const void* idx, void* y, int dtype,
-                                 int idx_bits, int mode, int E, int C, int c,
-                                 int b, int m, int keep, int L, int idx_stride,
-                                 int G, int SR, void* stream) {
+                                 const void* idx, void* y, void* flags,
+                                 int dtype, int idx_bits, int mode, int E,
+                                 int C, int c, int b, int m, int keep, int L,
+                                 int idx_stride, int G, int SR, int CS,
+                                 int nst, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (E <= 0 || C <= 0 || c <= 0) return static_cast<int>(cudaGetLastError());
   if (E > 65535 || (C + MAXB - 1) / MAXB > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   int err;
-  if (dtype == 0 && idx_bits == 4) {
+  if (mode == 4) {
+    if (dtype != 1 || (idx_bits != 4 && idx_bits != 8))
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_k3_dec_checked(x, vals, idx, y, static_cast<uint8_t*>(flags),
+                                idx_bits, E, C, c, b, m, keep, L, idx_stride,
+                                CS, nst, s);
+  } else if (mode < 0 || mode > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else if (dtype == 0 && idx_bits == 4) {
     err = launch_stacked<float, 4>(x, vals, idx, y, mode, E, C, c, b, m, keep,
                                    L, idx_stride, G, SR, s);
   } else if (dtype == 0 && idx_bits == 8) {

@@ -33,11 +33,19 @@ Layout (g = b/m groups, keep = m − n; K3 adds a leading expert axis E):
             (c, ⌈g·keep/2⌉)  uint8, idx_bits = 4, low nibble first
 
 K3's plain version is ``ref.nm_matmul_stacked_ref`` (``nm_matmul_stacked_
-plain``).  K3 stages each expert's activation rows in shared memory beside a
-ring of weight stages (``_k3_plan``), which bounds b: 8·⌈b/8⌉·8 elements of
-x's dtype must fit in 227 KB.  A group of 8 capacity rows that is all zero
-skips its weights (see the note in the source); ``stacked_stream_bytes``
-counts the bytes a given x makes K3 move.
+plain``).  A group of 8 capacity rows that is all zero skips its weights
+(see the notes in the source); ``stacked_stream_bytes`` counts the bytes a
+given x makes K3 move.  ``_k3_plan`` picks the kernel from (E, C, c, b,
+idx_bits) alone — the host never sees how many tokens were routed: bf16 2:4
+on the decode-occupancy kernel (mode 4,
+``nm_stacked_sp_dec_kernel``: a vote, then a persistent grid that streams
+only the active groups' 128-row weight tiles by TMA onto the sparse tensor
+cores, the K range split over a cluster where the active tiles are few),
+elsewhere on the older stacked kernels, which stage each expert's 8
+activation rows in shared memory beside a ring of weight stages (bounding
+b: 8·⌈b/8⌉·8 elements of x's dtype must fit in 227 KB) — the 8-row
+tensor-core kernel (mode 2) or the CUDA-core ring and scalar paths (modes
+1, 0).
 """
 from __future__ import annotations
 
@@ -58,7 +66,7 @@ Tensor = torch.Tensor
 __all__ = ["KernelCount", "active_row_groups", "nm_matmul_cuda",
            "nm_matmul_plain", "nm_matmul_stacked_cuda",
            "nm_matmul_stacked_plain", "nm_sp_dec", "nm_sp_rows",
-           "stacked_stream_bytes"]
+           "nm_stacked_sp_dec", "stacked_stream_bytes"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024      # bytes of shared memory a block may use
@@ -120,12 +128,14 @@ _DEC_RULE = _DecRule(one_per=1, one_waves=2, few_waves=2, few_b=2560,
 
 
 def _bind(lib: ctypes.CDLL, name: str):
-    """Entry point ``name`` of a built nm_spmm library, with its types."""
+    """Entry point ``name`` of a built nm_spmm library, with its types:
+    nm_matmul's 4 pointers and 14 ints, nm_matmul_stacked's 5 (its flags
+    scratch last) and 15, then the stream."""
     fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        ints = 14 if name == "nm_matmul" else 13
-        fn.argtypes = [p, p, p, p] + [i] * ints + [p]
+        ptrs, ints = (4, 14) if name == "nm_matmul" else (5, 15)
+        fn.argtypes = [p] * ptrs + [i] * ints + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -450,11 +460,101 @@ def _pad_to(nbytes: int, rem: int) -> int:
     return (nbytes + 127 - rem) // 128 * 128 + rem
 
 
-def _k3_plan(L: int, idx_stride: int, b: int, esize: int, aligned: bool,
-             n: int = 2, m: int = 4) -> "tuple[int, int, int, int]":
-    """K3's launch plan → (mode, G lanes a row, SR rows a ring stage,
-    dynamic shared-memory bytes), as the source lays them out.
+class _K3DecRule(NamedTuple):
+    """Where K3 takes the decode-occupancy kernel (mode 4) and its launch,
+    read off (E, C, c, b, idx_bits) only: bf16 2:4 at every C; clusters
+    of the least CS ∈ {1, 2, 4} (each CTA keeping ≥ one stage) whose
+    128-row tiles × CS reach ``tiles``, else the largest (the kernel splits
+    K over a cluster only where the active items × CS fit its grid at
+    once); a ring of ``nst`` stages in a cluster's CTAs (CS > 1) or
+    ``nst1`` in an unclustered one, cut to a CTA's share of the K range at
+    that split (at least 2), and cut further where it would not fit beside
+    the list of row groups.  The grid is every CTA that is co-resident, so
+    a shallower ring can put two CTAs on an SM."""
+    tiles: int
+    nst: int
+    nst1: int
 
+
+# fitted by tools/k3_plan_sweep.py to its digest tools/k3_plan_sweep.json
+_K3_DEC_RULE = _K3DecRule(tiles=12, nst=6, nst1=4)
+# K3's decode kernel, as in the source: tiles of K3D_BM output rows, a ring
+# of K3D_MAXST stages at most; its cluster sizes
+_K3D_BM, _K3D_MAXST = 128, 16
+_K3D_SPLITS = (1, 2, 4)
+
+
+def _k3_dec_stage(bits: int) -> int:
+    """Bytes of a stage of K3's decode ring: K2's decode stage at 128 rows
+    and N = 8."""
+    return _k2_dec_stage(_K3D_BM, _MAXB, bits)
+
+
+def _k3_dec_smem(nst: int, CS: int, EG: int, bits: int) -> int:
+    """Dynamic shared memory of K3's decode path (k3d_smem in the source):
+    1 024 bytes of alignment, the ring, a split's receive buffer (K3D_BM ·
+    8 fp32) and the list of the E · ⌈C/8⌉ row groups, 2 bytes each, in
+    whole 16 bytes."""
+    return (1024 + nst * _k3_dec_stage(bits)
+            + (_K3D_BM * _MAXB * 4 if CS > 1 else 0) + -(-2 * EG // 16) * 16)
+
+
+def _k3_dec_fits(nst: int, CS: int, EG: int, bits: int) -> bool:
+    """Whether a decode plan's shared memory fits in 227 KB beside the
+    mbarriers (2 · K3D_MAXST + 1 of 8 bytes) and 64 bytes of static data."""
+    return (_k3_dec_smem(nst, CS, EG, bits) + 8 * (2 * _K3D_MAXST + 1) + 64
+            <= _SMEM_LIMIT)
+
+
+def _k3_dec_plan(E: int, C: int, c: int, b: int, bits: int,
+                 rule: "_K3DecRule | None" = None
+                 ) -> "tuple[int, int, int]":
+    """K3's decode plan (mode 4) → (4, CS, nst) by ``rule``
+    (``_K3_DEC_RULE``)."""
+    rule = _K3_DEC_RULE if rule is None else rule
+    nks = -(-b // (32 * _DEC_KS))
+    tiles = -(-c // _K3D_BM)
+    CS = 1
+    for cs in _K3D_SPLITS:
+        if nks < cs:
+            break
+        CS = cs
+        if tiles * cs >= rule.tiles:
+            break
+    nst = max(2, min(rule.nst if CS > 1 else rule.nst1, -(-nks // CS)))
+    EG = E * -(-C // _MAXB)
+    while nst > 2 and not _k3_dec_fits(nst, CS, EG, bits):
+        nst -= 1
+    return 4, CS, nst
+
+
+def _k3_dec_ok(L: int, idx_stride: int, b: int, esize: int, aligned: bool,
+               n: int, m: int, E: int, C: int) -> bool:
+    """Whether K3's decode kernel takes the layout: bf16 2:4, b % 32 == 0,
+    index rows of exactly L·idx_bits/8 bytes and whole 16-byte rows (its
+    tensor map), 16-byte aligned x, values and indices (``aligned``), E ·
+    ⌈C/8⌉ < 65 536 row groups whose list fits beside a 2-stage ring."""
+    bits = 8 * idx_stride // L if L else 0
+    EG = E * -(-C // _MAXB)
+    return (aligned and esize == 2 and (n, m) == (2, 4) and 2 * L == b
+            and b % 32 == 0 and bits in (4, 8)
+            and idx_stride * 8 == L * bits and idx_stride % 16 == 0
+            and 0 < EG < 65536 and _k3_dec_fits(2, 4, EG, bits))
+
+
+@functools.lru_cache(maxsize=None)
+def _k3_plan(L: int, idx_stride: int, b: int, esize: int, aligned: bool,
+             n: int = 2, m: int = 4, E: int = 0, C: int = 0, c: int = 0,
+             x_aligned: bool = True) -> tuple:
+    """K3's launch plan → (mode, G lanes a row, SR rows a ring stage,
+    dynamic shared-memory bytes) as the source lays them out, or mode 4's
+    (4, CS, nst).
+
+    mode 4, the decode-occupancy path: where ``_k3_dec_ok`` takes the
+    layout (x also aligned, ``x_aligned``), at every C —
+    tools/k3_plan_sweep.py timed it no slower than mode 2 at every
+    occupancy it ran, decode and prefill (C = 8 … 640); plan from
+    ``_k3_dec_plan``.  Without (E, C, c) no decode plan is made.
     mode 2, the tensor-core path: bf16 2:4 with 16-byte rows of values and
     indices (and aligned bases, ``aligned``) and b % 32 == 0; 16 output rows
     a stage where they fit in ``_K3_TC_STAGE_BYTES``, else 8, x rows
@@ -467,6 +567,10 @@ def _k3_plan(L: int, idx_stride: int, b: int, esize: int, aligned: bool,
     227 KB.  The 64 bytes added to each check are the mbarriers' static
     shared memory.
     """
+    if (E and C and c
+            and _k3_dec_ok(L, idx_stride, b, esize, aligned and x_aligned,
+                           n, m, E, C)):
+        return _k3_dec_plan(E, C, c, b, 8 * idx_stride // L)
     xs = _MAXB * -(-b // 8) * 8 * esize
     row = L * esize + idx_stride
     ring_ok = aligned and L % 8 == 0 and (L * esize) % 16 == 0 and \
@@ -512,43 +616,78 @@ def stacked_stream_bytes(x: Tensor, values: Tensor, indices: Tensor) -> int:
             + E * C * c * x.element_size())
 
 
-def nm_matmul_stacked_cuda(x: Tensor, values: Tensor, indices: Tensor, *,
-                           n: int, m: int, b: int,
-                           idx_bits: int = 8) -> Tensor:
-    """Launch K3 on the current stream, one launch for the whole stack:
-    x (E, C, b) → y (E, C, c) in x's dtype."""
+def _k3_operands(x: Tensor, values: Tensor, indices: Tensor, n: int, m: int,
+                 b: int, idx_bits: int):
+    """K3's checked, contiguous operands and their launch plan →
+    (x, values, indices, plan)."""
     if values.dim() != 3:
         raise ValueError(f"K3 takes stacked (E, c, L) values, got "
                          f"{tuple(values.shape)}")
     L = _check_layout(x, values, indices, n, m, b, idx_bits)
     _check_operands(x, values, indices, "K3")
-    E, C = x.shape[0], x.shape[1]
     x = x.contiguous()
     values = values.contiguous()
     indices = indices.contiguous().view(torch.uint8)
-    stride = indices.shape[2]
-    mode, G, SR, smem = _k3_plan(
-        L, stride, b, x.element_size(),
-        all(t.data_ptr() % 16 == 0 for t in (values, indices)), n, m)
-    if smem + 64 > _SMEM_LIMIT:
+    E, C, c = x.shape[0], x.shape[1], values.shape[1]
+    plan = _k3_plan(L, indices.shape[2], b, x.element_size(),
+                    all(t.data_ptr() % 16 == 0 for t in (values, indices)),
+                    n, m, E, C, c, x.data_ptr() % 16 == 0)
+    if plan[0] != 4 and plan[3] + 64 > _SMEM_LIMIT:
         raise ValueError(f"K3 stages x in shared memory: b={b} in {x.dtype} "
-                         f"needs {smem} bytes > {_SMEM_LIMIT - 64}")
-    c = values.shape[1]
+                         f"needs {plan[3]} bytes > {_SMEM_LIMIT - 64}")
+    return x, values, indices, plan
+
+
+def _launch_k3(x: Tensor, values: Tensor, indices: Tensor, n: int, m: int,
+               b: int, idx_bits: int, plan) -> Tensor:
+    """One K3 launch under ``plan`` (checked operands, contiguous) → y.  A
+    decode plan (mode 4) takes E · ⌈C/8⌉ bytes of scratch for its vote."""
+    E, C, _ = x.shape
+    c, L = values.shape[1], values.shape[2]
     y = torch.empty((E, C, c), dtype=x.dtype, device=x.device)
     if E == 0 or C == 0 or c == 0:
         return y
+    if plan[0] == 4:
+        _, CS, nst = plan
+        flags = torch.empty((E * -(-C // _MAXB),), dtype=torch.uint8,
+                            device=x.device)
+        G = SR = 0
+        fp = flags.data_ptr()
+    else:
+        _, G, SR, _ = plan
+        CS = nst = fp = 0
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = _fn("nm_matmul_stacked")(
         x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
-        _DTYPES[x.dtype], idx_bits, mode, E, C, c, b, m, m - n, L,
-        stride, G, SR, stream)
+        fp, _DTYPES[x.dtype], idx_bits, plan[0], E, C, c, b, m, m - n, L,
+        indices.shape[2], G, SR, CS, nst, stream)
     _build.check(status, "nm_matmul_stacked")
+    return y
+
+
+def nm_matmul_stacked_cuda(x: Tensor, values: Tensor, indices: Tensor, *,
+                           n: int, m: int, b: int,
+                           idx_bits: int = 8) -> Tensor:
+    """Launch K3 on the current stream, one product launch for the whole
+    stack (its decode plan adds the vote): x (E, C, b) → y (E, C, c) in x's
+    dtype."""
+    x, values, indices, plan = _k3_operands(x, values, indices, n, m, b,
+                                            idx_bits)
+    y = _launch_k3(x, values, indices, n, m, b, idx_bits, plan)
+    if y.numel() == 0:
+        return y
+    E, C, c = y.shape
+    key = (E, C, c, b, str(x.dtype), idx_bits)
     nm_matmul_stacked_cuda.launches += 1
-    nm_matmul_stacked_cuda.by_shape[(E, C, c, b, str(x.dtype),
-                                     idx_bits)] += 1
+    nm_matmul_stacked_cuda.by_shape[key] += 1
+    if plan[0] == 4:
+        nm_stacked_sp_dec.launches += 1
+        nm_stacked_sp_dec.by_shape[key] += 1
     return y
 
 
 nm_matmul_stacked_cuda.launches = 0
 nm_matmul_stacked_cuda.by_shape = collections.Counter()
-
+# the K3 launches that ran the decode-occupancy kernel (plan mode 4), a
+# subset of nm_matmul_stacked_cuda's
+nm_stacked_sp_dec = KernelCount("nm_stacked_sp_dec_kernel")

@@ -12,7 +12,9 @@ build or launch raises.
 
 Each CUDA wrapper counts the launches it makes (``launches``, and
 ``by_shape``); ``nm_spmm.nm_sp_rows`` and ``nm_spmm.nm_sp_dec`` count
-those of K2's that ran its many-row and its decode kernel.  A CUDA graph replays kernels without running the wrappers,
+those of K2's that ran its many-row and its decode kernel,
+``nm_spmm.nm_stacked_sp_dec`` those of K3's that ran its decode-occupancy
+kernel.  A CUDA graph replays kernels without running the wrappers,
 so the serving engine takes a graph's tally at capture
 (``launch_counts`` / ``take_launches``) and adds it on every replay
 (``add_launches``).
@@ -110,11 +112,11 @@ def hessian_xtx(x: Tensor) -> Tensor:
 
 def _counted() -> tuple:
     """The CUDA wrappers that count their launches (read at call time), and
-    K2's many-row and decode kernels, whose launches ``nm_matmul_cuda`` also
-    counts."""
+    K2's many-row and decode kernels and K3's decode-occupancy kernel, whose
+    launches ``nm_matmul_cuda`` / ``nm_matmul_stacked_cuda`` also count."""
     return (hessian_accum.hessian_update_cuda, nm_spmm.nm_matmul_cuda,
             nm_spmm.nm_matmul_stacked_cuda, nm_spmm.nm_sp_rows,
-            nm_spmm.nm_sp_dec)
+            nm_spmm.nm_sp_dec, nm_spmm.nm_stacked_sp_dec)
 
 
 def launch_counts() -> list:

@@ -11,7 +11,9 @@ serving on the plain path bitwise equal to the decompressed stack.
 """
 from __future__ import annotations
 
+import sys
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,10 +37,18 @@ from repro_torch.kernels import nm_spmm as K  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.serve.compressed import (CompressionDowngrade,  # noqa: E402
                                           compress_params, compressed_bytes,
                                           decompress_params)
 from test_torch_fixtures import jax_tree_to_numpy, n, t  # noqa: E402
+
+# K3's decode sweep's digest (tools/k3_plan_sweep.py on an H100) and the
+# fit of the plan's decode rule to it
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import k3_plan_sweep  # noqa: E402
+
+SWEEP = k3_plan_sweep.load()
 
 
 def _nm_mask(w, nn, m):
@@ -127,6 +137,65 @@ def test_stacked_plain_vs_pallas_and_oracle(E, C, c, b, nn, m, dtype,
         n(tref.nm_expand_stacked(tp.values, tp.indices, nn, m, b, idx_bits)),
         np.asarray(jref.nm_expand_stacked(jp.values, jp.indices, nn, m, b,
                                           idx_bits), np.float32))
+
+
+def _reduced_dispatch(T, dtype, idx_bits):
+    """qwen3-moe REDUCED's two expert leaves (gate/up (8, 32, 64), down
+    (8, 64, 32)), packed by both packages, and the x the port's moe_ffn
+    hands K3 at T tokens (a random router): [(jax pack, port pack, x)] for
+    the gate/up and the down leaf."""
+    cfg = j_get_config("qwen3-moe-30b-a3b", reduced=True)
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    _, _, jgu, tgu = _stack(E, f, d, 2, 4, dtype, seed=T, idx_bits=idx_bits)
+    _, _, jdn, tdn = _stack(E, d, f, 2, 4, dtype, seed=T + 1,
+                            idx_bits=idx_bits)
+    rng = np.random.default_rng(7 * T)
+    tdt = tgu.values.dtype
+    p = {"router": {"w": torch.from_numpy(rng.normal(size=(d, E)).astype(
+            np.float32)).to(tdt)},
+         "gate": {"w": tgu}, "up": {"w": tgu}, "down": {"w": tdn}}
+    seen = []
+    real = tops.nm_matmul_stacked
+
+    def spy(x, packed, **kw):
+        seen.append(x.clone())
+        return real(x, packed, **kw)
+
+    tops.nm_matmul_stacked = spy
+    try:
+        x = torch.from_numpy(rng.normal(size=(T, 1, d)).astype(
+            np.float32)).to(tdt)
+        tmoe.moe_ffn(p, x, cfg)
+    finally:
+        tops.nm_matmul_stacked = real
+    assert len(seen) == 3
+    return [(jgu, tgu, seen[0]), (jdn, tdn, seen[2])]
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("idx_bits", [4, 8])
+@pytest.mark.parametrize("T", [1, 4])
+def test_stacked_plain_vs_pallas_at_decode_occupancy(T, idx_bits, dtype):
+    """K3's inputs at decode occupancy — x from the REDUCED moe_ffn
+    dispatch of T = 1 and 4 tokens: C = 8 capacity rows of 8 experts, the
+    rows of the 6 (T = 1) or more experts no token was routed to exactly
+    zero — through the port's plain version against JAX's
+    ``nm_matmul_stacked(impl='pallas')`` in interpret mode and its oracle;
+    the idle groups' outputs zero.  Tolerances as the stacked cases above."""
+    tol = ({"rtol": 2e-2, "atol": 1e-2} if dtype == jnp.bfloat16
+           else {"rtol": 1e-5, "atol": 1e-5})
+    for jp, tp, x in _reduced_dispatch(T, dtype, idx_bits):
+        act = K.active_row_groups(x)
+        assert x.shape[1] == 8 and 0 < int(act.sum()) <= min(2 * T, 8)
+        y_t = K.nm_matmul_stacked_plain(x, tp.values, tp.indices, 2, 4,
+                                        tp.b, idx_bits)
+        assert int((y_t[~act[:, 0]] != 0).sum()) == 0
+        xj = jnp.asarray(n(x), dtype)
+        for y_j in (jops.nm_matmul_stacked(xj, jp, impl="pallas"),
+                    jref.nm_matmul_stacked_ref(xj, jp.values, jp.indices, 2,
+                                               4, jp.b, idx_bits)):
+            np.testing.assert_allclose(n(y_t), np.asarray(y_j, np.float32),
+                                       **tol)
 
 
 def test_stacked_dense_compressed_bitwise_and_dispatch():
@@ -261,28 +330,106 @@ def test_stacked_stream_bytes_counts_active_row_groups():
                                   pk.indices) == x_bytes + y_bytes
 
 
-@pytest.mark.parametrize("L,stride,b,esize,aligned,nm,plan", [
+# qwen3-moe-30b-a3b's two full-width leaves at decode capacity (C = 8):
+# (E, C, c) of gate/up (b = 2048) and of down (b = 768)
+GATE_UP, DOWN = (128, 8, 768), (128, 8, 2048)
+
+
+@pytest.mark.parametrize("L,stride,b,esize,aligned,nm,dec,plan", [
     # the two full-width qwen3-moe leaves, bf16 2:4 4-bit: tensor cores,
     # 8-row stages of 20 KB (gate/up) or 16-row stages of 15 KB (down),
     # x rows padded to ≡ 16 mod 128 bytes, partial tiles of 8 warps × 2
-    (1024, 512, 2048, 2, True, (2, 4),
+    (1024, 512, 2048, 2, True, (2, 4), (),
      (2, 32, 8, 3 * 8 * 2560 + 8 * 4112 + 2 * 8 * 8 * 8 * 4)),
-    (384, 192, 768, 2, True, (2, 4),
+    (384, 192, 768, 2, True, (2, 4), (),
      (2, 32, 16, 3 * 16 * 960 + 8 * 1552 + 2 * 8 * 16 * 8 * 4)),
     # fp32 or 5:8 with 16-byte rows: the ring on the CUDA cores — 32-lane
     # rows in 8-row stages, or half-warps (48 chunks) in 16-row stages
-    (1024, 1024, 2048, 4, True, (2, 4),
+    (1024, 1024, 2048, 4, True, (2, 4), (),
      (1, 32, 8, 8 * 2048 * 4 + 3 * 8 * 5120)),
-    (384, 192, 768, 4, True, (2, 4), (1, 16, 16, 8 * 768 * 4 + 3 * 16 * 1728)),
-    (384, 192, 1024, 2, True, (5, 8),
+    (384, 192, 768, 4, True, (2, 4), (),
+     (1, 16, 16, 8 * 768 * 4 + 3 * 16 * 1728)),
+    (384, 192, 1024, 2, True, (5, 8), (),
      (1, 16, 16, 8 * 1024 * 2 + 3 * 16 * 960)),
     # 4-bit index rows of 24 bytes, or unaligned bases: the scalar path
-    (48, 24, 96, 2, True, (2, 4), (0, 32, 0, 8 * 96 * 2)),
-    (1024, 512, 2048, 2, False, (2, 4), (0, 32, 0, 8 * 2048 * 2)),
-    (50, 25, 100, 4, True, (2, 4), (0, 32, 0, 8 * 104 * 4)),
+    (48, 24, 96, 2, True, (2, 4), (), (0, 32, 0, 8 * 96 * 2)),
+    (1024, 512, 2048, 2, False, (2, 4), (), (0, 32, 0, 8 * 2048 * 2)),
+    (50, 25, 100, 4, True, (2, 4), (), (0, 32, 0, 8 * 104 * 4)),
+    # the same leaves with (E, C, c) at decode capacity, 4- and 8-bit
+    # indices: the decode-occupancy kernel, (4, CS, nst) — gate/up's
+    # 6 tiles of 128 rows in clusters of 2 (16 stages: 8 a split CTA, a
+    # ring of 6), down's 16 unclustered (6 stages, a ring of 4)
+    (1024, 512, 2048, 2, True, (2, 4), GATE_UP, (4, 2, 6)),
+    (1024, 1024, 2048, 2, True, (2, 4), GATE_UP, (4, 2, 6)),
+    (384, 192, 768, 2, True, (2, 4), DOWN, (4, 1, 4)),
+    (384, 384, 768, 2, True, (2, 4), DOWN, (4, 1, 4)),
+    # prefills of 512 and 8 192 tokens (C = 40, 640) too; with x off
+    # 16-byte alignment: the mode-2 kernel
+    (1024, 512, 2048, 2, True, (2, 4), (128, 40, 768), (4, 2, 6)),
+    (1024, 512, 2048, 2, True, (2, 4), (128, 640, 768), (4, 2, 6)),
+    # 64 000 row groups: their list (125 KB) leaves a ring of 4 stages
+    (1024, 512, 2048, 2, True, (2, 4), (8000, 64, 768), (4, 2, 4)),
+    (1024, 512, 2048, 2, True, (2, 4), (*GATE_UP, False),
+     (2, 32, 8, 3 * 8 * 2560 + 8 * 4112 + 2 * 8 * 8 * 8 * 4)),
+    # fp32, or 4-bit index rows of 24 bytes (no whole 16-byte rows for the
+    # tensor map): never the decode kernel
+    (1024, 1024, 2048, 4, True, (2, 4), GATE_UP,
+     (1, 32, 8, 8 * 2048 * 4 + 3 * 8 * 5120)),
+    (48, 24, 96, 2, True, (2, 4), (5, 8, 37), (0, 32, 0, 8 * 96 * 2)),
 ])
-def test_k3_launch_plan(L, stride, b, esize, aligned, nm, plan):
-    """K3's launch plan: the path, G lanes a row, SR rows a stage, and the
-    shared memory the source lays out (x + 3 ring stages [+ the partial
-    tiles of the tensor-core path])."""
-    assert K._k3_plan(L, stride, b, esize, aligned, *nm) == plan
+def test_k3_launch_plan(L, stride, b, esize, aligned, nm, dec, plan):
+    """K3's launch plan: without (E, C, c) the path, G lanes a row, SR rows
+    a stage, and the shared memory the source lays out (x + 3 ring stages
+    [+ the partial tiles of the tensor-core path]); with them, the decode
+    kernel's plan where the rule takes the leaf."""
+    assert K._k3_plan(L, stride, b, esize, aligned, *nm, *dec) == plan
+
+
+def test_k3_dec_constants_match_the_source():
+    """The decode path's constants and shared-memory layout mirror
+    csrc/nm_spmm.cu: the ring's stages at most, the splits and tiles it
+    takes, a stage's bytes (K2's decode stage at 128 rows and N = 8) and
+    the layout."""
+    import re
+
+    src = (Path(K.__file__).parent / "csrc" / "nm_spmm.cu").read_text()
+    assert int(re.search(r"constexpr int K3D_MAXST = (\d+);", src)[1]) == \
+        K._K3D_MAXST
+    assert "(CS != 1 && CS != 2 && CS != 4)" in src
+    assert K._K3D_SPLITS == (1, 2, 4)
+    assert int(re.search(r"constexpr int K3D_BM = (\d+);", src)[1]) == \
+        K._K3D_BM
+    assert ("return 1024 + static_cast<size_t>(nst) * dec_stage(K3D_BM, "
+            "K3D_N, idx_bits) +") in src
+    assert K._k3_dec_stage(4) == 2 * 8 * 128 + 128 * 128 + 128 * 32
+    assert K._k3_dec_stage(8) == 2 * 8 * 128 + 128 * 128 + 128 * 64
+    assert K._k3_dec_smem(4, 2, 128, 4) == 1024 + 4 * 22528 + 4096 + 256
+    assert K._k3_dec_smem(3, 1, 5, 8) == 1024 + 3 * 26624 + 16
+
+
+def test_k3_dec_rule_is_the_sweeps_fit():
+    """The plan's decode rule (``_K3_DEC_RULE``) is what
+    tools/k3_plan_sweep.py fits to its digest: of the split targets and
+    rings whose plans ran no slower than the mode-2 kernel at any row of any
+    C the sweep ran, the one that takes the least time summed over the
+    sweep's C = 8 rows — so a retuned sweep that moves it, or at which
+    mode 2 wins a row, fails here until the rule is restated."""
+    assert k3_plan_sweep.fit(SWEEP) == K._K3_DEC_RULE._asdict()
+    assert k3_plan_sweep.slower(SWEEP, K._K3_DEC_RULE._asdict()) == []
+
+
+@pytest.mark.parametrize("row", k3_plan_sweep.decode_rows(SWEEP),
+                         ids=lambda r: f"{r['leaf']}-T{r['T']}-C{r['C']}")
+def test_k3_plan_at_the_sweeps_rows(row):
+    """At each occupancy the sweep timed (4-bit indices, x from the
+    dispatch, decode and prefill), the wrapper's plan for the leaf: the
+    decode kernel under the plan the tool's ``rule_plan`` reads off the
+    rule, timed there no slower than the mode-2 kernel (the slower of its two
+    timings in the row)."""
+    c, b, C = row["c"], row["b"], row["C"]
+    L = b // 2
+    plan = K._k3_plan(L, L // 2, b, 2, True, 2, 4, 128, C, c)
+    rule = K._K3_DEC_RULE
+    assert plan == (4, *k3_plan_sweep.rule_plan(rule._asdict(), c, b))
+    assert k3_plan_sweep.times(row)[plan[1:]] <= max(row["mode2"],
+                                                     row["mode2_again"])
